@@ -1,0 +1,394 @@
+"""Deployment API: put a model's weight matrices on the emulated CIM macro
+(port of ``repro/core/deployment.py``, single device).
+
+A :class:`ReliabilityPolicy` maps each leaf path to a :class:`PolicyRule`
+(glob or ``re:`` regex, a wildcard-free pattern matching any path segment,
+first match wins, then the default). :class:`CIMDeployment` owns the packed
+stores and passthrough leaves of a flat ``{path: tensor}`` dict and exposes
+deploy / inject / runtime / read / read_rows / stats / linear /
+serving_params.
+
+Seeds. The reference splits one ``jax.random`` key over the flat leaves of the
+params pytree; the port takes explicit per-path uint32 plane-seed dicts
+instead (``{path: {"man", "meta", "cw"}}``). Per-read dynamic seeds fold the
+base plane seeds with :func:`request_read_seeds`, exactly as the reference.
+
+Mesh placement (``.shard``) waits for ROADMAP Queue 1 item 14.
+"""
+from __future__ import annotations
+
+import dataclasses
+import fnmatch
+import re
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import align as align_lib
+from repro_torch.core import cim as cim_lib
+from repro_torch.core import faultmodels as fm_lib
+from repro_torch.core.bitops import FORMAT_NAMES, get_format
+
+VALID_PROTECTS = ("one4n", "per_weight", "none")
+VALID_FIELDS = ("full", "mantissa", "exponent_sign")
+VALID_SERVE_PATHS = ("fused", "hbm")
+VALID_INJECTS = ("static", "dynamic")
+
+
+def check_enum(name: str, value, allowed: Sequence[str], where: str) -> None:
+    """Raise ``ValueError`` with the allowed vocabulary on a bad enum value."""
+    if value not in allowed:
+        raise ValueError(
+            f"{where}: {name}={value!r} is not valid; expected one of "
+            f"{', '.join(repr(a) for a in allowed)}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyRule:
+    """One per-layer reliability setting, keyed by a leaf-path pattern."""
+
+    pattern: str = "*"
+    deploy: bool = True
+    protect: str = "one4n"
+    field: str = "full"
+    ber_scale: float = 1.0
+    n_group: int = 8
+    index: int = 2
+    row_weights: int = 16
+    fmt_name: str = "fp16"
+    serve_path: str = "fused"
+    row_cache: bool = True
+    fault_model: str = ""
+
+    def __post_init__(self):
+        where = f"PolicyRule(pattern={self.pattern!r})"
+        check_enum("protect", self.protect, VALID_PROTECTS, where)
+        check_enum("field", self.field, VALID_FIELDS, where)
+        check_enum("serve_path", self.serve_path, VALID_SERVE_PATHS, where)
+        check_enum("fmt_name", self.fmt_name, FORMAT_NAMES, where)
+        if self.ber_scale < 0:
+            raise ValueError(f"{where}: ber_scale must be >= 0, "
+                             f"got {self.ber_scale}")
+        fm_lib.parse_fault_model(self.fault_model)
+
+    @property
+    def fault_process(self):
+        return fm_lib.parse_fault_model(self.fault_model)
+
+    @property
+    def fmt(self):
+        return get_format(self.fmt_name)
+
+    @property
+    def cim_cfg(self) -> cim_lib.CIMConfig:
+        return cim_lib.CIMConfig(n_group=self.n_group, index=self.index,
+                                 protect=self.protect, fmt=self.fmt,
+                                 row_weights=self.row_weights)
+
+    @property
+    def align_cfg(self) -> align_lib.AlignmentConfig:
+        return align_lib.AlignmentConfig(n_group=self.n_group,
+                                         index=self.index, fmt=self.fmt)
+
+    def matches(self, leaf_path: str) -> bool:
+        if self.pattern.startswith("re:"):
+            return re.fullmatch(self.pattern[3:], leaf_path) is not None
+        if not any(c in self.pattern for c in "*?["):
+            return self.pattern == leaf_path or \
+                self.pattern in leaf_path.split("/")
+        return fnmatch.fnmatchcase(leaf_path, self.pattern)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReliabilityPolicy:
+    """Ordered leaf-path rules (first match wins) plus a default rule."""
+
+    rules: Tuple[PolicyRule, ...] = ()
+    default: PolicyRule = PolicyRule()
+
+    def __post_init__(self):
+        object.__setattr__(self, "rules", tuple(self.rules))
+        for r in tuple(self.rules) + (self.default,):
+            if not isinstance(r, PolicyRule):
+                raise TypeError(f"policy rules must be PolicyRule, got "
+                                f"{type(r).__name__}")
+
+    def rule_for(self, leaf_path: str) -> PolicyRule:
+        for rule in self.rules:
+            if rule.matches(leaf_path):
+                return rule
+        return self.default
+
+    @property
+    def uniform(self) -> bool:
+        return not self.rules
+
+
+def _deployable(leaf) -> bool:
+    return isinstance(leaf, torch.Tensor) and leaf.ndim == 2 and \
+        leaf.is_floating_point()
+
+
+def _is_store(x) -> bool:
+    return isinstance(x, cim_lib.CIMStore)
+
+
+def _add_stats(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in ("corrected", "uncorrectable")}
+
+
+@dataclasses.dataclass(eq=False)
+class CIMDeployment:
+    """A flat ``{path: leaf}`` dict deployed under a reliability policy:
+    stores for deployed leaves, tensors for passthrough ones, plus the
+    cumulative ECC counters that eager reads fold into."""
+
+    stores: Dict[str, object]
+    ecc_stats: dict
+    policy: ReliabilityPolicy
+    rules: Dict[str, Optional[PolicyRule]]
+
+    @classmethod
+    def deploy(cls, leaves: Dict[str, torch.Tensor], policy: ReliabilityPolicy,
+               predicate: Optional[Callable] = None) -> "CIMDeployment":
+        """Align + pack every 2-D float leaf whose rule deploys (and that
+        ``predicate(path, leaf)`` admits); other leaves pass through."""
+        stores, rules = {}, {}
+        for path, leaf in leaves.items():
+            rule = policy.rule_for(path)
+            if rule.deploy and _deployable(leaf) and \
+                    (predicate is None or predicate(path, leaf)):
+                w_al, _ = align_lib.align_matrix(leaf, rule.align_cfg)
+                stores[path] = cim_lib.pack(w_al, rule.cim_cfg)
+                rules[path] = rule
+            else:
+                stores[path] = leaf
+                rules[path] = None
+        return cls(stores, {"corrected": 0, "uncorrectable": 0}, policy, rules)
+
+    def _replace_stores(self, stores) -> "CIMDeployment":
+        return CIMDeployment(stores, dict(self.ecc_stats), self.policy,
+                             self.rules)
+
+    def store_leaves(self):
+        """[(path, rule, store)] of the deployed leaves."""
+        return [(p, self.rules[p], s) for p, s in self.stores.items()
+                if _is_store(s)]
+
+    # ------------------------------------------------------------ fault state
+
+    def inject(self, seeds: Dict[str, dict], ber, field: Optional[str] = None,
+               model=None) -> "CIMDeployment":
+        """Static soft errors into every store at ``ber * rule.ber_scale`` in
+        the rule's ``field`` (or ``field`` for all), drawn from that store's
+        plane seeds ``seeds[path]``."""
+        if field is not None:
+            check_enum("field", field, VALID_FIELDS, "CIMDeployment.inject")
+        model = fm_lib.parse_fault_model(model)
+        out = {}
+        for path, leaf in self.stores.items():
+            if _is_store(leaf):
+                rule = self.rules[path]
+                out[path] = cim_lib.inject(
+                    seeds[path], leaf, ber * rule.ber_scale,
+                    field if field is not None else rule.field,
+                    model=model if model is not None else rule.fault_process)
+            else:
+                out[path] = leaf
+        return self._replace_stores(out)
+
+    def runtime(self, seeds: dict, ber, field: str = "full", model=None) -> dict:
+        """Per-read dynamic-injection runtime: base plane seeds plus the
+        per-cell-class thresholds."""
+        check_enum("field", field, VALID_FIELDS, "CIMDeployment.runtime")
+        fm_lib.check_iid(model)
+        thr_man, thr_meta = cim_lib.field_thresholds(ber, field)
+        return {"seeds": {k: int(v) for k, v in seeds.items()},
+                "thr_man": thr_man, "thr_meta": thr_meta}
+
+    # ------------------------------------------------------------ read paths
+
+    def _accumulate(self, stats) -> None:
+        self.ecc_stats = _add_stats(self.ecc_stats, stats)
+
+    def read(self):
+        """Decode every store -> ({path: tensor}, aggregated stats)."""
+        out, stats = {}, {"corrected": 0, "uncorrectable": 0}
+        for path, leaf in self.stores.items():
+            if _is_store(leaf):
+                w, st = cim_lib.read(leaf)
+                out[path] = w
+                stats = _add_stats(stats, st)
+            else:
+                out[path] = leaf
+        self._accumulate(stats)
+        return out, stats
+
+    def stats(self) -> dict:
+        """Aggregate ECC status counts without reconstructing weights."""
+        agg = {"corrected": 0, "uncorrectable": 0}
+        for _, _, s in self.store_leaves():
+            agg = _add_stats(agg, cim_lib.store_stats(s))
+        return agg
+
+    def _leaf(self, path: str):
+        if path not in self.stores:
+            raise KeyError(f"no leaf at path {path!r}; deployment has "
+                           f"{sorted(self.stores)}")
+        return self.stores[path], self.rules[path]
+
+    def read_rows(self, idx, path: str = "embed", *, seeds=None, thr_man=0,
+                  thr_meta=0, model=None):
+        leaf, _ = self._leaf(path)
+        if not _is_store(leaf):
+            return leaf.to(torch.float32)[idx]
+        return cim_lib.read_rows(leaf, idx, seeds=seeds, thr_man=thr_man,
+                                 thr_meta=thr_meta, model=model)
+
+    def linear(self, x, path: str, *, scalars=None, request=None, runtime=None,
+               with_info: bool = False, model=None):
+        """``x [..., K] @ leaf(path) -> [..., J]``, route auto-dispatched
+        (:func:`dispatch_linear`; ``serve_path='hbm'`` decodes once).
+        ``request=(req_salt, pos)`` with a ``runtime`` derives the per-read
+        dynamic-injection scalars of that read."""
+        from repro_torch.kernels.cim_read import ops as cr_ops
+        if request is not None:
+            if scalars is not None:
+                raise ValueError(f"linear({path!r}): pass either scalars= or "
+                                 f"request=, not both")
+            if runtime is None:
+                raise ValueError(f"linear({path!r}): request= needs the "
+                                 f"runtime= dict (see CIMDeployment.runtime)")
+            req_salt, pos = request
+            seeds = request_read_seeds(runtime["seeds"], leaf_salt(path),
+                                       req_salt, pos)
+            scalars = cr_ops.make_scalars(seeds, runtime["thr_man"],
+                                          runtime["thr_meta"])
+        leaf, rule = self._leaf(path)
+        if not _is_store(leaf):
+            if scalars is not None:
+                raise ValueError(f"linear({path!r}): scalars given, but the "
+                                 f"leaf is a passthrough — no stored cells")
+            out = x @ leaf.to(x.dtype)
+            return (out, {"route": "passthrough"}) if with_info else out
+        if rule.serve_path == "hbm":
+            if scalars is not None:
+                raise ValueError(f"linear({path!r}): scalars given, but the "
+                                 f"rule pins serve_path='hbm'")
+            w, st = cim_lib.read(leaf)
+            self._accumulate(st)
+            out = x.to(torch.float32) @ w
+            return (out, {"route": "hbm"}) if with_info else out
+        return dispatch_linear(x, leaf, scalars=scalars, with_info=with_info,
+                               model=model)
+
+    # ------------------------------------------------------------ serving
+
+    def serving_params(self, *, dynamic_seeds=None, ber: float = 0.0,
+                       field: str = "full", row_cache: bool = True,
+                       model=None) -> dict:
+        """The ``{path: leaf}`` dict the model's steps read.
+
+        Fused rules keep their stores packed; ``serve_path='hbm'`` rules are
+        decoded up front. Static fused serving warms the decoded-row cache of
+        stores whose rule has ``row_cache=True`` (dispatch then serves a
+        plain matmul against it). With ``dynamic_seeds`` and ``ber > 0`` the
+        ``_cim`` per-read dynamic-injection runtime rides along and every
+        read bypasses the cache."""
+        dynamic = dynamic_seeds is not None and ber > 0
+        out = {}
+        for path, leaf in self.stores.items():
+            rule = self.rules[path]
+            if _is_store(leaf) and rule.serve_path == "hbm":
+                w, st = cim_lib.read(leaf)
+                self._accumulate(st)
+                out[path] = w
+            elif (_is_store(leaf) and rule.serve_path == "fused" and row_cache
+                  and rule.row_cache and not dynamic and leaf.cache is None):
+                out[path] = cim_lib.build_row_cache(leaf)
+            else:
+                out[path] = leaf
+        if dynamic:
+            out["_cim"] = self.runtime(dynamic_seeds, ber, field, model=model)
+        return out
+
+    # ------------------------------------------------------------ accounting
+
+    def bit_cost(self) -> dict:
+        stored = raw = byts = 0
+        for _, rule, s in self.store_leaves():
+            stored += s.stored_bits
+            raw += int(np.prod(s.shape)) * rule.fmt.total_bits
+            byts += s.stored_bytes
+        return {"stored_bits": int(stored), "raw_bits": int(raw),
+                "stored_bytes": int(byts),
+                "overhead": (stored / raw - 1.0) if raw else 0.0}
+
+
+# ---------------------------------------------------------------------------
+# Per-request counter-PRNG seed derivation:
+#   plane seed --fold leaf_salt--> --fold request_salt--> --fold pos--> seed
+# (every link cim.fold_seed; no request salt skips that link).
+# ---------------------------------------------------------------------------
+
+CIM_LEAF_SALTS = {"embed": 0x1001, "unembed": 0x2002}
+_REQUEST_SALT_CONST = 0x7FEED5A1
+
+
+def leaf_salt(path: str) -> int:
+    """Per-macro seed salt of a deployed leaf (FNV-1a of the path for paths
+    other than embed/unembed)."""
+    if path in CIM_LEAF_SALTS:
+        return CIM_LEAF_SALTS[path]
+    h = 0x811C9DC5
+    for ch in path.encode():
+        h = ((h ^ ch) * 0x01000193) & 0xFFFFFFFF
+    return h
+
+
+def request_salt(request_id: int) -> int:
+    """uint32 counter-PRNG salt of a serving request id."""
+    return cim_lib.fold_seed(_REQUEST_SALT_CONST, request_id)
+
+
+def request_read_seeds(seeds: dict, leaf_salt_: int, req_salt, pos) -> dict:
+    """Fold base plane seeds down to one (leaf, request, read) stream set."""
+    out = {k: cim_lib.fold_seed(v, leaf_salt_) for k, v in seeds.items()}
+    if req_salt is not None:
+        out = {k: cim_lib.fold_seed(v, req_salt) for k, v in out.items()}
+    return {k: cim_lib.fold_seed(v, pos) for k, v in out.items()}
+
+
+# ---------------------------------------------------------------------------
+# Dispatch: the single place that picks the route of a CIM matmul or gather.
+# ---------------------------------------------------------------------------
+
+
+def dispatch_linear(x, store, *, scalars=None, with_info: bool = False,
+                    model=None):
+    """Route ``x @ store``: a warmed decoded-row cache serves static reads as
+    a plain matmul; everything else goes to :func:`cim_linear_store` (the
+    fused kernel on the card). Dynamic ``scalars`` always bypass the
+    cache."""
+    from repro_torch.kernels.cim_read import ops as cr_ops
+    if scalars is None and store.cache is not None:
+        b_shape = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        out = (x2 @ store.cache).reshape(*b_shape, store.shape[1])
+        if with_info:
+            return out, {"used_kernel": False, "route": "cached"}
+        return out
+    return cr_ops.cim_linear_store(x, store, scalars=scalars,
+                                   with_info=with_info, model=model,
+                                   device=store.device)
+
+
+def dispatch_read_rows(store, idx, *, seeds=None, thr_man=0, thr_meta=0,
+                       model=None):
+    """Row-gather route: decode-on-read off the packed image; a warmed cache
+    serves static gathers."""
+    if seeds is None and store.cache is not None:
+        return store.cache[idx]
+    return cim_lib.read_rows(store, idx, seeds=seeds, thr_man=thr_man,
+                             thr_meta=thr_meta, model=model)

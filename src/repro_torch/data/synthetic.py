@@ -1,0 +1,35 @@
+"""Deterministic synthetic data (port of ``MarkovLM`` in
+``repro/data/synthetic.py``; numpy throughout, so batches are identical)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class MarkovLM:
+    """Fixed-seed first-order Markov chain over the vocabulary with sparse
+    transitions."""
+
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    branching: int = 4
+    seed: int = 1234
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self.successors = rng.integers(
+            0, self.vocab_size, (self.vocab_size, self.branching))
+
+    def batch(self, step: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(hash((self.seed, step)) % 2 ** 32)
+        toks = np.empty((self.batch_size, self.seq_len + 1), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab_size, self.batch_size)
+        choices = rng.integers(0, self.branching,
+                               (self.batch_size, self.seq_len))
+        for t in range(self.seq_len):
+            toks[:, t + 1] = self.successors[toks[:, t], choices[:, t]]
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -1,0 +1,35 @@
+// Counter-PRNG flip masks shared by the cim_read kernels.
+//
+// Contract (repro/core/cim.py, repro/kernels/fault_inject/kernel.py): bit p
+// of the word at C-order flat store index e flips iff
+//     hash_u32((e * 32 + p) ^ seed * 0x9E3779B9) < threshold
+// with wrapping uint32 arithmetic throughout.
+#pragma once
+#include <cstdint>
+
+__device__ __forceinline__ uint32_t hash_u32(uint32_t z) {
+  // murmur3 32-bit finalizer
+  z ^= z >> 16;
+  z *= 0x85EBCA6Bu;
+  z ^= z >> 13;
+  z *= 0xC2B2AE35u;
+  z ^= z >> 16;
+  return z;
+}
+
+// Flip mask over the lanes set in `lanes` for the word at flat index `elem`;
+// `seed_mul` is the plane seed already multiplied by 0x9E3779B9.
+__device__ __forceinline__ uint32_t flip_mask(uint32_t elem, uint32_t seed_mul,
+                                              uint32_t threshold,
+                                              uint32_t lanes) {
+  if (threshold == 0u) return 0u;
+  const uint32_t base = elem * 32u;
+  uint32_t mask = 0u;
+#pragma unroll 4
+  for (int p = 0; p < 32; ++p) {
+    if ((lanes >> p) & 1u) {
+      if (hash_u32((base + (uint32_t)p) ^ seed_mul) < threshold) mask |= 1u << p;
+    }
+  }
+  return mask;
+}

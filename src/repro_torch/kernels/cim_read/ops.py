@@ -1,0 +1,161 @@
+"""Public wrapper of the fused decode-on-read matmul (port of
+``repro/kernels/cim_read/ops.py``).
+
+``cim_linear_store`` consumes a packed :class:`~repro_torch.core.cim.CIMStore`
+directly. The route follows the tensors' device:
+
+* a CUDA store with ``protect`` in {one4n, none} and fp16 launches the
+  hand-written kernel — K1 (``cim_read_matmul_one4n``) or K2
+  (``cim_read_matmul_raw``) — or raises; it never falls back;
+* a CPU store runs the plain version (:mod:`.ref`), since no kernel runs on
+  the CPU;
+* ``per_weight`` / non-fp16 stores take the plain version on either device:
+  that is the reference's documented route for them (``_fallback``), as no
+  kernel tiles them.
+
+``info['used_kernel']`` says whether a kernel launched.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitpack
+from repro_torch.core import faultmodels as fm_lib
+from repro_torch.device import resolve_device
+from repro_torch.kernels.cim_read import kernel as kernel_lib
+from repro_torch.kernels.cim_read import ref
+from repro_torch.kernels.cim_read.ref import cim_read_ref
+
+# The kernels' fixed tile (csrc/cim_read.cu): BM output rows x BN columns,
+# walking K in BK-row chunks; 256 threads a block.
+BLOCK_M, BLOCK_N, BLOCK_K = 16, 64, 64
+MAX_CW_WORDS = 512
+MAX_PAYLOAD_BITS = 512
+# Shared memory a block may use on the H100 (227 KB of the SM's 256 KB).
+H100_SMEM_PER_BLOCK = 232_448
+
+
+def make_scalars(seeds=None, thr_man=0, thr_meta=0, off_k=0, off_j=0,
+                 model=None) -> np.ndarray:
+    """uint32[9] scalar vector of the fused kernels (``ref.SCALAR_*``):
+    thresholds, the three plane seeds, shard offsets and the fault-model
+    slots. Zero thresholds mean static serving."""
+    seeds = seeds or {}
+    m_thr, m_len = fm_lib.model_scalars(model)
+    vals = [thr_man, thr_meta, seeds.get("man", 0), seeds.get("meta", 0),
+            seeds.get("cw", 0), off_k, off_j, m_thr, m_len]
+    return np.asarray([int(v) & 0xFFFFFFFF for v in vals], np.uint32)
+
+
+def resolve_tiles(store, m: int) -> dict:
+    """The kernel tile for one store, checked against its layout quanta and
+    the card's shared memory: ``BLOCK_N`` must hold whole ``row_weights``
+    groups, ``BLOCK_K`` whole exponent blocks (and whole 32-row sign words
+    for ``protect='none'``). The reference budgets 8 MiB of TPU VMEM for a
+    full-K strip; a Hopper block has 227 KB, so the kernels walk K in 64-row
+    chunks instead, with the decoded [64, 64] fp32 tile (16 KB) in shared
+    memory. Raises ``NotImplementedError`` for a geometry the kernels do not
+    tile."""
+    cfg = store.cfg
+    n, rw = cfg.n_group, cfg.row_weights
+    k_pad, j_pad = store.man.shape
+    if BLOCK_K % n or BLOCK_N % rw or j_pad % 16:
+        raise NotImplementedError(
+            f"cim_read kernels tile n_group dividing {BLOCK_K} and row_weights "
+            f"dividing {BLOCK_N} (got n_group={n}, row_weights={rw})")
+    smem = BLOCK_M * BLOCK_K * 4 + BLOCK_K * BLOCK_N * 5     # x, w, exponents
+    if cfg.protect == "one4n":
+        codec = cfg.codec
+        cw_words = (BLOCK_K // n) * (BLOCK_N // rw) * codec.n_segments \
+            * codec.codeword_words
+        if cw_words > MAX_CW_WORDS or codec.payload_bits > MAX_PAYLOAD_BITS \
+                or codec.codeword_words > 4:
+            raise NotImplementedError(
+                f"cim_read one4n kernel: codeword geometry too large "
+                f"({cw_words} words, {codec.payload_bits} payload bits a chunk)")
+        smem += MAX_CW_WORDS * 4 + MAX_PAYLOAD_BITS * 2 + 8 * 4 * 4
+    else:
+        smem += (BLOCK_K // 32) * BLOCK_N * 4
+    assert smem <= H100_SMEM_PER_BLOCK
+    return {"block_m": BLOCK_M, "block_n": BLOCK_N, "block_k": BLOCK_K,
+            "grid": (-(-j_pad // BLOCK_N), -(-max(m, 1) // BLOCK_M)),
+            "smem_bytes": smem}
+
+
+def _kernel_call(x2: torch.Tensor, store, scalars) -> torch.Tensor:
+    cfg = store.cfg
+    k_log, j_log = store.shape
+    k_pad, j_pad = store.man.shape
+    dynamic = scalars is not None
+    sc = scalars if dynamic else make_scalars()
+    fmt = cfg.fmt
+    common = dict(k_log=k_log, n_out=j_log, n_group=cfg.n_group,
+                  man_bits=fmt.man_bits, exp_bits=fmt.exp_bits, bias=fmt.bias,
+                  store_j=j_pad, dynamic=dynamic)
+    if cfg.protect == "one4n":
+        codec = cfg.codec
+        code = codec.code
+        return kernel_lib.cim_read_matmul_one4n(
+            x2, store.man, store.codewords, sc, row_weights=cfg.row_weights,
+            n_segments=codec.n_segments, code_words=codec.codeword_words,
+            segment_bits=codec.segment_bits, n_body=code.n_body, r=code.r,
+            payload_bits=codec.payload_bits,
+            word_masks=np.concatenate([
+                bitpack.word_masks(code.n_body, 4),
+                bitpack.word_masks(code.n, 4)]),
+            store_g=j_pad // cfg.row_weights, **common)
+    return kernel_lib.cim_read_matmul_raw(
+        x2, store.man, store.exp, store.sign, sc, store_k=k_pad, **common)
+
+
+def _check_planes(store, dev: torch.device) -> None:
+    for name in ("man", "sign", "exp", "codewords"):
+        p = getattr(store, name)
+        if p is None:
+            continue
+        if p.device != dev:
+            raise ValueError(f"cim_linear_store: store.{name} is on {p.device}, "
+                             f"expected {dev}")
+        if not p.is_contiguous():
+            raise ValueError(f"cim_linear_store: store.{name} must be "
+                             f"contiguous")
+
+
+def cim_linear_store(x: torch.Tensor, store, *, scalars=None, model=None,
+                     with_info: bool = False, device=None):
+    """Fused linear layer on a packed CIM store: ``x [..., K] -> [..., J]``.
+
+    ``scalars=None`` serves the image as stored. Per-read dynamic injection
+    passes ``make_scalars(seeds, thr_man, thr_meta)``: the kernel then draws
+    the :func:`repro_torch.core.cim.inject_with_seeds` flip streams on the
+    words it loads, before decoding. ``device`` (default ``cuda``) names
+    where ``x`` and the store must lie; a ``cuda`` request with no card
+    raises. Returns the output, or ``(out, info)`` with ``with_info``."""
+    dev = resolve_device(device)
+    if x.device != dev:
+        raise ValueError(f"cim_linear_store: x is on {x.device}, expected {dev}")
+    _check_planes(store, dev)
+    fm_lib.check_iid(model)
+    cfg = store.cfg
+    k_log, j_log = store.shape
+    b_shape = x.shape[:-1]
+    if x.shape[-1] != k_log:
+        raise ValueError(f"cim_linear_store: x has K={x.shape[-1]}, store "
+                         f"{store.shape}")
+    x2 = x.reshape(-1, k_log).to(torch.float32).contiguous()
+    if scalars is not None and (int(scalars[ref.SCALAR_OFF_K])
+                                or int(scalars[ref.SCALAR_OFF_J])):
+        raise NotImplementedError("shard offsets wait for the sharded twin "
+                                  "(ROADMAP Queue 1 item 14)")
+
+    kernel_route = cfg.protect in ("one4n", "none") and cfg.fmt.name == "fp16"
+    if kernel_route and dev.type == "cuda":
+        tiles = resolve_tiles(store, x2.shape[0])
+        out = _kernel_call(x2, store, scalars)
+        info = {"used_kernel": True, "route": "kernel", "tiles": tiles}
+    else:
+        out, _ = cim_read_ref(x2, store, scalars, model=model)
+        info = {"used_kernel": False, "route": "plain"}
+    out = out.reshape(*b_shape, j_log)
+    return (out, info) if with_info else out

@@ -1,0 +1,42 @@
+"""Plain PyTorch version of the fused decode-on-read matmul (port of
+``repro/kernels/cim_read/ref.py``).
+
+It states what kernels K1/K2 compute: draw the dynamic flips into the image
+with :func:`repro_torch.core.cim.inject_with_seeds` (when ``scalars`` carry
+nonzero thresholds), decode the whole matrix with :func:`cim.read`, then run
+one fp32 matmul. The CPU tests run it in place of the kernels, and
+``chip_smoke.py`` holds the kernels against it on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import cim as cim_lib
+
+# uint32[9] scalar layout of the fused kernels (repro/kernels/cim_read/
+# kernel.py SCALAR_*); thresholds of 0 mean "no flips".
+SCALAR_THR_MAN = 0
+SCALAR_THR_META = 1
+SCALAR_SEED_MAN = 2
+SCALAR_SEED_META = 3
+SCALAR_SEED_CW = 4
+SCALAR_OFF_K = 5
+SCALAR_OFF_J = 6
+SCALAR_M_THR = 7
+SCALAR_M_LEN = 8
+
+
+def scalar_seeds(scalars) -> dict:
+    return {"man": int(scalars[SCALAR_SEED_MAN]),
+            "meta": int(scalars[SCALAR_SEED_META]),
+            "cw": int(scalars[SCALAR_SEED_CW])}
+
+
+def cim_read_ref(x2: torch.Tensor, store, scalars=None, model=None):
+    """x [M, K] @ decode(store [K, J]) -> ([M, J] f32, decode stats)."""
+    if scalars is not None:
+        store = cim_lib.inject_with_seeds(
+            store, scalar_seeds(scalars), int(scalars[SCALAR_THR_MAN]),
+            int(scalars[SCALAR_THR_META]), model=model)
+    w, stats = cim_lib.read(store)
+    return x2.to(torch.float32) @ w, stats

@@ -1,0 +1,246 @@
+"""Lock-step serving launcher (port of ``repro/launch/serve.py``).
+
+Batched prefill + greedy decode of an LM whose CIM-deployed matrices are
+served from the packed SRAM image:
+
+* ``--serve-path fused`` (default): ``embed`` and ``unembed`` stay packed;
+  the embed table is decoded row by row at gather time and the unembed runs
+  through the fused decode-on-read kernel (``kernels/cim_read``).
+  ``--inject static`` flips the image once (the unembed then serves from its
+  decoded-row cache); ``--inject dynamic`` draws fresh counter-PRNG faults
+  in-kernel on every read, keyed by the read index.
+* ``--serve-path hbm``: inject + ECC-decode once, serve the decoded copies.
+
+  python -m repro_torch.launch.serve --arch olmo-1b --batch 4 \\
+      --prompt-len 64 --gen 32 --cim --ber 1e-4 --inject dynamic
+
+Runs on ``cuda`` unless ``--device cpu`` is given; with no card it raises.
+
+Seeds: weights come from ``torch.Generator(device).manual_seed(seed)``; the
+fault seeds from :func:`default_seeds`. Neither equals the reference
+launcher's: its weights and seeds come from ``jax.random`` (threefry), which
+the port does not reimplement. :func:`serve` takes explicit seed dicts, which
+is how the parity tests replay the reference's streams.
+
+``--engine``, ``--fleet``, ``--mesh``, ``--expert-cim``, ``--scrub`` and
+``--fault-model`` wait (ROADMAP Queue 1 items 9-14).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core import cim as cim_lib
+from repro_torch.core import deployment as dep_lib
+from repro_torch.data.synthetic import MarkovLM
+from repro_torch.device import resolve_device
+from repro_torch.kernels.cim_read import kernel as kernel_lib
+from repro_torch.models.lm import LM
+
+_SEED_SALT = 0x5EED
+
+
+def serving_policy(*, protect: str, n_group: int, index: int,
+                   field: str = "full", serve_path: str = "fused"
+                   ) -> dep_lib.ReliabilityPolicy:
+    """``fused``: embed (no row cache: served by row gathers) and unembed
+    (row cache for static serving) deploy; ``hbm``: every deployable leaf,
+    decoded once."""
+    rule = dep_lib.PolicyRule(pattern="*", protect=protect, n_group=n_group,
+                              index=index, field=field, serve_path=serve_path)
+    if serve_path == "hbm":
+        return dep_lib.ReliabilityPolicy(rules=(), default=rule)
+    return dep_lib.ReliabilityPolicy(
+        rules=(dataclasses.replace(rule, pattern="embed", row_cache=False),
+               dataclasses.replace(rule, pattern="unembed", row_cache=True)),
+        default=dep_lib.PolicyRule(deploy=False))
+
+
+def default_seeds(seed: int):
+    """(static per-path plane seeds, dynamic base plane seeds) from ``seed``.
+
+    Rule: ``np.random.SeedSequence([seed, 0x5EED]).generate_state(9,
+    np.uint32)`` gives nine words, taken in order as the (man, meta, cw)
+    seeds of the embed image, of the unembed image, and of the per-read
+    dynamic runtime."""
+    w = [int(v) for v in np.random.SeedSequence(
+        [int(seed), _SEED_SALT]).generate_state(9, np.uint32)]
+    planes = lambda a: {"man": a[0], "meta": a[1], "cw": a[2]}   # noqa: E731
+    return {"embed": planes(w[0:3]), "unembed": planes(w[3:6])}, planes(w[6:9])
+
+
+def deploy(leaves, *, ber: float, protect: str, n_group: int, index: int,
+           seeds: dict):
+    """HBM path: align -> pack -> (inject) -> read. Returns the decoded
+    leaves and the ECC stats of the read."""
+    policy = serving_policy(protect=protect, n_group=n_group, index=index,
+                            serve_path="hbm")
+    dep = dep_lib.CIMDeployment.deploy(leaves, policy)
+    if ber > 0:
+        dep = dep.inject(seeds, ber, field="full")
+    return dep.read()
+
+
+def make_deployment(leaves, *, ber: float, protect: str, n_group: int,
+                    index: int, seeds: dict, inject_mode: str, field: str
+                    ) -> dep_lib.CIMDeployment:
+    """Fused path: align -> pack; static faults go into the image."""
+    policy = serving_policy(protect=protect, n_group=n_group, index=index,
+                            field=field, serve_path="fused")
+    dep = dep_lib.CIMDeployment.deploy(leaves, policy)
+    if ber > 0 and inject_mode == "static":
+        dep = dep.inject(seeds, ber, field=field)
+    return dep
+
+
+def serving_kw(*, ber: float, dynamic_seeds: dict, inject_mode: str,
+               field: str) -> dict:
+    """The ``serving_params`` kwargs of this launch."""
+    dynamic = ber > 0 and inject_mode == "dynamic"
+    return dict(dynamic_seeds=dynamic_seeds if dynamic else None,
+                ber=ber if dynamic else 0.0, field=field)
+
+
+def fused_report(params: dict) -> dict:
+    """Image bytes and ECC status counts of the packed leaves."""
+    rep = {"stores": 0, "cached": 0, "packed_bytes": 0, "fp16_bytes": 0,
+           "corrected": 0, "uncorrectable": 0}
+    for leaf in params.values():
+        if isinstance(leaf, cim_lib.CIMStore):
+            rep["stores"] += 1
+            rep["cached"] += leaf.cache is not None
+            rep["packed_bytes"] += leaf.stored_bytes
+            rep["fp16_bytes"] += 2 * leaf.shape[0] * leaf.shape[1]
+            st = cim_lib.store_stats(leaf)
+            rep["corrected"] += st["corrected"]
+            rep["uncorrectable"] += st["uncorrectable"]
+    return rep
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
+          seed: int = 0, cim: bool = False, ber: float = 0.0,
+          protect: str = "one4n", n_group: int = 8, index: int = 2,
+          serve_path: str = "fused", inject: str = "static",
+          field: str = "full", static_seeds=None, dynamic_seeds=None,
+          verbose: bool = True) -> dict:
+    """Lock-step serve of one MarkovLM batch. Returns the generated tokens
+    [B, gen], the prefill logits, ECC counts, timings and the kernel launches
+    of the run."""
+    dep_lib.check_enum("serve_path", serve_path, dep_lib.VALID_SERVE_PATHS,
+                       "serve")
+    dep_lib.check_enum("inject", inject, dep_lib.VALID_INJECTS, "serve")
+    cfg = model.cfg
+    device = model.embed.device
+    d_static, d_dynamic = default_seeds(seed)
+    static_seeds = static_seeds or d_static
+    dynamic_seeds = dynamic_seeds or d_dynamic
+
+    params, ecc, report = None, {"corrected": 0, "uncorrectable": 0}, None
+    if cim or ber > 0:
+        leaves = model.cim_leaves()
+        if serve_path == "fused":
+            dep = make_deployment(leaves, ber=ber, protect=protect,
+                                  n_group=n_group, index=index,
+                                  seeds=static_seeds, inject_mode=inject,
+                                  field=field)
+            params = dep.serving_params(**serving_kw(
+                ber=ber, dynamic_seeds=dynamic_seeds, inject_mode=inject,
+                field=field))
+            report = fused_report(params)
+            ecc = {k: report[k] for k in ecc}
+            if verbose:
+                print(f"CIM fused serve: {report['stores']} weight matrices "
+                      f"stay packed ({report['packed_bytes'] / 1e6:.2f} MB "
+                      f"image vs {report['fp16_bytes'] / 1e6:.2f} MB decoded "
+                      f"fp16); {report['cached']} carry a decoded-row cache; "
+                      f"corrected={ecc['corrected']} "
+                      f"uncorrectable={ecc['uncorrectable']}")
+        else:
+            params, ecc = deploy(leaves, ber=ber, protect=protect,
+                                 n_group=n_group, index=index,
+                                 seeds=static_seeds)
+            if verbose:
+                print(f"CIM deploy (hbm): protect={protect} ber={ber:.1e} "
+                      f"corrected={ecc['corrected']} "
+                      f"uncorrectable={ecc['uncorrectable']}")
+
+    data = MarkovLM(cfg.vocab_size, prompt_len, batch, seed=seed)
+    prompts = torch.as_tensor(data.batch(0)["tokens"], dtype=torch.int64,
+                              device=device)
+    before = dict(kernel_lib.launch_counts)
+    with torch.inference_mode():
+        _sync(device)
+        t0 = time.perf_counter()
+        first_logits, caches = model.prefill(prompts, params,
+                                             max_len=prompt_len + gen)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        toks = first_logits.argmax(-1)[:, None]
+        out = [toks]
+        t1 = time.perf_counter()
+        for _ in range(gen - 1):
+            logits, caches = model.decode(caches, toks, params)
+            toks = logits.argmax(-1)[:, None]
+            out.append(toks)
+        _sync(device)
+        decode_s = time.perf_counter() - t1
+    launches = {k: v - before[k] for k, v in kernel_lib.launch_counts.items()}
+    n_tok = batch * (gen - 1)
+    res = {"tokens": torch.cat(out, dim=1).cpu().numpy(),
+           "prefill_logits": first_logits, "ecc": ecc, "report": report,
+           "prefill_s": prefill_s, "decode_s": decode_s,
+           "tok_per_s": n_tok / max(decode_s, 1e-9), "launches": launches}
+    if verbose:
+        print(f"prefill: {batch}x{prompt_len} in "
+              f"{prefill_s * 1e3:.1f} ms; decode: {res['tok_per_s']:.1f} "
+              f"tok/s; kernel launches {launches}; "
+              f"sample: {res['tokens'][0, :16].tolist()}")
+    return res
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cim", action="store_true", help="serve via CIM image")
+    ap.add_argument("--ber", type=float, default=0.0)
+    ap.add_argument("--protect", default="one4n",
+                    choices=["one4n", "per_weight", "none"])
+    ap.add_argument("--n-group", type=int, default=8)
+    ap.add_argument("--index", type=int, default=2)
+    ap.add_argument("--serve-path", default="fused", choices=["fused", "hbm"])
+    ap.add_argument("--inject", default="static", choices=["static", "dynamic"])
+    ap.add_argument("--field", default="full",
+                    choices=["full", "mantissa", "exponent_sign"])
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = LM(cfg, generator=gen, device=device)
+    return serve(model, batch=args.batch, prompt_len=args.prompt_len,
+                 gen=args.gen, seed=args.seed, cim=args.cim, ber=args.ber,
+                 protect=args.protect, n_group=args.n_group, index=args.index,
+                 serve_path=args.serve_path, inject=args.inject,
+                 field=args.field)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,168 @@
+"""Decoder LM, ``attn`` block kind (port of ``repro/models/lm.py``).
+
+The reference stacks the layers into scan groups ([L, ...] leaves); the port
+holds one :class:`Block` module per layer. Only ``embed`` [V, D] and
+``unembed`` [D, V] are 2-D in the reference's layout, so they are the only
+leaves a deployment packs (:meth:`LM.cim_leaves`).
+
+Serving reads the two CIM leaves from a ``params`` dict (``{"embed",
+"unembed"}`` -> tensor or :class:`~repro_torch.core.cim.CIMStore`, plus an
+optional ``"_cim"`` dynamic-injection runtime) — what
+:meth:`CIMDeployment.serving_params` returns. A CIMStore embed is decoded row
+by row at gather time; a CIMStore unembed goes through
+:func:`~repro_torch.core.deployment.dispatch_linear`, the fused kernel on the
+card. Without ``params`` the module's own weights serve.
+
+The continuous-batching slot-state API waits (ROADMAP Queue 1 item 9).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.core import cim as cim_lib
+from repro_torch.core import deployment as dep_lib
+from repro_torch.device import resolve_device
+from repro_torch.kernels.cim_read import ops as cr_ops
+from repro_torch.models.attention import Attention
+from repro_torch.models.common import apply_norm, embed_init
+from repro_torch.models.mlp import MLP
+
+
+class Block(nn.Module):
+    """``attn`` kind: norm -> attention -> residual, norm -> MLP -> residual."""
+
+    def __init__(self, cfg, *, generator=None, device=None):
+        super().__init__()
+        if cfg.norm_type != "nonparametric_ln":
+            raise NotImplementedError(
+                f"norm_type={cfg.norm_type!r} waits (ROADMAP Queue 1 item 12)")
+        self.cfg = cfg
+        self.attn = Attention(cfg, generator=generator, device=device)
+        self.mlp = MLP(cfg, generator=generator, device=device)
+
+    def norm(self, x):
+        return apply_norm(self.cfg.norm_type, {}, x)
+
+    def prefill(self, x, positions):
+        """-> (x, k, v) with k/v the layer's decode-cache rows."""
+        out, k, v = self.attn.full(self.norm(x), positions)
+        x = x + out
+        return x + self.mlp(self.norm(x)), k, v
+
+    def decode(self, x, cache, pos: int):
+        out, cache = self.attn.decode(self.norm(x), cache, pos)
+        x = x + out
+        return x + self.mlp(self.norm(x)), cache
+
+
+def _cim_read_state(params, pos: int, leaf: str):
+    """(per-plane seeds, thr_man, thr_meta) of one CIM read, or
+    (None, 0, 0) when no ``_cim`` runtime rides in ``params`` (static
+    reads). Seeds fold per leaf and read index ``pos`` (the per-request
+    salt of the engine waits with the engine)."""
+    rt = params.get("_cim")
+    if rt is None:
+        return None, 0, 0
+    seeds = dep_lib.request_read_seeds(rt["seeds"], dep_lib.leaf_salt(leaf),
+                                       None, pos)
+    return seeds, rt["thr_man"], rt["thr_meta"]
+
+
+def _embed_lookup(params, cfg, tokens, pos: int = 0):
+    """Token embedding gather; a CIMStore leaf decodes only the gathered rows
+    (:func:`dispatch_read_rows`)."""
+    emb = params["embed"]
+    if isinstance(emb, cim_lib.CIMStore):
+        seeds, tm, tt = _cim_read_state(params, pos, "embed")
+        rows = dep_lib.dispatch_read_rows(emb, tokens, seeds=seeds,
+                                          thr_man=tm, thr_meta=tt)
+        return rows.to(cfg.cdtype())
+    return emb.to(cfg.cdtype())[tokens]
+
+
+def _unembed_logits(params, x, pos: int = 0):
+    """Final projection; a CIMStore leaf routes through
+    :func:`dispatch_linear` (the fused decode-on-read kernel on the card)."""
+    w_un = params["unembed"]
+    if isinstance(w_un, cim_lib.CIMStore):
+        seeds, tm, tt = _cim_read_state(params, pos, "unembed")
+        scalars = cr_ops.make_scalars(seeds, tm, tt) \
+            if seeds is not None else None
+        return dep_lib.dispatch_linear(x, w_un, scalars=scalars)
+    return x @ w_un.to(x.dtype)
+
+
+class LM(nn.Module):
+    """olmo-family decoder: embed -> Blocks -> final norm -> unembed. Built on
+    ``device`` (default ``cuda``; pass ``"cpu"`` for the plain path)."""
+
+    def __init__(self, cfg, *, generator: Optional[torch.Generator] = None,
+                 device=None):
+        super().__init__()
+        if tuple(cfg.block_pattern) != ("attn",) or cfg.modality != "text":
+            raise NotImplementedError(
+                f"{cfg.arch_id}: only the text 'attn' block kind is ported "
+                f"(ROADMAP Queue 1 item 12)")
+        self.cfg = cfg
+        device = resolve_device(device)   # None means cuda; raises without one
+        dt = cfg.pdtype()
+        self.embed = nn.Parameter(embed_init(
+            (cfg.vocab_size, cfg.d_model), generator=generator, device=device,
+            dtype=dt))
+        self.unembed = nn.Parameter(embed_init(
+            (cfg.d_model, cfg.vocab_size), generator=generator, device=device,
+            dtype=dt))
+        self.blocks = nn.ModuleList(
+            [Block(cfg, generator=generator, device=device)
+             for _ in range(cfg.n_layers)])
+        self.requires_grad_(False)   # serving port; training waits
+
+    def cim_leaves(self) -> dict:
+        """The leaves the reference's deployment can pack: its only 2-D
+        weights (the block weights are layer-stacked 3-D tensors there)."""
+        return {"embed": self.embed.detach(), "unembed": self.unembed.detach()}
+
+    def _params(self, params):
+        p = {"embed": self.embed, "unembed": self.unembed}
+        p.update(params or {})
+        return p
+
+    def _final(self, x):
+        return apply_norm(self.cfg.norm_type, {}, x)
+
+    def prefill(self, tokens: torch.Tensor, params=None, max_len=None):
+        """tokens [B, S] -> (last-token logits [B, V], caches). Caches hold
+        ``max_len`` (default S) positions; reads happen at read index 0."""
+        cfg = self.cfg
+        params = self._params(params)
+        x = _embed_lookup(params, cfg, tokens, pos=0)
+        b, s, _ = x.shape
+        max_len = max_len or s
+        positions = torch.arange(s, dtype=torch.int64,
+                                 device=x.device)[None].expand(b, s)
+        layers = []
+        for blk in self.blocks:
+            x, k, v = blk.prefill(x, positions)
+            cache = {"k": k.new_zeros((b, max_len) + k.shape[2:]),
+                     "v": v.new_zeros((b, max_len) + v.shape[2:])}
+            cache["k"][:, :s] = k
+            cache["v"][:, :s] = v
+            layers.append(cache)
+        x = self._final(x[:, -1:])
+        logits = _unembed_logits(params, x, pos=0)[:, 0]
+        return logits, {"layers": layers, "pos": s}
+
+    def decode(self, caches, tokens: torch.Tensor, params=None):
+        """One decode step at read index ``caches['pos']``. tokens [B, 1] ->
+        (logits [B, V], caches); the caches update in place."""
+        params = self._params(params)
+        pos = caches["pos"]
+        x = _embed_lookup(params, self.cfg, tokens, pos=pos)
+        for blk, cache in zip(self.blocks, caches["layers"]):
+            x, _ = blk.decode(x, cache, pos)
+        x = self._final(x)
+        logits = _unembed_logits(params, x, pos=pos)[:, 0]
+        return logits, {"layers": caches["layers"], "pos": pos + 1}
