@@ -5,8 +5,12 @@
 
 Phases (any failed check raises and exits non-zero; no result is printed):
 
-1. build the hand-written CUDA kernels K1 (cim_read_matmul_one4n) and K2
-   (cim_read_matmul_raw) with nvcc for sm_90a;
+1. build the hand-written CUDA kernels with nvcc for sm_90a, one nvcc per
+   source, started together: K1 (cim_read_matmul_one4n) and K2
+   (cim_read_matmul_raw) from cim_read.cu, K3 (fault_inject_batched) and K4
+   (fault_inject) from fault_inject.cu; read K3's hash bodies from the SASS
+   (cuobjdump) and check both hash multiplies are IMADs, which the bound of
+   phase 7 counts on the FMA pipe apart from the ALU work;
 2. hold each kernel against its plain PyTorch version at the full-width
    olmo-1b unembed shape (K=2048, J=50304, n_group=8): the identity probe
    gives the decoded weights exactly; a dense [4, 2048] input agrees within
@@ -24,8 +28,35 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    launch its kernel once per read (gen times); the clean fused and hbm arms must give
    equal greedy tokens; a reduced olmo-1b served through the kernels must
    match the port's plain CPU path;
-4. time each kernel at the serving shape beside its plain version, one
-   torch.matmul on the pre-decoded weights, and its memory bound.
+4. hold K3/K4 against their plain versions on the card, bit for bit: the
+   full-width one4n unembed image's mantissa and codeword planes and the
+   none image's exponent and sign planes at T = 4 (BER 1e-3), a ragged
+   [1000, 777] uint16 plane at thresholds 0 and 0xFFFFFFFF; K4 is driven
+   through its entry point fault_inject_fp16 on the full-width unembed
+   weights for each field (its main path: counts zeroed just before, read
+   just after) at BER 1e-3, where its double threshold is one below the
+   sweep's float32 one; a plane of 2^27 + 1 elements must raise;
+5. Fig. 6 on full-width olmo-1b: characterize_protection with arms none,
+   per_weight and one4n (CIMConfig(n_group=8, index=2)), BERs 1e-5..1e-3,
+   4 trials; eval is greedy-token agreement with the fault-free deployment
+   over a 4x64 MarkovLM batch. Per arm the K3 count is zeroed just before
+   and read just after, and must equal stores x planes x BERs; none
+   corrects 0, one4n corrects > 0 at 1e-3; the one4n cells at 1e-5 (every
+   trial: agreement varies there) and at 1e-3 (trial 0: the most ECC work)
+   redone with the plain injection on the card give identical stores, ECC
+   counts (their means equal to the row's at 1e-5) and agreement; a
+   torch.profiler rerun of the one4n arm prints its top
+   device kernels and their share of the arm's wall time;
+6. Fig. 2 on the CNN (seeded init_cnn, GaussianBlobs, 1024 images): all four
+   fields, BERs 1e-6..1e-2, 8 trials, on the card (K3 count checked) and on
+   the CPU; faulted leaves bitwise equal, accuracies within 1/1024 per cell;
+7. time each kernel at its main-path shape beside its plain version and its
+   bound: K1/K2 at the serving shape with one torch.matmul on the
+   pre-decoded weights; K3 at the Fig. 6 unembed mantissa plane
+   ([2048, 50304] uint16, T = 4, 10 positions) and K4 on the same plane's
+   16 positions (no single PyTorch call computes their function), bound by
+   the busier of the ALU pipe (10 ops a draw), the FMA pipe (2 IMADs a
+   draw) and the bytes.
 
 Prints the card's name and power limit, then one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``.
@@ -33,10 +64,13 @@ line, and as its last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 K, J, N_GROUP = 2048, 50304, 8
@@ -44,9 +78,34 @@ BATCH, PROMPT, GEN = 4, 64, 32
 TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS = 67e12               # H100 SXM, float32 outside the tensor cores
+# INT32: an SM issues 64 INT32 lanes a clock against 128 FP32 lanes, and the
+# float32 rate counts an FMA as 2 operations: 67e12 / 4 INT32 ops/s. That
+# rate holds on each of two pipes: logic, shift and compare issue on the ALU
+# pipe; integer multiplies (IMAD) on the FMA pipe, alongside.
+INT32_OPS = FP32_FLOPS / 4
+# One (element, position) draw of hash_u32((e*32 + p) ^ seed*GOLD) < thr,
+# or-ed into the flip mask: 12 integer ops, of which the two multiplies go to
+# the FMA pipe and these 10 to the ALU pipe: add, xor, three shifts, three
+# xors, compare, or. The bound takes the busier pipe; phase 1 reads the
+# compiled hash bodies from the SASS and checks the multiplies are IMADs.
+ALU_OPS_PER_DRAW, IMAD_OPS_PER_DRAW = 10, 2
+HASH_MULS = ("-0x7a143595", "-0x3d4d51cb")     # 0x85EBCA6B, 0xC2B2AE35
+ALU_OPCODES = {"LOP3", "SHF", "ISETP", "SEL", "IADD3", "LEA", "PRMT", "PLOP3",
+               "FLO", "POPC", "BMSK", "SGXT", "BREV", "IMNMX", "LOP", "SHL",
+               "SHR"}
 SOURCE = "src/repro_torch/kernels/cim_read/csrc/cim_read.cu"
+FI_SOURCE = "src/repro_torch/kernels/fault_inject/csrc/fault_inject.cu"
 REPLACES = {"cim_read_matmul_one4n": "src/repro/kernels/cim_read/kernel.py:381",
-            "cim_read_matmul_raw": "src/repro/kernels/cim_read/kernel.py:428"}
+            "cim_read_matmul_raw": "src/repro/kernels/cim_read/kernel.py:428",
+            "fault_inject_batched": "src/repro/kernels/fault_inject/kernel.py:172",
+            "fault_inject": "src/repro/kernels/fault_inject/kernel.py:86"}
+FIELDS = ("sign", "exponent", "mantissa", "full", "exponent_sign")
+FIG6_BERS, FIG6_TRIALS = (1e-5, 1e-4, 1e-3), 4
+FIG6_PROTECTS = ("none", "per_weight", "one4n")
+FIG6_PLANES = {"none": 3, "per_weight": 2, "one4n": 2}
+FIG6_BATCH, FIG6_SEQ = 4, 64
+FIG2_BERS, FIG2_TRIALS, FIG2_N = (1e-6, 1e-5, 1e-4, 1e-3, 1e-2), 8, 1024
+FIG2_FIELDS = ("sign", "exponent", "mantissa", "full")
 PROTECT_OF = {"cim_read_matmul_one4n": "one4n", "cim_read_matmul_raw": "none"}
 
 
@@ -108,13 +167,70 @@ def _time_ms(fn, reps: int = 5, inner: int = 10) -> float:
     return times[len(times) // 2]
 
 
-def phase_build(kernel_lib) -> None:
-    secs = kernel_lib.timed_build()
-    regs = [ln.strip() for ln in kernel_lib.build_log.splitlines()
-            if "registers" in ln or "Compiling entry" in ln]
-    print(f"phase 1: built K1+K2 for sm_90a in {secs:.1f} s")
-    for ln in regs:
-        print(f"  ptxas: {ln}")
+def phase_build(libs: dict) -> None:
+    """One nvcc per source, all started together (nvcc runs outside the
+    GIL, so threads overlap the builds)."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        secs = dict(zip(libs, pool.map(lambda lib: lib.timed_build(),
+                                       libs.values())))
+    print(f"phase 1: built {', '.join(libs)} for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
+    for lib in libs.values():
+        for ln in lib.build_log.splitlines():
+            if "registers" in ln or "Compiling entry" in ln:
+                print(f"  ptxas: {ln.strip()}")
+
+
+def _sass_hash_bodies(lib_path, mangled: str) -> list:
+    """The compiled hash bodies of one kernel: the runs of SASS between two
+    branches that hold the hash's first multiply, each as a list of opcodes
+    (with their immediates kept for the multiplies)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    body, bodies, inside = [], [], False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = mangled in ln
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?(\S+)\s*([^;]*);",
+                     ln)
+        if not inside or not m:
+            continue
+        op, args = m.groups()
+        if op.startswith("BRA") or op == "EXIT":
+            if any(HASH_MULS[0] in a for a in body):
+                bodies.append(body)
+            body = []
+        else:
+            body.append(f"{op} {args}")
+    return bodies
+
+
+def phase_sass(lib_path) -> None:
+    """Check the premise of K3/K4's bound: in the uint16 kernel (the Fig. 6
+    timing shape) both hash multiplies are IMADs, i.e. they issue on the FMA
+    pipe beside the ALU work; print the compiled per-draw census."""
+    from collections import Counter
+    bodies = _sass_hash_bodies(lib_path, "fault_inject_batched_kernelItLi8E")
+    _check(len(bodies) > 0, "K3 SASS: no hash body found")
+    census = Counter()
+    for body in bodies:
+        muls = [b for b in body if any(c in b for c in HASH_MULS)]
+        _check(len(muls) == 2 and all(b.startswith("IMAD ") for b in muls),
+               f"K3 SASS: hash multiplies are not two IMADs: {muls}")
+        ops = [b.split()[0].split(".")[0] for b in body]
+        census[(sum(o in ALU_OPCODES for o in ops),
+                sum(o == "IMAD" for o in ops),
+                sum(o not in ALU_OPCODES and o != "IMAD" for o in ops))] += 1
+    (alu, imad, other), n = census.most_common(1)[0]
+    print(f"phase 1: K3 SASS (uint16 x 8): {len(bodies)} hash bodies, "
+          f"{n} of them with {alu} ALU-pipe, {imad} IMAD and {other} other "
+          f"instructions a draw (bound counts {ALU_OPS_PER_DRAW} ALU, "
+          f"{IMAD_OPS_PER_DRAW} IMAD); census {dict(census)}")
 
 
 def _unembed_store(protect: str, dev):
@@ -198,15 +314,11 @@ ARMS = (  # (label, serve_path, protect, inject, ber)
 )
 
 
-def phase_serve(dev, kernel_lib) -> dict:
+def phase_serve(model, kernel_lib) -> dict:
     """The main path: full-width olmo-1b through the lock-step launcher."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve as serve_lib
-    from repro_torch.models.lm import LM
-    cfg = get_config("olmo-1b")
-    model = LM(cfg, generator=torch.Generator(device=dev).manual_seed(0),
-               device=dev)
+    cfg = model.cfg
     runs = {}
     for label, path, protect, inject, ber in ARMS:
         kernel_lib.reset_launch_counts()
@@ -242,7 +354,6 @@ def phase_serve(dev, kernel_lib) -> dict:
     _check(torch.allclose(clean["prefill_logits"], hbm["prefill_logits"],
                           rtol=TOL, atol=TOL), "clean fused vs hbm logits")
     print(f"phase 3: main-path launches {launches}; clean fused == hbm tokens")
-    del model
     return launches
 
 
@@ -273,6 +384,365 @@ def phase_reduced_reference(dev) -> None:
               f"(tokens equal, logits max err {err:.3e})")
 
 
+def _cw2d(store):
+    cw = store.codewords
+    return cw.reshape(cw.shape[0], -1)
+
+
+def _fi_planes(checks: dict) -> dict:
+    """The K3 planes of the full-width unembed images: name -> (plane,
+    positions)."""
+    one4n = checks["cim_read_matmul_one4n"]["store"]
+    none = checks["cim_read_matmul_raw"]["store"]
+    return {"one4n man": (one4n.man, range(10)),
+            "one4n codewords": (_cw2d(one4n), range(32)),
+            "none exp": (none.exp, range(5)),
+            "none sign": (none.sign, range(32))}
+
+
+def phase_fault_inject(dev, checks: dict, fi_kernel) -> dict:
+    """K3/K4 against their plain versions on the card, bit for bit; K4
+    driven through its entry point ``fault_inject_fp16``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitops
+    from repro_torch.kernels.fault_inject import ops, ref
+    seeds = np.asarray([0x1234567, 0xDEADBEEF, 7, 2 ** 31 + 11], np.uint32)
+    thr = ops.ber_to_threshold(1e-3)
+    g = torch.Generator(device=dev).manual_seed(9)
+    ragged = torch.randint(0, 2 ** 16, (1000, 777), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.uint16)
+    cases = [(name, plane, pos, thr) for name, (plane, pos)
+             in _fi_planes(checks).items()]
+    cases += [(f"ragged [1000, 777] thr {t:#x}", ragged, range(16), t)
+              for t in (0, 0xFFFFFFFF)]
+    err = {"K3": 0.0, "K4": 0.0}
+    for name, plane, pos, t in cases:
+        got = ops.fault_inject_bits_batched(plane, seeds, t, positions=pos)
+        want = ref.fault_inject_batched_ref(plane, seeds, t, positions=pos)
+        torch.cuda.synchronize()
+        err["K3"] = max(err["K3"], _word_err(got, want))
+        _check(torch.equal(got, want), f"K3 != plain on the {name} plane")
+        flips = _flipped_bits(got, plane)
+        print(f"phase 4: K3 {name} {tuple(plane.shape)} {plane.dtype} T=4: "
+              f"bitwise equal to plain, {flips} bits flipped")
+    _check(bool(torch.equal(
+        ops.fault_inject_bits_batched(ragged, seeds, 0, positions=range(16)),
+        ragged[None].expand(4, -1, -1))), "threshold 0 flipped a bit")
+
+    # K4's main path: the fault_inject_fp16 entry point on the unembed
+    w = checks["unembed_weights"]
+    fi_kernel.reset_launch_counts()
+    outs = {f: ops.fault_inject_fp16(w, seed=5, ber=1e-3, field=f)
+            for f in FIELDS}
+    k4_launches = fi_kernel.launch_counts[fi_kernel.K4]
+    _check(k4_launches == len(FIELDS) and
+           fi_kernel.launch_counts[fi_kernel.K3] == 0,
+           f"fault_inject_fp16 launched {dict(fi_kernel.launch_counts)}")
+    bits = bitops.to_bits(w)
+    _check(ref.static_threshold(1e-3) + 1 == thr, "K4 threshold rule")
+    for f, out in outs.items():
+        want = bitops.bits_to_dtype(ref.fault_inject_ref(
+            bits, seed=5, ber=1e-3,
+            positions=bitops.FP16.field_bit_positions(f)), torch.float32)
+        err["K4"] = max(err["K4"], _word_err(out.view(torch.int32),
+                                             want.view(torch.int32)))
+        _check(torch.equal(out.view(torch.int32), want.view(torch.int32)),
+               f"K4 (fault_inject_fp16 field={f}) != plain")
+    print(f"phase 4: K4 fault_inject_fp16 on the [{K}, {J}] unembed, fields "
+          f"{', '.join(FIELDS)}: bitwise equal to plain, {k4_launches} "
+          f"launches")
+    big = torch.zeros((), dtype=torch.uint16, device=dev).expand(
+        2 ** 14, 2 ** 13 + 1)
+    try:
+        ops.fault_inject_bits_batched(big, seeds, thr, positions=(0,))
+    except ValueError as refusal:
+        print(f"phase 4: 2^27 + 1 elements refused: {refusal}")
+    else:
+        raise AssertionError("chip_smoke: a 2^27 + 1 element plane was taken")
+    return {"k4_launches": k4_launches, "max_abs_err": err}
+
+
+def _word_err(a, b) -> float:
+    """Largest |a - b| over the words, as unsigned integers."""
+    import torch
+    a, b = (t.to(torch.int64) & 0xFFFFFFFF for t in (a, b))
+    return float((a - b).abs().max())
+
+
+def _flipped_bits(got, plane) -> int:
+    """Bits that differ between ``got`` [T, ...] and ``plane``."""
+    import torch
+    diff = (got.to(torch.int64) ^ plane[None].to(torch.int64)) & 0xFFFFFFFF
+    count = torch.zeros((), dtype=torch.int64, device=got.device)
+    for b in range(32):
+        count += ((diff >> b) & 1).sum()
+    return int(count)
+
+
+def phase_fig6(dev, model, fi_kernel) -> dict:
+    """Fig. 6 on full-width olmo-1b through characterize_protection."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.core import cim, resilience
+    from repro_torch.core import sweep as sweep_lib
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels.fault_inject import ref
+    from repro_torch.models import lm
+    cfg = model.cfg
+    params = convert.flat_from_lm(model)
+    toks = torch.from_numpy(MarkovLM(cfg.vocab_size, FIG6_SEQ, FIG6_BATCH,
+                                     seed=0).batch(0)["tokens"]).long().to(dev)
+    cim_cfg = cim.CIMConfig(n_group=8, index=2)
+    # the clean model is the deployed one without faults: exponent-aligned
+    # embed and unembed (alignment does not depend on the protection arm)
+    _, aligned = cim.deploy_pytree_impl(params, cim_cfg)
+    with torch.no_grad():
+        clean = lm.forward(model, aligned, toks).argmax(-1)
+    del aligned
+
+    def agreement(p):
+        with torch.no_grad():
+            return (lm.forward(model, p, toks).argmax(-1) == clean) \
+                .to(torch.float32).mean()
+
+    seeds = sweep_lib.default_seeds(6, len(FIG6_PROTECTS), len(FIG6_BERS),
+                                    FIG6_TRIALS)
+    res, launches = {}, {}
+    for a, protect in enumerate(FIG6_PROTECTS):
+        fi_kernel.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = resilience.characterize_protection(
+            seeds[a:a + 1], params, agreement, FIG6_BERS, cim_cfg=cim_cfg,
+            n_trials=FIG6_TRIALS, protects=(protect,), device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[protect] = fi_kernel.launch_counts[fi_kernel.K3]
+        want = 2 * FIG6_PLANES[protect] * len(FIG6_BERS)
+        _check(launches[protect] == want, f"Fig. 6 {protect}: {launches[protect]}"
+               f" K3 launches, expected {want} (2 stores x planes x BERs)")
+        for r in rows:
+            _check(all(0.0 <= x <= 1.0 for x in r.accuracies),
+                   f"Fig. 6 {protect}: agreement out of range")
+            print(f"phase 5: fig6 {protect} ber {r.ber:.0e}: agreement "
+                  f"{r.mean:.4f} +- {r.std:.4f}, corrected {r.corrected:.1f}, "
+                  f"uncorrectable {r.uncorrectable:.1f}")
+        print(f"phase 5: fig6 {protect}: {secs:.2f} s wall for "
+              f"{len(FIG6_BERS)} BERs x {FIG6_TRIALS} trials, "
+              f"{launches[protect]} K3 launches")
+        res[protect] = {"rows": rows, "seconds": secs}
+    _profile_arm(dev, lambda: resilience.characterize_protection(
+        seeds[-1:], params, agreement, FIG6_BERS, cim_cfg=cim_cfg,
+        n_trials=FIG6_TRIALS, protects=(FIG6_PROTECTS[-1],), device=dev),
+        res[FIG6_PROTECTS[-1]]["seconds"])
+    _check(all(r.corrected == 0 for r in res["none"]["rows"]),
+           "Fig. 6: the none arm corrected codewords")
+    _check(res["one4n"]["rows"][-1].corrected > 0,
+           "Fig. 6: one4n corrected nothing at 1e-3")
+
+    # cells again with the plain injection on the card: every trial at 1e-5,
+    # where agreement varies between trials, and trial 0 at 1e-3, where the
+    # ECC counts are largest
+    a = FIG6_PROTECTS.index("one4n")
+    stores, _ = cim.deploy_pytree_impl(params, cim.CIMConfig(
+        n_group=8, index=2, protect="one4n"))
+
+    def plain(bits, seeds_, threshold, positions, model=None):
+        return ref.fault_inject_batched_ref(bits, seeds_, threshold,
+                                            positions=tuple(positions))
+    for b, n_redo in ((0, FIG6_TRIALS), (len(FIG6_BERS) - 1, 1)):
+        row = res["one4n"]["rows"][b]
+        thr = sweep_lib.fi_ops.ber_to_threshold(FIG6_BERS[b])
+        fast = sweep_lib.cim_inject_pytree_batched(stores, seeds[a, b], thr)
+        with mock.patch.object(sweep_lib, "_inject", plain):
+            slow = sweep_lib.cim_inject_pytree_batched(
+                stores, seeds[a, b][:n_redo], thr)
+        counts, accs = [], []
+        for i in range(n_redo):
+            trial = {"kernel": sweep_lib.trial_params(fast, i),
+                     "plain": sweep_lib.trial_params(slow, i)}
+            for path in ("embed", "unembed"):
+                for plane in ("man", "codewords"):
+                    _check(torch.equal(getattr(trial["kernel"][path], plane),
+                                       getattr(trial["plain"][path], plane)),
+                           f"Fig. 6 one4n {FIG6_BERS[b]:.0e} trial {i} "
+                           f"{path}.{plane}: K3 != plain injection")
+            (wk, sk), (wp, sp) = (cim.read_pytree_impl(trial[n])
+                                  for n in ("kernel", "plain"))
+            _check(sk == sp, f"Fig. 6 ECC counts: kernel {sk} != plain {sp}")
+            acc_k, acc_p = float(agreement(wk)), float(agreement(wp))
+            _check(acc_k == acc_p == row.accuracies[i],
+                   f"Fig. 6 {FIG6_BERS[b]:.0e} trial {i} agreement: kernel "
+                   f"{acc_k}, plain {acc_p}, sweep {row.accuracies[i]}")
+            counts.append(sp)
+            accs.append(acc_p)
+            del wk, wp
+        if n_redo == FIG6_TRIALS:
+            for key in ("corrected", "uncorrectable"):
+                mean = float(np.mean([c[key] for c in counts]))
+                _check(mean == getattr(row, key), f"Fig. 6 {FIG6_BERS[b]:.0e}"
+                       f" mean {key}: plain {mean}, sweep {getattr(row, key)}")
+        print(f"phase 5: fig6 one4n ber {FIG6_BERS[b]:.0e} trials 0..{n_redo - 1}"
+              f" redone with the plain injection: stores, ECC counts {counts} "
+              f"and agreement {accs} identical")
+        del fast, slow
+    return {"launches": sum(launches.values()), "res": res}
+
+
+def _profile_arm(dev, run, wall: float) -> None:
+    """Where one Fig. 6 arm's time goes: ``torch.profiler`` over a rerun of
+    the arm; the device kernels by self time, and their sum against the
+    arm's unprofiled ``wall`` seconds (the device-busy share). A measurement
+    only: if the profiler cannot trace the card here, it says so and the run
+    goes on."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    # only the profiler's own failures are tolerated: the rerun of the arm
+    # (its K3 launches included) raises like every other check
+    try:
+        prof = profile(activities=acts)
+        prof.start()
+    except Exception as err:
+        print(f"phase 5: fig6 profile: not measured ({err!r})")
+        return
+    stop_err = None
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        try:
+            prof.stop()
+        except Exception as err:
+            stop_err = err
+    try:
+        if stop_err is not None:
+            raise stop_err
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+    except Exception as err:
+        print(f"phase 5: fig6 profile: not measured ({err!r})")
+        return
+    if not kernels:
+        print("phase 5: fig6 profile: no device time traced (not measured)")
+        return
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"phase 5: fig6 {FIG6_PROTECTS[-1]} profiled: device kernels "
+          f"{busy:.3f} s against {wall:.3f} s of unprofiled wall "
+          f"({100 * busy / wall:.1f}% busy)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}")
+
+
+def phase_fig2(dev, fi_kernel) -> int:
+    """Fig. 2 on the CNN, on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import resilience
+    from repro_torch.core import sweep as sweep_lib
+    from repro_torch.data.synthetic import GaussianBlobs
+    from repro_torch.kernels.fault_inject import ops
+    from repro_torch.models import cnn
+    cpu_params = cnn.init_cnn(torch.Generator().manual_seed(0), n_classes=16,
+                              device="cpu")
+    x, y = (torch.from_numpy(a) for a in GaussianBlobs().batch(FIG2_N, 99_999))
+    seeds = sweep_lib.default_seeds(2, len(FIG2_FIELDS), len(FIG2_BERS),
+                                    FIG2_TRIALS)
+    runs, counts = {}, {}
+    for d in (dev, torch.device("cpu")):
+        params = {k: v.to(d) for k, v in cpu_params.items()}
+        xd, yd = x.to(d), y.to(d).long()
+
+        def acc(p, xd=xd, yd=yd):
+            return (cnn.apply_cnn(p, xd).argmax(-1) == yd).to(torch.float32).mean()
+        fi_kernel.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[d.type] = resilience.characterize_fields(
+            seeds, params, acc, FIG2_BERS, fields=FIG2_FIELDS,
+            n_trials=FIG2_TRIALS, device=d)
+        secs = time.perf_counter() - t0
+        counts[d.type] = fi_kernel.launch_counts[fi_kernel.K3]
+        print(f"phase 6: fig2 cnn on {d.type}: {secs:.2f} s, "
+              f"{counts[d.type]} K3 launches")
+    launches = counts[dev.type]
+    want = len(cpu_params) * len(FIG2_FIELDS) * len(FIG2_BERS)
+    _check(launches == want, f"Fig. 2: {launches} K3 launches, expected {want}")
+    for rc, rh in zip(runs[dev.type], runs["cpu"]):
+        diff = np.abs(np.asarray(rc.accuracies) - np.asarray(rh.accuracies))
+        _check(bool((diff <= 1.0 / FIG2_N + 1e-9).all()),
+               f"Fig. 2 {rc.field} {rc.ber:.0e}: card {rc.accuracies} vs "
+               f"cpu {rh.accuracies}")
+        print(f"phase 6: fig2 {rc.field} ber {rc.ber:.0e}: card {rc.mean:.4f} "
+              f"+- {rc.std:.4f}, cpu {rh.mean:.4f} (max diff {diff.max():.4g})")
+    for a, field in enumerate(FIG2_FIELDS):
+        for b, ber in enumerate(FIG2_BERS):
+            thr = ops.ber_to_threshold(ber)
+            card = sweep_lib.inject_pytree_batched(
+                {k: v.to(dev) for k, v in cpu_params.items()}, seeds[a, b],
+                thr, field)
+            host = sweep_lib.inject_pytree_batched(cpu_params, seeds[a, b], thr,
+                                                   field)
+            for k in host:
+                _check(torch.equal(card[k].cpu().view(torch.int32),
+                                   host[k].view(torch.int32)),
+                       f"Fig. 2 {field} {ber:.0e} {k}: card leaves != cpu")
+    print("phase 6: fig2 faulted leaves bitwise equal card vs cpu for every "
+          "(field, BER, trial)")
+    return launches
+
+
+def phase_fi_times(dev, checks: dict, k3_launches: int, fi: dict,
+                   card: str) -> list:
+    """K3 at the Fig. 6 unembed mantissa plane, K4 on the same plane."""
+    import numpy as np
+    from repro_torch.kernels.fault_inject import ops, ref
+    man = checks["cim_read_matmul_one4n"]["store"].man
+    seeds = np.asarray([1, 2, 3, 4], np.uint32)
+    thr = ops.ber_to_threshold(1e-3)
+    n = man.numel()
+    rows = []
+    for name, t, pos, fn, plain in (
+            ("fault_inject_batched", 4, range(10),
+             lambda: ops.fault_inject_bits_batched(man, seeds, thr,
+                                                   positions=range(10)),
+             lambda: ref.fault_inject_batched_ref(man, seeds, thr,
+                                                  positions=range(10))),
+            ("fault_inject", 1, range(16),
+             lambda: ops.fault_inject_bits(man, seed=9, ber=1e-3,
+                                           positions=range(16)),
+             lambda: ref.fault_inject_ref(man, seed=9, ber=1e-3,
+                                          positions=range(16)))):
+        ms = _time_ms(fn)
+        plain_ms = _time_ms(plain, reps=3, inner=1)
+        nbytes = n * 2 * (1 + t)
+        hashes = n * t * len(pos)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        alu_ms = hashes * ALU_OPS_PER_DRAW / INT32_OPS * 1e3
+        imad_ms = hashes * IMAD_OPS_PER_DRAW / INT32_OPS * 1e3
+        ops_ms = max(alu_ms, imad_ms)
+        rows.append({"name": name, "route": "cuda", "source": FI_SOURCE,
+                     "replaces": REPLACES[name],
+                     "launches": k3_launches if t > 1 else fi["k4_launches"],
+                     "max_abs_err": fi["max_abs_err"]["K3" if t > 1 else "K4"],
+                     "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                     "library_ms": None, "bytes": nbytes, "hashes": hashes})
+        print(f"phase 7: {name}: {ms:.4f} ms at [{K}, {J}] uint16, T={t}, "
+              f"{len(pos)} positions; plain {plain_ms:.2f} ms; bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms (ALU pipe {alu_ms:.4f} ms, "
+              f"FMA pipe {imad_ms:.4f} ms for {hashes / 1e9:.3f} G draws, "
+              f"bytes {bytes_ms:.4f} ms for "
+              f"{nbytes / 1e6:.1f} MB) on {card}")
+    return rows
+
+
 def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
     import torch
     from repro_torch.core import cim
@@ -301,7 +771,7 @@ def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                      "library_ms": library_ms, "static_ms": ms_static,
                      "bytes": nbytes})
-        print(f"phase 4: {name}: {ms:.4f} ms dynamic, {ms_static:.4f} ms "
+        print(f"phase 7: {name}: {ms:.4f} ms dynamic, {ms_static:.4f} ms "
               f"static, plain {plain_ms:.3f} ms, torch.matmul on decoded "
               f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
               f"({nbytes / 1e6:.1f} MB) on {card}")
@@ -319,16 +789,30 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
         return 2
+    from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.kernels.cim_read import kernel as kernel_lib
+    from repro_torch.kernels.fault_inject import kernel as fi_kernel
+    from repro_torch.models.lm import LM
     dev = resolve_device("cuda")
     card = _card()
     t0 = time.perf_counter()
-    phase_build(kernel_lib)
+    phase_build({"K1+K2": kernel_lib.LIBRARY, "K3+K4": fi_kernel.LIBRARY})
+    phase_sass(fi_kernel.LIBRARY.build())
     checks = phase_kernels(dev)
-    launches = phase_serve(dev, kernel_lib)
+    model = LM(get_config("olmo-1b"),
+               generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    launches = phase_serve(model, kernel_lib)
     phase_reduced_reference(dev)
+    checks["unembed_weights"] = model.unembed.detach()
+    fi = phase_fault_inject(dev, checks, fi_kernel)
+    fig6 = phase_fig6(dev, model, fi_kernel)
+    del model
+    torch.cuda.empty_cache()
+    phase_fig2(dev, fi_kernel)
+    checks.pop("unembed_weights")
     rows = phase_times(dev, checks, launches, card)
+    rows += phase_fi_times(dev, checks, fig6["launches"], fi, card)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build start")
     print(card)
     print(json.dumps({"kernels": rows}))

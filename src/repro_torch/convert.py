@@ -1,14 +1,26 @@
-"""Carry weights and packed images across from the reference package.
+"""Carry weights and packed images across from the reference package, and
+between the port's two parameter layouts.
 
-Both functions take numpy arrays (what ``np.asarray`` makes of the
-reference's jax arrays), so this module needs neither jax nor ``repro``.
+The ``*_from_jax`` functions take numpy arrays (what ``np.asarray`` makes of
+the reference's jax arrays), so this module needs neither jax nor ``repro``.
+The reference's layout is a ``{path: tensor}`` tree in flatten order
+(:mod:`repro_torch.core.tree`) with the layers stacked under
+``groups/blk0``; :class:`repro_torch.models.lm.LM` holds one ``blocks.<i>``
+module per layer.
 """
 from __future__ import annotations
+
+from typing import Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.core import tree
 from repro_torch.core.cim import CIMConfig, CIMStore
+
+GROUP = "groups/blk0"
+BLOCK_LEAVES = {"attn": ("wk", "wo", "wq", "wv"),
+                "mlp": ("w_gate", "w_in", "w_out")}
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -18,23 +30,57 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def params_from_jax(np_params: dict, cfg, device="cpu") -> dict:
-    """The reference's olmo params pytree (numpy leaves) -> a state dict of
-    :class:`repro_torch.models.lm.LM`.
+def flat_from_jax(np_params: Mapping, device="cpu") -> dict:
+    """The reference's params pytree (numpy leaves) -> ``{path: tensor}`` in
+    its flatten order, stacked shapes kept (the sweep engine's input)."""
+    return {p: _tensor(np.asarray(a), device)
+            for p, a in tree.flatten(np_params).items()}
 
-    The reference scan-stacks the layers under ``groups/blk0`` with a leading
-    layer axis; each slice becomes one ``blocks.<i>`` module here."""
+
+def cnn_params_from_jax(np_params: Mapping, device="cpu") -> dict:
+    """The reference's ``init_cnn`` params -> the port's CNN params (HWIO
+    conv kernels, unchanged)."""
+    flat = flat_from_jax(np_params, device)
+    if set(flat) != {"conv1", "conv2", "dense", "head"}:
+        raise ValueError(f"not CNN params: {sorted(flat)}")
+    return flat
+
+
+def _check_attn(cfg) -> None:
     if tuple(cfg.block_pattern) != ("attn",):
         raise NotImplementedError("only the 'attn' block kind is ported")
-    grp = np_params["groups"]["blk0"]
-    state = {"embed": _tensor(np_params["embed"], device),
-             "unembed": _tensor(np_params["unembed"], device)}
-    for i in range(cfg.n_layers):
-        for mod in ("attn", "mlp"):
-            for name, leaf in grp[mod].items():
-                state[f"blocks.{i}.{mod}.{name}"] = _tensor(np.asarray(leaf)[i],
-                                                           device)
+
+
+def lm_state_from_flat(flat: Mapping, cfg) -> dict:
+    """Reference-layout LM params -> a state dict of
+    :class:`repro_torch.models.lm.LM`: each ``groups/blk0/...`` leaf unstacks
+    into ``blocks.<i>...`` views (no copies)."""
+    _check_attn(cfg)
+    state = {"embed": flat["embed"], "unembed": flat["unembed"]}
+    for mod, names in BLOCK_LEAVES.items():
+        for name in names:
+            for i, w in enumerate(flat[f"{GROUP}/{mod}/{name}"].unbind(0)):
+                state[f"blocks.{i}.{mod}.{name}"] = w
     return state
+
+
+def flat_from_lm(model) -> dict:
+    """An :class:`LM`'s weights -> the reference layout (the block weights
+    are stacked, a copy)."""
+    _check_attn(model.cfg)
+    flat = {"embed": model.embed.detach(), "unembed": model.unembed.detach()}
+    for mod, names in BLOCK_LEAVES.items():
+        for name in names:
+            flat[f"{GROUP}/{mod}/{name}"] = torch.stack(
+                [getattr(getattr(blk, mod), name).detach()
+                 for blk in model.blocks])
+    return tree.flatten(flat)
+
+
+def params_from_jax(np_params: Mapping, cfg, device="cpu") -> dict:
+    """The reference's olmo params pytree (numpy leaves) -> a state dict of
+    :class:`repro_torch.models.lm.LM`."""
+    return lm_state_from_flat(flat_from_jax(np_params, device), cfg)
 
 
 def store_from_numpy(planes: dict, shape, cfg: CIMConfig,

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -50,6 +51,21 @@ class FloatFormat:
     def max_mantissa_value(self) -> float:
         """M_max in the paper's Fig. 5: largest 1.M value, 2 - 2^-man_bits."""
         return 2.0 - 2.0 ** (-self.man_bits)
+
+    def field_bit_positions(self, field: str) -> np.ndarray:
+        """Bit indices (LSB=0) belonging to ``field``."""
+        if field == "sign":
+            return np.array([self.sign_shift], dtype=np.int32)
+        if field == "exponent":
+            return np.arange(self.man_bits, self.man_bits + self.exp_bits,
+                             dtype=np.int32)
+        if field == "mantissa":
+            return np.arange(0, self.man_bits, dtype=np.int32)
+        if field == "full":
+            return np.arange(0, self.total_bits, dtype=np.int32)
+        if field == "exponent_sign":  # the One4N-protected payload
+            return np.arange(self.man_bits, self.total_bits, dtype=np.int32)
+        raise ValueError(f"unknown field {field!r}")
 
 
 FP16 = FloatFormat("fp16", 16, 5, 10, torch.float16, torch.uint16)
@@ -122,6 +138,16 @@ def fp16_bits_to_f32(bits: torch.Tensor) -> torch.Tensor:
     sub = sign | (sub & 0x7FFFFFFF)
     out = torch.where(e == 0, sub, torch.where(e == 0x1F, special, normal))
     return out.to(torch.int32).view(torch.float32)
+
+
+def bits_to_dtype(bits: torch.Tensor, dtype: torch.dtype,
+                  fmt: FloatFormat = FP16) -> torch.Tensor:
+    """fp16 bit patterns -> values of ``dtype``, as the reference's
+    ``asarray(from_bits(bits), dtype)``: float32 widens bit for bit."""
+    _check_fp16(fmt)
+    if dtype == torch.float32:
+        return fp16_bits_to_f32(bits)
+    return from_bits(bits, fmt).to(dtype)
 
 
 def fields_to_f32(sign, exp, man, fmt: FloatFormat = FP16) -> torch.Tensor:

@@ -25,13 +25,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import align as align_lib
 from repro_torch.core import bitops, bitpack
 from repro_torch.core import faultmodels as fm
+from repro_torch.core import tree
 from repro_torch.core.bitops import FP16, FloatFormat
 from repro_torch.core.ecc import One4NRowCodec, SecdedCode
 from repro_torch.kernels.fault_inject.ops import ber_to_threshold, hash_u32
@@ -410,3 +412,53 @@ def read_rows(store: CIMStore, idx: torch.Tensor, seeds=None, thr_man=0,
         s_rows = (bitpack.widen(sw) >> (idx % 32)[..., None]) & 1
     w = bitops.fields_to_f32(s_rows, e_rows, man, cfg.fmt)
     return w[..., :store.shape[1]]
+
+
+# ---------------------------------------------------------------------------
+# Model level: deploy a whole parameter tree (core/tree.py order) onto
+# emulated CIM macros. The sweep engine's Fig. 6 arms run on these.
+# ---------------------------------------------------------------------------
+
+
+def _deployable(path: str, leaf) -> bool:
+    return isinstance(leaf, torch.Tensor) and leaf.ndim == 2 \
+        and leaf.is_floating_point()
+
+
+def _is_store(x) -> bool:
+    return isinstance(x, CIMStore)
+
+
+def deploy_pytree_impl(params: Mapping, cfg: CIMConfig, align_cfg=None,
+                       predicate=_deployable):
+    """Align + pack every 2-D weight; other leaves pass through (the same
+    tensors). Returns (stores, aligned), both ``{path: leaf}`` in flatten
+    order. Leaves above 2-D (layer-stacked blocks, conv kernels) stay
+    plain, as in the reference."""
+    if align_cfg is None:
+        align_cfg = align_lib.AlignmentConfig(n_group=cfg.n_group,
+                                              index=cfg.index, fmt=cfg.fmt)
+    stores, aligned = {}, {}
+    for path, leaf in tree.flatten(params).items():
+        if predicate(path, leaf):
+            w_al, _ = align_lib.align_matrix(leaf, align_cfg)
+            stores[path] = pack(w_al, cfg)
+            aligned[path] = w_al
+        else:
+            stores[path] = aligned[path] = leaf
+    return stores, aligned
+
+
+def read_pytree_impl(stores: Mapping):
+    """Decode every store -> (params, {'corrected', 'uncorrectable'} summed
+    over the stores)."""
+    out, corrected, uncorrectable = {}, 0, 0
+    for path, leaf in tree.flatten(stores).items():
+        if _is_store(leaf):
+            w, st = read(leaf)
+            out[path] = w
+            corrected += st["corrected"]
+            uncorrectable += st["uncorrectable"]
+        else:
+            out[path] = leaf
+    return out, {"corrected": corrected, "uncorrectable": uncorrectable}

@@ -1,0 +1,335 @@
+"""Characterization engine (port of ``repro/core/sweep.py``, paper §III-A).
+
+The paper's Fig. 2 / Fig. 6 evidence is a fault-injection grid over (field
+or protection arm × BER × trial). For each arm and BER the engine draws all
+T trials' faulted copies of every weight plane in one launch of the
+trial-batched counter-PRNG kernel K3 (:mod:`repro_torch.kernels.
+fault_inject`), then evaluates the trials.
+
+How it differs from the reference's engine:
+
+* one route, the counter-PRNG route (the reference's ``backend="pallas"``):
+  K3 on ``cuda``, its plain version only for ``device="cpu"``; the
+  reference's ``xla`` backend draws ``jax.random.bernoulli`` streams and
+  raises here (ROADMAP Queue 1 item 8);
+* trial randomness is explicit: each arm takes a uint32 ``[B, T]`` seed
+  array, in the order the reference's ``_trial_randomness`` consumes keys
+  (arms in plan order, one ``jax.random.bits(sub, (B, T), uint32)`` each);
+  an int seed expands through :func:`default_seeds`;
+* ``eval_fn`` runs trial by trial (one trial's decoded weights live at a
+  time); the result is the ``[B, T]`` grid the reference's ``vmap``
+  produces;
+* no trial or model mesh (ROADMAP Queue 1 item 14).
+
+Parameter trees are ``{path: tensor}`` mappings in the reference's flatten
+order (:mod:`repro_torch.core.tree`); leaf ``i`` salts its streams with
+``_salted(seeds, i)`` (Fig. 2) or ``_salted(seeds, 7*i + 1)`` (Fig. 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import bitops, bitpack, tree
+from repro_torch.core import cim as cim_lib
+from repro_torch.core import fault as fault_lib
+from repro_torch.core import faultmodels as fm_lib
+from repro_torch.core.bitops import FP16, FloatFormat
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fault_inject import kernel as fi_kernel
+from repro_torch.kernels.fault_inject import ops as fi_ops
+from repro_torch.kernels.fault_inject.ref import hash_u32
+
+M32 = 0xFFFFFFFF
+_SEED_SALT = 0x5EED2
+
+
+@dataclasses.dataclass
+class SweepResult:
+    """One (BER, arm) cell of the characterization grid."""
+
+    ber: float
+    field: str
+    protect: str            # 'raw' (plain tensors), or the protection arm
+    accuracies: List[float]
+    corrected: float = 0.0
+    uncorrectable: float = 0.0
+    fault_model: str = "iid"
+
+    @property
+    def mean(self) -> float:
+        return float(np.mean(self.accuracies))
+
+    @property
+    def std(self) -> float:
+        return float(np.std(self.accuracies))
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """Static description of a characterization grid: arms are fields
+    (Fig. 2) or protection modes (Fig. 6), times ``fault_models``."""
+
+    bers: Tuple[float, ...]
+    n_trials: int = 10
+    fields: Tuple[str, ...] = ("sign", "exponent", "mantissa", "full")
+    protects: Tuple[str, ...] = ("none", "one4n")
+    fmt: FloatFormat = FP16
+    backend: str = "auto"               # 'auto' | 'xla' | 'pallas'
+    fault_models: Tuple[str, ...] = ("iid",)
+
+    def __post_init__(self):
+        object.__setattr__(self, "bers", tuple(float(b) for b in self.bers))
+        object.__setattr__(self, "fields", tuple(self.fields))
+        object.__setattr__(self, "protects", tuple(self.protects))
+        object.__setattr__(self, "fault_models",
+                           tuple(str(m) for m in self.fault_models))
+        for m in self.fault_models:
+            fm_lib.parse_fault_model(m)        # validate the grammar eagerly
+        if self.backend not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+
+    def n_arms(self, kind: str) -> int:
+        arms = self.fields if kind == "fields" else self.protects
+        return len(self.fault_models) * len(arms)
+
+
+def default_seeds(seed: int, n_arms: int, n_bers: int,
+                  n_trials: int) -> np.ndarray:
+    """uint32 [n_arms, n_bers, n_trials] trial seeds from an int:
+    ``np.random.SeedSequence([seed, 0x5EED2]).generate_state``, in C order."""
+    words = np.random.SeedSequence([int(seed), _SEED_SALT]).generate_state(
+        n_arms * n_bers * n_trials, np.uint32)
+    return words.reshape(n_arms, n_bers, n_trials)
+
+
+def _salted(seeds: np.ndarray, salt: int) -> np.ndarray:
+    """Decorrelate the per-trial counter-PRNG streams of distinct planes."""
+    s = np.asarray(seeds, np.uint32).astype(np.int64)
+    return hash_u32(s ^ ((salt * 0x85EBCA6B + 0x9E3779B9) & M32)) \
+        .astype(np.uint32)
+
+
+def _arm_model(spec) -> Optional[fm_lib.FaultProcess]:
+    """Fault-model arm spec -> process; ``iid`` maps to ``None``."""
+    model = fm_lib.parse_fault_model(spec)
+    return None if model is not None and model.kind == "iid" else model
+
+
+def _inject(bits, seeds, threshold, positions, model=None):
+    return fi_ops.fault_inject_bits_batched(
+        bits, seeds, threshold, positions=tuple(positions), model=model)
+
+
+def inject_pytree_batched(params: Mapping, seeds, threshold: int, field: str,
+                          fmt: FloatFormat = FP16, *,
+                          predicate=fault_lib._is_injectable, model=None):
+    """Batched static injection: every injectable leaf becomes ``[T, ...]``
+    faulted copies (its ``reshape(-1, last)`` bit plane through K3, salted
+    by its flatten index); pass-through leaves become ``expand`` views.
+    Every injectable leaf's counter space is checked before any is drawn."""
+    positions = tuple(int(p) for p in fmt.field_bit_positions(field))
+    seeds = fi_kernel.seed_words(seeds)
+    t = seeds.size
+    flat = tree.flatten(params)
+    for path, leaf in flat.items():
+        if predicate(path, leaf):
+            fi_kernel.check_counter_space(leaf.numel() // leaf.shape[-1],
+                                          leaf.shape[-1])
+    out = {}
+    for i, (path, leaf) in enumerate(flat.items()):
+        if predicate(path, leaf):
+            bits = bitops.to_bits(leaf.reshape(-1, leaf.shape[-1]), fmt)
+            faulted = _inject(bits, _salted(seeds, i), threshold, positions,
+                              model)
+            out[path] = bitops.bits_to_dtype(faulted, leaf.dtype, fmt) \
+                .reshape((t,) + tuple(leaf.shape))
+        else:
+            out[path] = leaf.expand((t,) + tuple(leaf.shape))
+    return out
+
+
+def _valid_words(masks: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(masks, np.uint32)
+                            .view(np.int32)).to(device)
+
+
+def _store_inject_batched(store: cim_lib.CIMStore, seeds, threshold: int,
+                          model=None) -> cim_lib.CIMStore:
+    """Batched SRAM-plane injection (``field='full'``) on the word-packed
+    planes: K3 draws per-word flip masks and lanes that are not stored cells
+    (codeword tail words, the sign plane's ragged last word) are restored
+    to their original bits. The result's planes carry a leading [T]."""
+    seeds = fi_kernel.seed_words(seeds)
+    t = seeds.size
+    fmt = store.cfg.fmt
+    dev = store.device
+    man = _inject(store.man, _salted(seeds, 101), threshold,
+                  range(fmt.man_bits), model)
+    sign = exp = cw = None
+    if store.codewords is not None:
+        cw_arr = store.codewords
+        masks = cim_lib.codeword_valid_masks(store.cfg)
+        if cw_arr.ndim == 2:
+            # per-weight SECDED: one uint16 word per weight, n stored bits
+            positions = [p for p in range(16) if (int(masks) >> p) & 1]
+            cw = _inject(cw_arr, _salted(seeds, 102), threshold, positions,
+                         model)
+        else:
+            cw2d = cw_arr.reshape(cw_arr.shape[0], -1)     # [B, G*S*W]
+            flipped = _inject(cw2d, _salted(seeds, 102), threshold, range(32),
+                              model)
+            valid = _valid_words(np.tile(masks, cw2d.shape[1] // masks.size),
+                                 dev)
+            flipped = (flipped & valid) | (cw2d[None] & ~valid)
+            cw = flipped.reshape((t,) + tuple(cw_arr.shape))
+    else:
+        exp = _inject(store.exp, _salted(seeds, 103), threshold,
+                      range(fmt.exp_bits), model)
+        k_pad = store.man.shape[0]
+        valid = _valid_words(bitpack.word_masks(k_pad, store.sign.shape[0]),
+                             dev)[:, None]
+        sflip = _inject(store.sign, _salted(seeds, 104), threshold, range(32),
+                        model)
+        sign = (sflip & valid) | (store.sign[None] & ~valid)
+    return cim_lib.CIMStore(man=man, sign=sign, exp=exp, codewords=cw,
+                            shape=store.shape, cfg=store.cfg)
+
+
+def cim_inject_pytree_batched(stores: Mapping, seeds, threshold: int,
+                              model=None):
+    """Batched ``cim.inject_pytree``: every store gains a leading [T] on each
+    plane, every pass-through leaf an ``expand`` view (no copies)."""
+    seeds = fi_kernel.seed_words(seeds)
+    t = seeds.size
+    out = {}
+    for i, (path, leaf) in enumerate(tree.flatten(stores).items()):
+        if cim_lib._is_store(leaf):
+            out[path] = _store_inject_batched(leaf, _salted(seeds, 7 * i + 1),
+                                              threshold, model)
+        else:
+            out[path] = leaf.expand((t,) + tuple(leaf.shape))
+    return out
+
+
+def _trial_store(store: cim_lib.CIMStore, i: int) -> cim_lib.CIMStore:
+    def pick(p):
+        return None if p is None else p[i]
+    return cim_lib.CIMStore(man=pick(store.man), sign=pick(store.sign),
+                            exp=pick(store.exp), codewords=pick(store.codewords),
+                            shape=store.shape, cfg=store.cfg)
+
+
+def trial_params(batched: Mapping, i: int) -> dict:
+    """Trial ``i`` of a batched tree (stores' planes and tensors at ``i``)."""
+    return {p: _trial_store(v, i) if cim_lib._is_store(v) else v[i]
+            for p, v in batched.items()}
+
+
+class SweepEngine:
+    """Executor for characterization grids on one device.
+
+    ``run_fields`` / ``run_protection`` map (seeds, params, ``eval_fn``) to
+    :class:`SweepResult` rows in the reference's order. ``eval_fn`` takes
+    one trial's ``{path: tensor}`` params and returns a scalar accuracy."""
+
+    def __init__(self, plan: SweepPlan, device=None):
+        if plan.backend == "xla":
+            raise NotImplementedError(
+                "SweepEngine: the 'xla' backend draws jax.random streams and "
+                "is not ported (ROADMAP Queue 1 item 8); the port's engine "
+                "runs the counter-PRNG route ('pallas' / 'auto')")
+        self.plan = plan
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------- plumbing
+
+    def _flat(self, params: Mapping) -> dict:
+        flat = tree.flatten(params)
+        for path, leaf in flat.items():
+            if not isinstance(leaf, torch.Tensor):
+                raise TypeError(f"SweepEngine: leaf {path!r} is a "
+                                f"{type(leaf).__name__}, expected a tensor")
+            if leaf.device != self.device:
+                raise ValueError(f"SweepEngine: leaf {path!r} is on "
+                                 f"{leaf.device}, expected {self.device}")
+        return flat
+
+    def _seeds(self, seeds, kind: str) -> np.ndarray:
+        plan = self.plan
+        shape = (plan.n_arms(kind), len(plan.bers), plan.n_trials)
+        if isinstance(seeds, (int, np.integer)):
+            return default_seeds(int(seeds), *shape)
+        arr = fi_kernel.seed_words(seeds).reshape(-1)
+        if arr.size != int(np.prod(shape)):
+            raise ValueError(f"SweepEngine: expected uint32 seeds of shape "
+                             f"{shape} (arms, BERs, trials), got "
+                             f"{np.shape(seeds)}")
+        return arr.reshape(shape)
+
+    def _decoded(self, batched: Mapping, i: int, stats: list) -> dict:
+        """Trial ``i`` of batched stores, ECC-decoded (its counts go to
+        ``stats``); pass-through leaves stay views."""
+        restored, st = cim_lib.read_pytree_impl(trial_params(batched, i))
+        stats.append(st)
+        return restored
+
+    # ------------------------------------------------------- Fig. 2 sweeps
+
+    def run_fields(self, seeds, params: Mapping,
+                   eval_fn: Callable) -> List[SweepResult]:
+        """Fig. 2: per-field sensitivity of plain FP weights."""
+        plan = self.plan
+        flat = self._flat(params)
+        seeds = self._seeds(seeds, "fields")
+        results, arm = [], 0
+        for fm_spec in plan.fault_models:
+            fp = _arm_model(fm_spec)
+            for field in plan.fields:
+                for b, ber in enumerate(plan.bers):
+                    thr = fi_ops.ber_to_threshold(ber)
+                    corrupted = inject_pytree_batched(
+                        flat, seeds[arm, b], thr, field, plan.fmt, model=fp)
+                    accs = [float(eval_fn(trial_params(corrupted, i)))
+                            for i in range(plan.n_trials)]
+                    results.append(SweepResult(ber, field, "raw", accs,
+                                               fault_model=fm_spec))
+                arm += 1
+        return results
+
+    # ------------------------------------------------------- Fig. 6 sweeps
+
+    def run_protection(self, seeds, params: Mapping, eval_fn: Callable,
+                       cim_cfg: Optional[cim_lib.CIMConfig] = None
+                       ) -> List[SweepResult]:
+        """Fig. 6: accuracy vs BER per protection arm on the CIM deployment
+        (every 2-D weight aligned and packed; ECC counts per trial summed
+        over the stores, then averaged over the trials)."""
+        plan = self.plan
+        flat = self._flat(params)
+        seeds = self._seeds(seeds, "protection")
+        results, arm = [], 0
+        for fm_spec in plan.fault_models:
+            fp = _arm_model(fm_spec)
+            for protect in plan.protects:
+                cfg = dataclasses.replace(cim_cfg or cim_lib.CIMConfig(),
+                                          protect=protect)
+                stores, _ = cim_lib.deploy_pytree_impl(flat, cfg)
+                for b, ber in enumerate(plan.bers):
+                    thr = fi_ops.ber_to_threshold(ber)
+                    batched = cim_inject_pytree_batched(stores, seeds[arm, b],
+                                                        thr, model=fp)
+                    stats = []
+                    accs = [float(eval_fn(self._decoded(batched, i, stats)))
+                            for i in range(plan.n_trials)]
+                    del batched
+                    results.append(SweepResult(
+                        ber, "exponent_sign+mantissa", protect, accs,
+                        float(np.mean([s["corrected"] for s in stats])),
+                        float(np.mean([s["uncorrectable"] for s in stats])),
+                        fault_model=fm_spec))
+                arm += 1
+        return results

@@ -1,5 +1,6 @@
-"""Deterministic synthetic data (port of ``MarkovLM`` in
-``repro/data/synthetic.py``; numpy throughout, so batches are identical)."""
+"""Deterministic synthetic data (port of ``MarkovLM`` and ``GaussianBlobs``
+in ``repro/data/synthetic.py``; numpy throughout, so batches are
+identical)."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,3 +34,28 @@ class MarkovLM:
         for t in range(self.seq_len):
             toks[:, t + 1] = self.successors[toks[:, t], choices[:, t]]
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+@dataclasses.dataclass
+class GaussianBlobs:
+    """K-class Gaussian blobs rendered as small NHWC images (the CNN
+    benchmark task). ``batch`` returns numpy ``(x float32, y int32)``."""
+
+    n_classes: int = 16
+    image_size: int = 16
+    channels: int = 3
+    noise: float = 2.5
+    seed: int = 7
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self.centers = rng.standard_normal(
+            (self.n_classes, self.image_size, self.image_size, self.channels))
+
+    def batch(self, batch_size: int, step: int):
+        rng = np.random.default_rng(hash((self.seed, step)) % 2 ** 32)
+        y = rng.integers(0, self.n_classes, batch_size)
+        x = self.centers[y] + rng.standard_normal(
+            (batch_size, self.image_size, self.image_size,
+             self.channels)) * self.noise
+        return x.astype(np.float32), y.astype(np.int32)

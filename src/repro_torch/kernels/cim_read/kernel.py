@@ -1,10 +1,8 @@
-"""Build and bind the hand-written CUDA kernels of ``csrc/cim_read.cu``.
+"""Bind the hand-written CUDA kernels of ``csrc/cim_read.cu``.
 
-The shared library is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/repro_torch/`` at the repository root (git-ignored), named by a hash
-of the sources so an edited source is rebuilt. It exposes a plain C interface
-bound with ``ctypes``; pointers and the stream pass as ``c_void_p``. A failed
-build, a refused argument set or a non-zero ``cudaGetLastError()`` raises.
+The library is built at first use by :class:`repro_torch.kernels.nvcc.
+CudaLibrary` (nvcc, ``sm_90a``, into the git-ignored ``build/repro_torch/``).
+A refused argument set or a non-zero ``cudaGetLastError()`` raises.
 
 Each launch wrapper adds one to :data:`launch_counts` where it launches its
 kernel, and nowhere else.
@@ -12,29 +10,18 @@ kernel, and nowhere else.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.nvcc import CudaLibrary, check_rc, stream_of
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("cim_read.cu", "flip.cuh")
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 K1 = "cim_read_matmul_one4n"
 K2 = "cim_read_matmul_raw"
 launch_counts = {K1: 0, K2: 0}
-
-_lib = None
-build_log = ""
 
 
 def reset_launch_counts() -> None:
@@ -42,82 +29,22 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("cim_read: nvcc not found (needs the CUDA toolkit)")
-
-
-def _source_hash() -> str:
-    h = hashlib.sha1()
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
-
-
-def build(build_dir: Path | None = None) -> Path:
-    """Compile the kernels (if this source hash is not built yet) and return
-    the shared library's path."""
-    global build_log
-    build_dir = Path(build_dir or BUILD_DIR)
-    build_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = build_dir / f"cim_read-{_source_hash()}.so"
-    if lib_path.exists():
-        return lib_path
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / "cim_read.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"cim_read: nvcc failed ({proc.returncode}):\n"
-                           f"{build_log}")
-    os.replace(tmp, lib_path)
-    return lib_path
-
-
-def load(build_dir: Path | None = None) -> ctypes.CDLL:
-    """The bound kernel library, built on first use."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build(build_dir)))
+def _bind(lib: ctypes.CDLL) -> None:
     vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.cim_read_one4n.argtypes = [vp, vp, vp, vp] + [i] * 16 + [u, u, vp, vp, i, vp]
     lib.cim_read_one4n.restype = i
     lib.cim_read_raw.argtypes = [vp] * 5 + [i] * 10 + [u, u, vp, i, vp]
     lib.cim_read_raw.restype = i
-    _lib = lib
-    return lib
 
 
-def timed_build() -> float:
-    """Build and load the kernels; the wall seconds it took."""
-    t0 = time.perf_counter()
-    load()
-    return time.perf_counter() - t0
-
-
-def _check(rc: int, name: str) -> None:
-    if rc == -1:
-        raise ValueError(f"{name}: arguments outside what the kernel tiles")
-    if rc != 0:
-        raise RuntimeError(f"{name}: launch failed with cudaError {rc}")
+LIBRARY = CudaLibrary(CSRC / "cim_read.cu", _bind)
+load = LIBRARY.load
+timed_build = LIBRARY.timed_build
 
 
 def _scalars_arg(scalars: np.ndarray):
     arr = np.ascontiguousarray(scalars, dtype=np.uint32)
     return arr, arr.ctypes.data_as(ctypes.c_void_p)
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def cim_read_matmul_one4n(x: torch.Tensor, man: torch.Tensor, cw: torch.Tensor,
@@ -142,8 +69,8 @@ def cim_read_matmul_one4n(x: torch.Tensor, man: torch.Tensor, cw: torch.Tensor,
         x.data_ptr(), man.data_ptr(), cw.data_ptr(), out.data_ptr(), m, k_log,
         k_pad, j_pad, n_out, n_group, row_weights, n_segments, code_words,
         segment_bits, n_body, r, payload_bits, man_bits, exp_bits, bias,
-        store_g, store_j, wm_ptr, sc_ptr, int(dynamic), _stream(x))
-    _check(rc, K1)
+        store_g, store_j, wm_ptr, sc_ptr, int(dynamic), stream_of(x))
+    check_rc(rc, K1)
     launch_counts[K1] += 1
     del sc, wm
     return out
@@ -166,8 +93,8 @@ def cim_read_matmul_raw(x: torch.Tensor, man: torch.Tensor, exp: torch.Tensor,
         x.data_ptr(), man.data_ptr(), exp.data_ptr(), signw.data_ptr(),
         out.data_ptr(), m, k_log, k_pad, j_pad, n_out, signw.shape[0], n_group,
         man_bits, exp_bits, bias, store_k, store_j, sc_ptr, int(dynamic),
-        _stream(x))
-    _check(rc, K2)
+        stream_of(x))
+    check_rc(rc, K2)
     launch_counts[K2] += 1
     del sc
     return out

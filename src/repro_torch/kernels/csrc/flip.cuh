@@ -1,4 +1,5 @@
-// Counter-PRNG flip masks shared by the cim_read kernels.
+// Counter-PRNG hash and flip masks shared by every kernel of the port: the
+// cim_read decode-on-read kernels and the fault_inject kernels.
 //
 // Contract (repro/core/cim.py, repro/kernels/fault_inject/kernel.py): bit p
 // of the word at C-order flat store index e flips iff

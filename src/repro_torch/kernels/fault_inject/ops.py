@@ -1,31 +1,28 @@
-"""Counter-PRNG helpers shared by every injection path (port of
-``hash_u32`` in ``repro/kernels/fault_inject/kernel.py`` and
-``ber_to_threshold`` in ``repro/kernels/fault_inject/ops.py``).
+"""Public wrappers of the fault-injection kernels (port of
+``repro/kernels/fault_inject/ops.py``), plus the counter-PRNG helpers every
+injection path shares (``hash_u32``, ``ber_to_threshold``).
 
-The fault_inject kernels themselves wait (ROADMAP Queue 2, K3/K4).
+The route follows the plane's device: a CUDA plane launches the
+hand-written kernel — K3 (:func:`kernel.fault_inject_batched`) or K4
+(:func:`kernel.fault_inject`) — or raises; a CPU plane runs the plain
+version of :mod:`.ref`, since no kernel runs on the CPU. Nothing falls back.
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
+import torch
+
+from repro_torch.core import bitops
+from repro_torch.core import faultmodels as fm
+from repro_torch.core.bitops import FP16, FloatFormat
+from repro_torch.kernels.fault_inject import kernel as kernel_lib
+from repro_torch.kernels.fault_inject import ref
+from repro_torch.kernels.fault_inject.ref import hash_u32  # noqa: F401
 
 M32 = 0xFFFFFFFF
 _THR_SAT = np.float32(4294967040.0)
-
-
-def hash_u32(z):
-    """murmur3 32-bit finalizer with wrapping uint32 arithmetic.
-
-    Takes a Python int or an ``int64`` tensor of uint32 values. The input is
-    masked first and every product after, so every right shift is logical
-    (an int64 ``>>`` is arithmetic) and an overflowing int64 product keeps
-    its correct low 32 bits."""
-    z = z & M32
-    z = z ^ (z >> 16)
-    z = (z * 0x85EBCA6B) & M32
-    z = z ^ (z >> 13)
-    z = (z * 0xC2B2AE35) & M32
-    z = z ^ (z >> 16)
-    return z
 
 
 def ber_to_threshold(ber) -> int:
@@ -37,3 +34,49 @@ def ber_to_threshold(ber) -> int:
     if t >= _THR_SAT:
         return M32
     return int(t)
+
+
+def fault_inject_bits(bits: torch.Tensor, *, seed: int, ber: float,
+                      positions: Sequence[int]) -> torch.Tensor:
+    """Single-seed injection of a uint16 plane [R, C] (K4 on the card)."""
+    r, c = bits.shape
+    kernel_lib.check_counter_space(r, c)
+    if bits.device.type == "cuda":
+        return kernel_lib.fault_inject(bits, seed=seed, ber=ber,
+                                       positions=tuple(positions))
+    return ref.fault_inject_ref(bits, seed=seed, ber=ber,
+                                positions=tuple(positions))
+
+
+def fault_inject_bits_batched(bits: torch.Tensor, seeds, threshold, *,
+                              positions: Sequence[int],
+                              model=None) -> torch.Tensor:
+    """Trial-batched injection: bits [R, C] -> [T, R, C] (K3 on the card).
+
+    ``seeds`` is uint32 [T], ``threshold`` the uint32 of
+    :func:`ber_to_threshold`. ``model`` is a fault process: i.i.d. (and
+    ``None``) keep the threshold; the others raise ``NotImplementedError``
+    (ROADMAP Queue 1 item 2). Their ``m_thr``/``m_len`` slots stay in the
+    kernel's arguments."""
+    threshold = fm.compiled_threshold(model, threshold)
+    m_thr, m_len = fm.model_scalars(model)
+    r, c = bits.shape
+    kernel_lib.check_counter_space(r, c)
+    if bits.device.type == "cuda":
+        return kernel_lib.fault_inject_batched(
+            bits, seeds, threshold, positions=tuple(positions), m_thr=m_thr,
+            m_len=m_len)
+    return ref.fault_inject_batched_ref(bits, seeds, threshold,
+                                        positions=tuple(positions))
+
+
+def fault_inject_fp16(w: torch.Tensor, *, seed: int, ber: float,
+                      field: str = "full",
+                      fmt: FloatFormat = FP16) -> torch.Tensor:
+    """Field-targeted injection on an fp16-grid float tensor (kernel path);
+    the result has ``w``'s dtype and shape."""
+    shape = w.shape
+    bits = bitops.to_bits(w.reshape(-1, shape[-1]), fmt)
+    positions = tuple(int(p) for p in fmt.field_bit_positions(field))
+    out = fault_inject_bits(bits, seed=seed, ber=ber, positions=positions)
+    return bitops.bits_to_dtype(out, w.dtype, fmt).reshape(shape)

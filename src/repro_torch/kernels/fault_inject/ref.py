@@ -1,0 +1,76 @@
+"""Plain PyTorch versions of the fault-injection kernels (port of
+``repro/kernels/fault_inject/ref.py``; same counter-based PRNG).
+
+They state what K3/K4 compute. Words are widened to ``int64`` and masked to
+32 bits (as :func:`hash_u32` takes them), then narrowed back to the plane's
+storage type. The CPU route of :mod:`.ops` runs them, and the tests
+and ``chip_smoke.py`` hold the kernels to them.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels.fault_inject.kernel import seed_words, static_threshold
+
+M32 = 0xFFFFFFFF
+GOLD = 0x9E3779B9
+
+
+def hash_u32(z):
+    """murmur3 32-bit finalizer with wrapping uint32 arithmetic.
+
+    Takes a Python int or an ``int64`` tensor of uint32 values. The input is
+    masked first and every product after, so every right shift is logical
+    (an int64 ``>>`` is arithmetic) and an overflowing int64 product keeps
+    its correct low 32 bits."""
+    z = z & M32
+    z = z ^ (z >> 16)
+    z = (z * 0x85EBCA6B) & M32
+    z = z ^ (z >> 13)
+    z = (z * 0xC2B2AE35) & M32
+    z = z ^ (z >> 16)
+    return z
+
+
+def _elem(r: int, c: int, device) -> torch.Tensor:
+    return torch.arange(r * c, dtype=torch.int64, device=device).reshape(r, c)
+
+
+def _flip(bits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    wide = bits.to(torch.int64) & M32
+    return (wide ^ mask).to(bits.dtype)
+
+
+def fault_inject_ref(bits: torch.Tensor, *, seed: int, ber: float,
+                     positions: Sequence[int]) -> torch.Tensor:
+    """K4's function: ``positions`` of ``bits [R, C]`` flipped at rate
+    ``ber`` from one seed (double-precision threshold)."""
+    r, c = bits.shape
+    threshold = static_threshold(ber)
+    elem = _elem(r, c, bits.device)
+    seed_mul = (int(seed) * GOLD) & M32
+    mask = torch.zeros((r, c), dtype=torch.int64, device=bits.device)
+    for p in positions:
+        z = ((elem * 32 + int(p)) & M32) ^ seed_mul
+        mask |= (hash_u32(z) < threshold).to(torch.int64) << int(p)
+    return _flip(bits, mask)
+
+
+def fault_inject_batched_ref(bits: torch.Tensor, seeds, threshold, *,
+                             positions: Sequence[int]) -> torch.Tensor:
+    """K3's function: ``[R, C]`` x seeds ``[T]`` -> ``[T, R, C]``; trial t
+    equals :func:`fault_inject_ref` at ``seed=seeds[t]`` for a matching
+    threshold."""
+    r, c = bits.shape
+    threshold = int(threshold) & M32
+    elem = _elem(r, c, bits.device)[None]                        # [1, R, C]
+    seeds = torch.from_numpy(seed_words(seeds).astype("int64")).to(bits.device)
+    seed_mul = ((seeds * GOLD) & M32)[:, None, None]              # [T, 1, 1]
+    mask = torch.zeros((seeds.numel(), r, c), dtype=torch.int64,
+                       device=bits.device)
+    for p in positions:
+        z = ((elem * 32 + int(p)) & M32) ^ seed_mul
+        mask |= (hash_u32(z) < threshold).to(torch.int64) << int(p)
+    return _flip(bits[None], mask)

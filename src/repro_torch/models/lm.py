@@ -13,15 +13,20 @@ by row at gather time; a CIMStore unembed goes through
 :func:`~repro_torch.core.deployment.dispatch_linear`, the fused kernel on the
 card. Without ``params`` the module's own weights serve.
 
+:meth:`LM.forward` returns full-sequence logits (the reference's
+``lm.forward`` for inference); :func:`forward` runs it on a parameter tree
+in the reference's layout, as the sweep engine hands one to an ``eval_fn``.
+
 The continuous-batching slot-state API waits (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 from torch import nn
 
+from repro_torch import convert
 from repro_torch.core import cim as cim_lib
 from repro_torch.core import deployment as dep_lib
 from repro_torch.device import resolve_device
@@ -133,6 +138,18 @@ class LM(nn.Module):
     def _final(self, x):
         return apply_norm(self.cfg.norm_type, {}, x)
 
+    def forward(self, tokens: torch.Tensor, params=None) -> torch.Tensor:
+        """tokens [B, S] -> logits [B, S, V] at every position (no caches,
+        reads at read index 0)."""
+        params = self._params(params)
+        x = _embed_lookup(params, self.cfg, tokens, pos=0)
+        b, s, _ = x.shape
+        positions = torch.arange(s, dtype=torch.int64,
+                                 device=x.device)[None].expand(b, s)
+        for blk in self.blocks:
+            x = blk.prefill(x, positions)[0]
+        return _unembed_logits(params, self._final(x), pos=0)
+
     def prefill(self, tokens: torch.Tensor, params=None, max_len=None):
         """tokens [B, S] -> (last-token logits [B, V], caches). Caches hold
         ``max_len`` (default S) positions; reads happen at read index 0."""
@@ -166,3 +183,13 @@ class LM(nn.Module):
         x = self._final(x)
         logits = _unembed_logits(params, x, pos=pos)[:, 0]
         return logits, {"layers": caches["layers"], "pos": pos + 1}
+
+
+def forward(model: LM, params: Mapping, tokens: torch.Tensor) -> torch.Tensor:
+    """The reference's ``lm.forward(params, cfg, batch)`` for inference:
+    ``params`` is a ``{path: tensor}`` tree in the reference's layout
+    (layer-stacked ``groups/blk0/...`` leaves, :func:`convert.flat_from_jax`)
+    and replaces ``model``'s weights for this call only (views, no copies).
+    Returns logits [B, S, V]."""
+    state = convert.lm_state_from_flat(params, model.cfg)
+    return torch.func.functional_call(model, state, (tokens,))

@@ -163,3 +163,16 @@ def test_counter_prng_helpers():
         assert int(j_thr(ber)) == ber_to_threshold(ber), ber
     for seed, i in ((0, 0), (12345, 7), (0xFFFFFFFF, 0x2002), (99, 2 ** 31)):
         assert int(j_cim.fold_seed(jnp.uint32(seed), i)) == t_cim.fold_seed(seed, i)
+
+
+@pytest.mark.parametrize("field", ["sign", "exponent", "mantissa", "full",
+                                   "exponent_sign"])
+def test_field_bit_positions(field):
+    want = j_bitops.FP16.field_bit_positions(field)
+    got = bitops.FP16.field_bit_positions(field)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_field_bit_positions_rejects_unknown_field():
+    with pytest.raises(ValueError, match="unknown field"):
+        bitops.FP16.field_bit_positions("payload")
