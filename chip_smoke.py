@@ -8,7 +8,8 @@ Phases (any failed check raises and exits non-zero; no result is printed):
 1. build the hand-written CUDA kernels with nvcc for sm_90a, one nvcc per
    source, started together: K1 (cim_read_matmul_one4n) and K2
    (cim_read_matmul_raw) from cim_read.cu, K3 (fault_inject_batched) and K4
-   (fault_inject) from fault_inject.cu; read K3's hash bodies from the SASS
+   (fault_inject) from fault_inject.cu, K5 (bfp_matmul) from bfp_matmul.cu;
+   read K3's hash bodies from the SASS
    (cuobjdump) and check both hash multiplies are IMADs, which the bound of
    phase 7 counts on the FMA pipe apart from the ALU work;
 2. hold each kernel against its plain PyTorch version at the full-width
@@ -56,10 +57,29 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    ([2048, 50304] uint16, T = 4, 10 positions) and K4 on the same plane's
    16 positions (no single PyTorch call computes their function), bound by
    the busier of the ALU pipe (10 ops a draw), the FMA pipe (2 IMADs a
-   draw) and the bytes.
+   draw) and the bytes; K5 on the trained unembed's BFP planes at M = 4
+   (decode-shaped, bound by bytes) and M = 1024 (the phase 9 batch, bound
+   by fp32 FMAs), beside torch.matmul over the pre-dequantized matrix;
+8. train full-width olmo-1b (weights from a seeded generator) through
+   run_training with a one-rule align policy (n_group 8, index 2) for 4
+   steps of MarkovLM(vocab, 128, 8), the launcher's defaults: per-step loss,
+   grad norm and ms, the peak device memory; every loss finite, and after
+   the last step every aligned leaf's weights carry their block's frozen
+   exponent and their frozen sign, bitwise; the result's deployment prints
+   its one4n stored bits. Then 3 steps of reduced olmo-1b from one state on
+   the card and on the CPU: losses within 1e-4 relative, parameters within
+   one fp16 ulp;
+9. pack the trained unembed [2048, 50304] with pack_bfp and serve the
+   final-normed hidden states of an 8 x 128 batch (M = 1024) through
+   cim_linear: K5 must launch (its count zeroed before phase 8, read just
+   after this call), agree with the dense product within rtol = atol = 2e-4
+   and with its plain version within 1e-5; the identity probe must give the
+   trained unembed bitwise; ragged shapes, n_group 4 and 16 and bf16 x
+   against the plain version.
 
-Prints the card's name and power limit, then one ``{"kernels": [...]}``
-line, and as its last line ``{"ok": true, "device": {...}}``.
+Phases run in the order 1-6, 8, 9, 7. Prints the card's name and power
+limit, then one ``{"kernels": [...]}`` line, and as its last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -95,10 +115,12 @@ ALU_OPCODES = {"LOP3", "SHF", "ISETP", "SEL", "IADD3", "LEA", "PRMT", "PLOP3",
                "SHR"}
 SOURCE = "src/repro_torch/kernels/cim_read/csrc/cim_read.cu"
 FI_SOURCE = "src/repro_torch/kernels/fault_inject/csrc/fault_inject.cu"
+BFP_SOURCE = "src/repro_torch/kernels/bfp_matmul/csrc/bfp_matmul.cu"
 REPLACES = {"cim_read_matmul_one4n": "src/repro/kernels/cim_read/kernel.py:381",
             "cim_read_matmul_raw": "src/repro/kernels/cim_read/kernel.py:428",
             "fault_inject_batched": "src/repro/kernels/fault_inject/kernel.py:172",
-            "fault_inject": "src/repro/kernels/fault_inject/kernel.py:86"}
+            "fault_inject": "src/repro/kernels/fault_inject/kernel.py:86",
+            "bfp_matmul": "src/repro/kernels/bfp_matmul/kernel.py:54"}
 FIELDS = ("sign", "exponent", "mantissa", "full", "exponent_sign")
 FIG6_BERS, FIG6_TRIALS = (1e-5, 1e-4, 1e-3), 4
 FIG6_PROTECTS = ("none", "per_weight", "one4n")
@@ -107,6 +129,16 @@ FIG6_BATCH, FIG6_SEQ = 4, 64
 FIG2_BERS, FIG2_TRIALS, FIG2_N = (1e-6, 1e-5, 1e-4, 1e-3, 1e-2), 8, 1024
 FIG2_FIELDS = ("sign", "exponent", "mantissa", "full")
 PROTECT_OF = {"cim_read_matmul_one4n": "one4n", "cim_read_matmul_raw": "none"}
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 128   # the train launcher's defaults
+REDUCED_STEPS, REDUCED_LR = 3, 1e-3            # tests/test_torch_train.py's
+REDUCED_MIN_TRAVEL = 4                         # fp16 ulps, median
+LOSS_RTOL = 1e-4
+DENSE_TOL = 2e-4        # tests/test_system.py: cim_linear vs x @ w
+BFP_TOL = 1e-5          # tests/test_kernels.py: kernel vs its plain version
+BFP_RAGGED = ((5, 72, 40, 8, "float32"), (3, 512, 130, 8, "float32"),
+              (130, 520, 128, 8, "float32"), (4, 512, 256, 4, "float32"),
+              (64, 256, 96, 16, "float32"), (4, 512, 256, 8, "bfloat16"),
+              (200, 520, 130, 8, "bfloat16"))
 
 
 def _check(ok: bool, what: str) -> None:
@@ -778,6 +810,268 @@ def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
     return rows
 
 
+def _align_rule_run(steps: int, **kw):
+    from repro_torch.configs import RunConfig
+    from repro_torch.core.deployment import PolicyRule, ReliabilityPolicy
+    return RunConfig(steps=steps, checkpoint_dir="", **kw,
+                     policy=ReliabilityPolicy(default=PolicyRule(
+                         protect="one4n", n_group=N_GROUP, index=2)))
+
+
+def _fp16_ulps(a, b):
+    """|a - b| in fp16 ulps, per element, for tensors on the fp16 grid."""
+    import torch
+    return (a.cpu().to(torch.float16).view(torch.int16).to(torch.int32)
+            - b.cpu().to(torch.float16).view(torch.int16).to(torch.int32)).abs()
+
+
+def _check_frozen(state) -> int:
+    """Every aligned leaf's weights carry their block's frozen exponent and
+    their frozen sign, bitwise; one leaf at a time. Returns the weights
+    checked."""
+    import torch
+    from repro_torch.core import align, bitops
+    n = 0
+    with torch.no_grad():
+        for path, w in state.params.items():
+            e = state.exps[path]
+            if e is None:
+                continue
+            ew = bitops.biased_exponent(w)
+            blocks, _ = align._block_view(ew, N_GROUP, w.ndim - 2)
+            frozen = torch.movedim(e, w.ndim - 2, 0).to(torch.int64)
+            _check(bool((blocks == frozen[:, None]).all()),
+                   f"phase 8: {path} left its frozen block exponents")
+            del ew, blocks
+            _check(torch.equal(torch.sign(w).to(torch.int8), state.signs[path]),
+                   f"phase 8: {path} left its frozen signs")
+            n += w.numel()
+    return n
+
+
+def phase_train(dev):
+    """Full-width aligned training through run_training, then reduced
+    olmo-1b from one state on the card and on the CPU."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.models import lm
+    from repro_torch.training import loop
+    cfg = get_config("olmo-1b")
+    run = _align_rule_run(TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # as the launcher: run_training builds LM(cfg) from
+    # torch.Generator(dev).manual_seed(run.seed), takes its reference-layout
+    # tree, aligns it and freezes the exponents and signs
+    res = loop.run_training(cfg, run, iter(MarkovLM(
+        cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)), device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = res.history
+    n_params = lm.param_count(res.state.params)
+    print(f"phase 8: full-width olmo-1b, {n_params / 1e9:.3f} B parameters: "
+          f"built, aligned (n_group {N_GROUP}, index 2) and frozen in "
+          f"{wall - sum(h['step_time'] for h in hist):.1f} s of "
+          f"run_training's {wall:.1f} s")
+    _check(len(hist) == TRAIN_STEPS and
+           all(math.isfinite(h["loss"]) for h in hist),
+           f"phase 8: losses {[h['loss'] for h in hist]}")
+    for h in hist:
+        print(f"phase 8: step {h['step']}: loss {h['loss']:.4f} grad_norm "
+              f"{h['grad_norm']:.4f} lr {h['lr']:.3e} {h['step_time'] * 1e3:.1f}"
+              f" ms{' (first step)' if h['step'] == 0 else ''}")
+    rest = [h["step_time"] * 1e3 for h in hist[1:]]
+    print(f"phase 8: step ms: first {hist[0]['step_time'] * 1e3:.1f}, then "
+          f"median {float(np.median(rest)):.1f} (min {min(rest):.1f}, max "
+          f"{max(rest):.1f}); peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
+    checked = _check_frozen(res.state)
+    print(f"phase 8: after step {TRAIN_STEPS - 1}: {checked / 1e9:.3f} B aligned "
+          f"weights carry their frozen block exponents and signs, bitwise")
+    stats = res.ecc_stats
+    _check(stats.get("stored_bits", 0) > 0, f"phase 8: ecc_stats {stats}")
+    print(f"phase 8: deployment (one4n, embed + unembed): "
+          f"{stats['stored_bits']} stored bits ({stats['overhead']:+.1%} vs "
+          f"raw fp16), corrected {stats['corrected']}, uncorrectable "
+          f"{stats['uncorrectable']}")
+    res.__dict__.pop("deployment", None)
+    trained = {"unembed": res.state.params["unembed"],
+               "params": res.state.params, "cfg": cfg,
+               "step_ms": rest, "first_ms": hist[0]["step_time"] * 1e3,
+               "peak_gib": peak / 2 ** 30}
+    del res
+    _reduced_train_card_vs_cpu(dev)
+    return trained
+
+
+def _reduced_train_card_vs_cpu(dev) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.training import loop, steps
+    cfg = get_config("olmo-1b").reduced()
+    # the CPU test's learning rate and warmup: the weights move many fp16
+    # ulps a step, so a one-ulp bound tells a right update from a wrong one
+    run = _align_rule_run(REDUCED_STEPS, learning_rate=REDUCED_LR,
+                          warmup_steps=1)
+    cpu_state = steps.init_train_state(torch.Generator().manual_seed(1), cfg,
+                                       run, device="cpu")
+
+    def moved(t):
+        return {k: None if v is None else v.to(dev) for k, v in t.items()}
+    card_state = steps.TrainState(
+        moved(cpu_state.params),
+        {"m": moved(cpu_state.opt["m"]), "v": moved(cpu_state.opt["v"]),
+         "step": cpu_state.opt["step"].clone()},
+        moved(cpu_state.exps), moved(cpu_state.signs))
+    runs = {}
+    for name, state in (("card", card_state), ("cpu", cpu_state)):
+        runs[name] = loop.run_training(cfg, run, iter(MarkovLM(
+            cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)), state=state)
+    for a, b in zip(runs["card"].history, runs["cpu"].history):
+        rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        _check(rel <= LOSS_RTOL, f"phase 8 reduced step {a['step']}: loss "
+               f"card {a['loss']} cpu {b['loss']}")
+        _check(a["lr"] == b["lr"], f"phase 8 reduced step {a['step']}: lr "
+               f"card {a['lr']} cpu {b['lr']}")
+    worst, differ, total, travel = 0, 0, 0, []
+    for path, w in runs["cpu"].state.params.items():
+        ulps = _fp16_ulps(w, runs["card"].state.params[path])
+        worst = max(worst, int(ulps.max()))
+        differ += int((ulps > 0).sum())
+        total += ulps.numel()
+        if cpu_state.exps[path] is not None:    # aligned: on the fp16 grid
+            travel.append(_fp16_ulps(w, cpu_state.params[path]).flatten())
+    travel = torch.cat(travel).double()
+    _check(worst <= 1, f"phase 8 reduced: parameters {worst} fp16 ulps apart")
+    # the bound can see a halved or skipped update only if the updates span
+    # many ulps: ask for a median travel of REDUCED_MIN_TRAVEL ulps
+    med = float(travel.median())
+    _check(med >= REDUCED_MIN_TRAVEL, f"phase 8 reduced: aligned weights "
+           f"moved a median {med} fp16 ulps, too few for a one-ulp bound")
+    _check_frozen(runs["card"].state)
+    for a in runs["card"].history:
+        print(f"phase 8: reduced step {a['step']}: lr {a['lr']:.3e} loss "
+              f"{a['loss']:.6f} grad_norm {a['grad_norm']:.6f}")
+    print(f"phase 8: reduced olmo-1b {REDUCED_STEPS} steps card vs CPU from one "
+          f"state: losses within {LOSS_RTOL:g} relative, lr equal; parameters "
+          f"within {worst} fp16 ulp, {differ} of {total} "
+          f"({100 * differ / total:.4f}%) differ at all; the aligned weights "
+          f"moved a median {med:.0f} fp16 ulps from the start (mean "
+          f"{float(travel.mean()):.1f}, {100 * float((travel > 1).double().mean()):.2f}"
+          f"% more than one ulp)")
+
+
+def _bfp_case(dev, m, k, n, n_group, dtype):
+    import torch
+    from repro_torch.core import align
+    from repro_torch.kernels.bfp_matmul import ref
+    g = torch.Generator(device=dev).manual_seed(m * k + n)
+    w = torch.randn((k, n), generator=g, device=dev) * 0.05
+    w_al, _ = align.align_matrix(w, align.AlignmentConfig(n_group=n_group))
+    man, exp = ref.pack_bfp(w_al, n_group)
+    x = torch.randn((m, k), generator=g, device=dev).to(getattr(torch, dtype))
+    return x, man, exp
+
+
+def phase_bfp(dev, trained: dict, bfp_kernel) -> dict:
+    """K5 on the trained model: the packed unembed serves the final-normed
+    hidden states; the identity probe; ragged shapes against plain."""
+    import torch
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels.bfp_matmul import ops, ref
+    from repro_torch.models import lm
+    cfg, w = trained["cfg"], trained["unembed"]
+    man, exp = ref.pack_bfp(w, N_GROUP)
+    toks = torch.from_numpy(MarkovLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                     seed=0).batch(10_000)["tokens"]).long().to(dev)
+    with torch.no_grad():
+        h = lm.forward(lm.shell(cfg), trained["params"], toks, unembed=False)
+    h = h.reshape(-1, cfg.d_model).contiguous()
+    out, info = ops.cim_linear(h, man, exp, n_group=N_GROUP, with_info=True)
+    torch.cuda.synchronize()
+    launches = bfp_kernel.launch_counts[bfp_kernel.K5]
+    _check(info["used_kernel"] and launches == 1,
+           f"phase 9: K5 not on the path (info {info}, launches {launches})")
+    _check(bool(torch.isfinite(out).all()) and
+           tuple(out.shape) == (TRAIN_BATCH * TRAIN_SEQ, cfg.vocab_size),
+           f"phase 9: output {tuple(out.shape)} not finite or misshapen")
+    dense = h @ w
+    _check(torch.allclose(out, dense, rtol=DENSE_TOL, atol=DENSE_TOL),
+           f"phase 9: cim_linear vs h @ unembed, max err "
+           f"{float((out - dense).abs().max()):.3e}")
+    plain = ref.bfp_matmul_ref(h, man, exp, N_GROUP)
+    err = float((out - plain).abs().max())
+    _check(torch.allclose(out, plain, rtol=BFP_TOL, atol=BFP_TOL),
+           f"phase 9: K5 vs plain max err {err:.3e}")
+    print(f"phase 9: cim_linear on the trained unembed [{K}, {J}] at M = "
+          f"{h.shape[0]}: used_kernel {info['used_kernel']}, {launches} K5 "
+          f"launch on the main path; vs h @ unembed max err "
+          f"{float((out - dense).abs().max()):.3e}, vs plain {err:.3e}")
+    del dense, plain, out
+    eye = torch.eye(K, device=dev)
+    probe = ops.cim_linear(eye, man, exp, n_group=N_GROUP)
+    _check(_same_bits(probe, w), "phase 9: identity probe != trained unembed")
+    del probe, eye
+    dec = ops.cim_linear(h[:BATCH], man, exp, n_group=N_GROUP)
+    err4 = float((dec - ref.bfp_matmul_ref(h[:BATCH], man, exp, N_GROUP))
+                 .abs().max())
+    _check(err4 <= BFP_TOL, f"phase 9: M = {BATCH} vs plain max err {err4:.3e}")
+    print(f"phase 9: identity probe gives the trained unembed bitwise; M = "
+          f"{BATCH} (narrow variant) vs plain max err {err4:.3e}")
+    for m, k, n, n_group, dtype in BFP_RAGGED:
+        x, mm, ee = _bfp_case(dev, m, k, n, n_group, dtype)
+        got = ops.cim_linear(x, mm, ee, n_group=n_group)
+        want = ref.bfp_matmul_ref(x, mm, ee, n_group)
+        e = float((got - want).abs().max())
+        _check(torch.allclose(got, want, rtol=BFP_TOL, atol=BFP_TOL),
+               f"phase 9: ({m}, {k}, {n}) n_group {n_group} {dtype}: max err "
+               f"{e:.3e}")
+        err = max(err, e)
+        print(f"phase 9: ragged ({m}, {k}, {n}) n_group {n_group} x {dtype}: "
+              f"vs plain max err {e:.3e}")
+    return {"man": man, "exp": exp, "h": h, "w": w, "launches": launches,
+            "max_abs_err": max(err, err4)}
+
+
+def phase_bfp_times(dev, bfp: dict, card: str) -> dict:
+    """K5 at M = 4 and M = 1024 on the trained unembed's planes."""
+    import torch
+    from repro_torch.kernels.bfp_matmul import ops, ref
+    man, exp, w = bfp["man"], bfp["exp"], bfp["w"]
+    row = {"name": "bfp_matmul", "route": "cuda", "source": BFP_SOURCE,
+           "replaces": REPLACES["bfp_matmul"], "launches": bfp["launches"],
+           "max_abs_err": bfp["max_abs_err"]}
+    for m in (BATCH, bfp["h"].shape[0]):
+        x = bfp["h"][:m].contiguous()
+        ms = _time_ms(lambda: ops.cim_linear(x, man, exp, n_group=N_GROUP))
+        plain_ms = _time_ms(lambda: ref.bfp_matmul_ref(x, man, exp, N_GROUP),
+                            reps=3, inner=1)
+        library_ms = _time_ms(lambda: torch.matmul(x, w))
+        nbytes = man.numel() * 2 + exp.numel() + x.numel() * 4 + m * J * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2.0 * m * K * J / FP32_FLOPS * 1e3
+        vals = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes}
+        if m == BATCH:
+            row.update({f"{k}_m{m}": v for k, v in vals.items()})
+        else:
+            row.update(vals, m=m)
+        print(f"phase 7: bfp_matmul at M = {m}: {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, torch.matmul on dequantized "
+              f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+              f"({'bytes' if bytes_ms >= ops_ms else 'fp32 FMAs'}: "
+              f"{nbytes / 1e6:.1f} MB, {2.0 * m * K * J / 1e9:.1f} GFLOP) on "
+              f"{card}")
+    return row
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "cim_read" / "csrc").is_dir():
@@ -791,13 +1085,15 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
+    from repro_torch.kernels.bfp_matmul import kernel as bfp_kernel
     from repro_torch.kernels.cim_read import kernel as kernel_lib
     from repro_torch.kernels.fault_inject import kernel as fi_kernel
     from repro_torch.models.lm import LM
     dev = resolve_device("cuda")
     card = _card()
     t0 = time.perf_counter()
-    phase_build({"K1+K2": kernel_lib.LIBRARY, "K3+K4": fi_kernel.LIBRARY})
+    phase_build({"K1+K2": kernel_lib.LIBRARY, "K3+K4": fi_kernel.LIBRARY,
+                 "K5": bfp_kernel.LIBRARY})
     phase_sass(fi_kernel.LIBRARY.build())
     checks = phase_kernels(dev)
     model = LM(get_config("olmo-1b"),
@@ -811,8 +1107,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_fig2(dev, fi_kernel)
     checks.pop("unembed_weights")
+    # the third path: train -> align -> pack -> serve from the BFP planes
+    bfp_kernel.reset_launch_counts()
+    trained = phase_train(dev)
+    bfp = phase_bfp(dev, trained, bfp_kernel)
+    del trained
+    torch.cuda.empty_cache()
     rows = phase_times(dev, checks, launches, card)
     rows += phase_fi_times(dev, checks, fig6["launches"], fi, card)
+    rows.append(phase_bfp_times(dev, bfp, card))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build start")
     print(card)
     print(json.dumps({"kernels": rows}))

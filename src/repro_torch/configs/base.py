@@ -2,12 +2,13 @@
 
 Declared again here because the reference's module imports ``jax.numpy``.
 Only the fields the attention-family LM reads are carried over; the
-architectures beyond olmo-1b wait (ROADMAP Queue 1 item 12).
+architectures beyond olmo-1b wait (ROADMAP Queue 1 item 12). ``RunConfig``
+describes one training run.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -78,3 +79,65 @@ def get_config(arch_id: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()
 
+
+# ---------------------------------------------------------------- run config
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """One training run (port of the reference's ``RunConfig``; its fields
+    and defaults, less those of what the port leaves out).
+
+    Reliability is policy-native: hand a
+    :class:`repro_torch.core.deployment.ReliabilityPolicy` to ``policy``
+    (with ``ber``/``inject`` for the fault schedule). ``exp_reg_coef`` turns
+    on the exponent-compression regularizer; ``freeze_exponents=False``
+    skips alignment and the frozen (exponent, sign) projection even when the
+    policy is on.
+
+    Left out: the reference's deprecated ``reliability=`` surface, the
+    descriptive ``arch`` and ``shape`` (the model comes as a ModelConfig),
+    and ``remat``, ``multi_pod``, ``seq_shard`` and ``checkpoint_every``,
+    which come back with the slices that act on them. A non-empty
+    ``checkpoint_dir`` and ``grad_compression`` make ``run_training`` raise
+    (ROADMAP Queue 1 item 11).
+    """
+
+    steps: int = 100
+    learning_rate: float = 3e-4
+    warmup_steps: int = 20
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    seed: int = 0
+    checkpoint_dir: str = "checkpoints"
+    grad_compression: bool = False
+    straggler_factor: float = 3.0
+    policy: Optional[object] = None        # ReliabilityPolicy
+    ber: float = 0.0
+    inject: str = "dynamic"                # static | dynamic
+    exp_reg_coef: float = 0.0
+    exp_reg_margin: float = 1.0
+    freeze_exponents: bool = True
+
+    def __post_init__(self):
+        if self.policy is not None:
+            from repro_torch.core import deployment as dep_lib
+            if not isinstance(self.policy, dep_lib.ReliabilityPolicy):
+                raise TypeError(f"RunConfig: policy must be a "
+                                f"ReliabilityPolicy, got "
+                                f"{type(self.policy).__name__}")
+        if self.ber < 0:
+            raise ValueError(f"RunConfig: ber must be >= 0, got {self.ber}")
+        if self.inject not in ("static", "dynamic"):
+            raise ValueError(f"RunConfig: inject must be 'static' or "
+                             f"'dynamic', got {self.inject!r}")
+
+    @property
+    def rel(self):
+        """The resolved :class:`~repro_torch.core.api.ReliabilityConfig`:
+        the policy compiled by ``from_policy`` (mode 'cim', also at ber 0),
+        else the inert default."""
+        from repro_torch.core.api import ReliabilityConfig
+        if self.policy is not None:
+            return ReliabilityConfig.from_policy(self.policy, ber=self.ber,
+                                                 inject=self.inject)
+        return ReliabilityConfig()

@@ -92,3 +92,30 @@ def store_from_numpy(planes: dict, shape, cfg: CIMConfig,
         return None if a is None else _tensor(np.asarray(a), device)
     return CIMStore(man=get("man"), sign=get("sign"), exp=get("exp"),
                     codewords=get("codewords"), shape=tuple(shape), cfg=cfg)
+
+
+def train_state_from_jax(state, device="cpu"):
+    """The reference's ``TrainState`` (jax or numpy leaves) -> the port's
+    :class:`~repro_torch.training.steps.TrainState`: params, the frozen
+    ``exps`` and ``signs`` (``None`` leaves kept, keyed by the params'
+    paths) and the AdamW ``m`` / ``v`` / ``step``, all carried as numpy, so
+    both packages can start from one state."""
+    from repro_torch.training.steps import TrainState
+    if getattr(state, "ef_error", None) is not None:
+        raise NotImplementedError("gradient compression state is not ported "
+                                  "(ROADMAP Queue 1 item 11)")
+    params = flat_from_jax(state.params, device)
+
+    def keyed(t) -> dict:
+        flat = tree.flatten(t, keep_none=True)
+        if set(flat) != set(params):
+            raise ValueError(f"tree paths {sorted(flat)} != params paths "
+                             f"{sorted(params)}")
+        return {p: None if flat[p] is None
+                else _tensor(np.asarray(flat[p]), device) for p in params}
+
+    opt = {"m": keyed(state.opt["m"]), "v": keyed(state.opt["v"]),
+           "step": torch.tensor(int(np.asarray(state.opt["step"])),
+                                dtype=torch.int32)}
+    return TrainState(params=params, opt=opt, exps=keyed(state.exps),
+                      signs=keyed(state.signs))

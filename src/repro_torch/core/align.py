@@ -4,11 +4,16 @@ Every block of ``N`` weights along the input channel is forced to share the
 ``index``-th largest biased exponent; positive and negative weights of a block
 are min-max rescaled into ``[LL, UL]`` / ``[-UL, -LL]`` (Eq. 4) and rounded to
 the fp16 grid.
+
+Fine-tuning then freezes exponent and sign and updates only mantissas, as a
+projection (:func:`project_to_block_exponent`) after each optimizer step.
+The ``*_pytree`` functions work over ``{path: tensor}`` trees in the
+reference's flatten order (:mod:`repro_torch.core.tree`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -84,3 +89,112 @@ def align_matrix(w: torch.Tensor, cfg: AlignmentConfig
     if cfg.group_axis != 0:
         y = torch.movedim(y, 0, cfg.group_axis)
     return y.to(orig_dtype), torch.movedim(e_moved, 0, cfg.group_axis)
+
+
+def project_to_block_exponent(w: torch.Tensor, e_shared: torch.Tensor,
+                              sign0: Optional[torch.Tensor],
+                              cfg: AlignmentConfig) -> torch.Tensor:
+    """Project weights back onto the frozen (exponent, sign) manifold, as
+    after every optimizer update of the fine-tune: magnitudes clamped into
+    the block's [LL, UL] and rounded to the fp16 grid, signs frozen to
+    ``sign0`` (``None`` lets them float). ``e_shared`` has the block axis at
+    ``cfg.group_axis``, as :func:`block_exponent` returns it. The result is
+    contiguous."""
+    orig_dtype = w.dtype
+    blocks, k = _block_view(w, cfg.n_group, cfg.group_axis)
+    e_moved = torch.movedim(e_shared, cfg.group_axis, 0)
+    ll, ul = bitops.exponent_range(e_moved, cfg.fmt)
+    mag = torch.clamp(blocks.to(torch.float32).abs(), ll[:, None], ul[:, None])
+    if sign0 is not None:
+        sblocks, _ = _block_view(sign0, cfg.n_group, cfg.group_axis)
+        sgn = torch.where(sblocks > 0, 1.0, -1.0)
+    else:
+        sgn = torch.where(blocks >= 0, 1.0, -1.0)
+    del blocks
+    y = bitops.quantize_to_format(mag, cfg.fmt) * sgn
+    y = y.reshape(-1, *y.shape[2:])[:k]
+    if cfg.group_axis != 0:
+        y = torch.movedim(y, 0, cfg.group_axis)
+    return y.to(orig_dtype).contiguous()
+
+
+def is_alignable(path: str, leaf) -> bool:
+    """Leaves the technique applies to: >=2-D float weights."""
+    return isinstance(leaf, torch.Tensor) and leaf.ndim >= 2 and \
+        leaf.is_floating_point()
+
+
+def _leaf_group_axis(leaf: torch.Tensor) -> int:
+    """Input-channel axis: ``ndim - 2`` of [in, out] matrices, layer-stacked
+    [L, in, out] blocks included."""
+    return leaf.ndim - 2
+
+
+def _leaf_cfg(cfg: AlignmentConfig, leaf: torch.Tensor) -> AlignmentConfig:
+    return dataclasses.replace(cfg, group_axis=_leaf_group_axis(leaf))
+
+
+def _align_tree(params: Mapping, cfg_of, predicate):
+    """``cfg_of(path)`` -> the leaf's AlignmentConfig, or None to pass it
+    through. One leaf at a time, so only one leaf's temporaries are live."""
+    out_w, out_e = {}, {}
+    for path, leaf in params.items():
+        cfg = cfg_of(path) if predicate(path, leaf) else None
+        if cfg is None:
+            out_w[path], out_e[path] = leaf, None
+        else:
+            out_w[path], out_e[path] = align_matrix(leaf, _leaf_cfg(cfg, leaf))
+    return out_w, out_e
+
+
+def _project_tree(params: Mapping, exps: Mapping, signs: Mapping, cfg_of,
+                  predicate) -> dict:
+    out = {}
+    for path, w in params.items():
+        e = exps.get(path)
+        if e is None or not predicate(path, w):
+            out[path] = w
+        else:
+            out[path] = project_to_block_exponent(
+                w, e, signs.get(path), _leaf_cfg(cfg_of(path), w))
+    return out
+
+
+@torch.no_grad()
+def align_pytree(params: Mapping, cfg: AlignmentConfig,
+                 predicate=is_alignable):
+    """Align every eligible leaf of a ``{path: tensor}`` tree. Returns
+    (aligned tree, exponents tree with ``None`` on the leaves left as they
+    are)."""
+    return _align_tree(params, lambda path: cfg, predicate)
+
+
+@torch.no_grad()
+def align_pytree_policy(params: Mapping, policy, predicate=is_alignable):
+    """Per-rule alignment: each leaf with its policy rule's (n_group, index,
+    fmt), or passed through when the rule says ``deploy=False``. Returns
+    (aligned tree, exponents tree with ``None`` on passthrough leaves), the
+    manifold a fine-tuned model is later packed from."""
+    def cfg_of(path):
+        rule = policy.rule_for(path)
+        return rule.align_cfg if rule.deploy else None
+    return _align_tree(params, cfg_of, predicate)
+
+
+@torch.no_grad()
+def project_pytree_policy(params: Mapping, exps: Mapping, signs: Mapping,
+                          policy, predicate=is_alignable) -> dict:
+    """Per-rule frozen-(exponent, sign) projection, the multi-rule
+    counterpart of :func:`project_pytree`."""
+    return _project_tree(params, exps, signs,
+                         lambda path: policy.rule_for(path).align_cfg,
+                         predicate)
+
+
+@torch.no_grad()
+def project_pytree(params: Mapping, exps: Mapping, signs: Mapping,
+                   cfg: AlignmentConfig, predicate=is_alignable) -> dict:
+    """Post-update projection over a ``{path: tensor}`` tree (see
+    :func:`project_to_block_exponent`); leaves whose exponent is ``None``
+    pass through."""
+    return _project_tree(params, exps, signs, lambda path: cfg, predicate)

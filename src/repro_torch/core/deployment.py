@@ -30,6 +30,7 @@ from repro_torch.core import cim as cim_lib
 from repro_torch.core import faultmodels as fm_lib
 from repro_torch.core.bitops import FORMAT_NAMES, get_format
 
+VALID_MODES = ("off", "align", "cim")
 VALID_PROTECTS = ("one4n", "per_weight", "none")
 VALID_FIELDS = ("full", "mantissa", "exponent_sign")
 VALID_SERVE_PATHS = ("fused", "hbm")

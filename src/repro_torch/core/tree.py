@@ -12,11 +12,13 @@ from __future__ import annotations
 from typing import Dict, Mapping
 
 
-def flatten(tree: Mapping) -> Dict[str, object]:
+def flatten(tree: Mapping, keep_none: bool = False) -> Dict[str, object]:
     """Nested (dicts, lists, tuples) or flat mapping -> ``{path: leaf}`` in
     the reference's flatten order: dict keys sorted at every level (sorting
     whole ``/``-split paths does the same), sequences in order. Empty
-    containers and ``None`` hold no leaf, as in jax."""
+    containers and ``None`` hold no leaf, as in jax; ``keep_none`` keeps
+    ``None`` as a leaf, as the reference's trees of frozen exponents and
+    signs flatten with ``is_leaf=lambda x: x is None``."""
     out = []
 
     def walk(node, key):
@@ -26,7 +28,7 @@ def flatten(tree: Mapping) -> Dict[str, object]:
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 walk(v, key + (i,))
-        elif node is not None:
+        elif node is not None or keep_none:
             out.append((key, node))
 
     walk(tree, ())

@@ -4,7 +4,7 @@ identical)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -34,6 +34,13 @@ class MarkovLM:
         for t in range(self.seq_len):
             toks[:, t + 1] = self.successors[toks[:, t], choices[:, t]]
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        """Batches 0, 1, 2, ... without end (a training loop's input)."""
+        step = 0
+        while True:
+            yield self.batch(step)
+            step += 1
 
 
 @dataclasses.dataclass

@@ -21,6 +21,6 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):   # meta: shapes, no storage
         raise ValueError(f"repro_torch: unsupported device {dev}")
     return dev

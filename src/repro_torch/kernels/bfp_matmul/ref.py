@@ -1,0 +1,50 @@
+"""Plain PyTorch version of the block-FP (One4N / BFP) matmul (port of
+``repro/kernels/bfp_matmul/ref.py``).
+
+It states what kernel K5 computes. The weight planes are a uint16
+sign+mantissa plane (bit 15 sign, bits 0..9 the fp16 mantissa, implicit
+leading 1) and one uint8 biased exponent per ``n_group`` rows; a weight is
+``±(1 + m/1024) · 2^(e-15)``. The CPU tests run it in place of the kernel,
+and ``chip_smoke.py`` holds the kernel against it on the card.
+
+The scale is built exactly, as the fp32 bit pattern
+``sign<<31 | (e+112)<<23 | m<<13``, for every ``e`` in 0..31. The reference
+computes ``jnp.exp2(e - 15)``, which XLA's CPU backend rounds a few ulp off
+at ``e`` in {0, 2, 28, 30} (ROADMAP Queue 3); there the two differ.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bitops
+
+
+def pack_bfp(w_aligned: torch.Tensor, n_group: int = 8):
+    """Exponent-aligned fp16-grid weights [K, N] -> (man uint16, exp uint8).
+
+    ``man`` packs the sign (bit 15) and the 10-bit mantissa; ``exp`` holds
+    the shared biased exponent of each [n_group, :] block (the block max,
+    exact for aligned weights)."""
+    k, n = w_aligned.shape
+    if k % n_group:
+        raise ValueError(f"pack_bfp: K={k} is not a multiple of "
+                         f"n_group={n_group}")
+    s, e, m = bitops.split_fields(w_aligned, bitops.FP16)
+    man = ((s << 15) | m).to(torch.int32).to(torch.uint16)
+    exp = e.reshape(k // n_group, n_group, n).amax(dim=1).to(torch.uint8)
+    return man, exp
+
+
+def dequant_ref(man: torch.Tensor, exp: torch.Tensor, n_group: int = 8):
+    """Inverse of :func:`pack_bfp`: f32 [K, N], ``±(1 + m/1024)·2^(e-15)``
+    built in the fp32 exponent field (exact for every ``e``)."""
+    b = man.to(torch.int64) & 0xFFFF
+    e = exp.to(torch.int64).repeat_interleave(n_group, dim=0)
+    bits = ((b >> 15) << 31) | ((e + 112) << 23) | ((b & 0x3FF) << 13)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def bfp_matmul_ref(x: torch.Tensor, man: torch.Tensor, exp: torch.Tensor,
+                   n_group: int = 8) -> torch.Tensor:
+    """x [M, K] (f32 or bf16) @ dequant(man, exp) -> f32 [M, N]."""
+    return x.to(torch.float32) @ dequant_ref(man, exp, n_group)

@@ -14,8 +14,9 @@ by row at gather time; a CIMStore unembed goes through
 card. Without ``params`` the module's own weights serve.
 
 :meth:`LM.forward` returns full-sequence logits (the reference's
-``lm.forward`` for inference); :func:`forward` runs it on a parameter tree
-in the reference's layout, as the sweep engine hands one to an ``eval_fn``.
+``lm.forward``); :func:`forward` runs it on a parameter tree in the
+reference's layout, as the sweep engine hands one to an ``eval_fn`` and as
+the training step differentiates it (through a weightless :func:`shell`).
 
 The continuous-batching slot-state API waits (ROADMAP Queue 1 item 9).
 """
@@ -112,7 +113,9 @@ class LM(nn.Module):
                 f"{cfg.arch_id}: only the text 'attn' block kind is ported "
                 f"(ROADMAP Queue 1 item 12)")
         self.cfg = cfg
-        device = resolve_device(device)   # None means cuda; raises without one
+        # None means cuda and raises without a card; "meta" holds shapes
+        # only (:func:`shell`)
+        device = resolve_device(device)
         dt = cfg.pdtype()
         self.embed = nn.Parameter(embed_init(
             (cfg.vocab_size, cfg.d_model), generator=generator, device=device,
@@ -123,7 +126,11 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(
             [Block(cfg, generator=generator, device=device)
              for _ in range(cfg.n_layers)])
-        self.requires_grad_(False)   # serving port; training waits
+        # The module's own weights serve inference only. Training
+        # differentiates a reference-layout tree through :func:`forward`
+        # (``functional_call``), which never reads these, so the flag does
+        # not touch it.
+        self.requires_grad_(False)
 
     def cim_leaves(self) -> dict:
         """The leaves the reference's deployment can pack: its only 2-D
@@ -138,9 +145,11 @@ class LM(nn.Module):
     def _final(self, x):
         return apply_norm(self.cfg.norm_type, {}, x)
 
-    def forward(self, tokens: torch.Tensor, params=None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, params=None, *,
+                unembed: bool = True) -> torch.Tensor:
         """tokens [B, S] -> logits [B, S, V] at every position (no caches,
-        reads at read index 0)."""
+        reads at read index 0); with ``unembed=False`` the final-normed
+        hidden states [B, S, D] that the unembed multiplies."""
         params = self._params(params)
         x = _embed_lookup(params, self.cfg, tokens, pos=0)
         b, s, _ = x.shape
@@ -148,7 +157,8 @@ class LM(nn.Module):
                                  device=x.device)[None].expand(b, s)
         for blk in self.blocks:
             x = blk.prefill(x, positions)[0]
-        return _unembed_logits(params, self._final(x), pos=0)
+        x = self._final(x)
+        return _unembed_logits(params, x, pos=0) if unembed else x
 
     def prefill(self, tokens: torch.Tensor, params=None, max_len=None):
         """tokens [B, S] -> (last-token logits [B, V], caches). Caches hold
@@ -185,11 +195,26 @@ class LM(nn.Module):
         return logits, {"layers": caches["layers"], "pos": pos + 1}
 
 
-def forward(model: LM, params: Mapping, tokens: torch.Tensor) -> torch.Tensor:
-    """The reference's ``lm.forward(params, cfg, batch)`` for inference:
-    ``params`` is a ``{path: tensor}`` tree in the reference's layout
-    (layer-stacked ``groups/blk0/...`` leaves, :func:`convert.flat_from_jax`)
-    and replaces ``model``'s weights for this call only (views, no copies).
-    Returns logits [B, S, V]."""
+def forward(model: LM, params: Mapping, tokens: torch.Tensor, *,
+            unembed: bool = True) -> torch.Tensor:
+    """The reference's ``lm.forward(params, cfg, batch)``: ``params`` is a
+    ``{path: tensor}`` tree in the reference's layout (layer-stacked
+    ``groups/blk0/...`` leaves, :func:`convert.flat_from_jax`) and replaces
+    ``model``'s weights for this call only (views, no copies). Gradients
+    flow to the tree's stacked leaves, so a training step has one gradient
+    per reference leaf. Returns logits [B, S, V] (the final-normed hidden
+    states with ``unembed=False``)."""
     state = convert.lm_state_from_flat(params, model.cfg)
-    return torch.func.functional_call(model, state, (tokens,))
+    return torch.func.functional_call(model, state, (tokens,),
+                                      {"unembed": unembed})
+
+
+def shell(cfg) -> LM:
+    """An :class:`LM` whose weights are meta tensors (no storage): the module
+    a training step runs a parameter tree through with :func:`forward`."""
+    return LM(cfg, device="meta")
+
+
+def param_count(params: Mapping) -> int:
+    """Elements over the leaves of a ``{path: tensor}`` tree."""
+    return sum(int(x.numel()) for x in params.values())

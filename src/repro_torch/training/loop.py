@@ -1,0 +1,138 @@
+"""The training loop (port of ``repro/training/loop.py``, single device).
+
+``run_training`` trains for ``run.steps`` steps with the straggler watchdog
+and returns a :class:`TrainResult`. Modes: ``off`` (plain training) and
+``align`` / ``cim`` at BER 0 or with static injection (frozen-exponent
+training; the projection lives in the step).
+
+What waits, and raises rather than being skipped:
+
+* dynamic fault injection during training (``cim``, ber > 0, ``inject=
+  'dynamic'``; paper Fig. 7): the reference draws it from ``jax.random``,
+  so parity can only be statistical; it comes with the Fig. 7 slice;
+* checkpoints and resume (a non-empty ``checkpoint_dir``) and gradient
+  compression: ROADMAP Queue 1 item 11;
+* a device mesh: ROADMAP Queue 1 item 14.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import time
+from typing import Callable, Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.device import resolve_device
+from repro_torch.distributed.elastic import StragglerWatchdog
+from repro_torch.training import steps as steps_lib
+
+
+def make_fault_schedule(run: RunConfig):
+    """Per-step weight corruption for dynamic injection, or None. Only the
+    None cases are ported: ber 0, static injection, or a mode other than
+    ``cim``."""
+    rel = run.rel
+    if rel.mode != "cim" or rel.ber <= 0 or rel.inject != "dynamic":
+        return None
+    raise NotImplementedError(
+        "dynamic fault injection during training (paper Fig. 7) waits for "
+        "the Fig. 7 slice (ROADMAP Queue 1 item 13): the reference draws its "
+        "faults from jax.random, so the port's parity there is statistical")
+
+
+@dataclasses.dataclass
+class TrainResult:
+    """Result of :func:`run_training`; iterates as ``(state, history,
+    info)``. ``deployment`` packs the final weights onto the emulated macro
+    under the run's policy (None unless the resolved mode is 'cim');
+    ``ecc_stats`` is its stored-bit accounting plus its ECC counters."""
+
+    state: steps_lib.TrainState
+    history: List[Dict]
+    info: Dict
+    cfg: ModelConfig
+    run: RunConfig
+
+    def __iter__(self):
+        return iter((self.state, self.history, self.info))
+
+    @functools.cached_property
+    def deployment(self):
+        rel = self.run.rel
+        if rel.mode != "cim":
+            return None
+        from repro_torch.core import deployment as dep_lib
+        return dep_lib.CIMDeployment.deploy(self.state.params, rel.policy)
+
+    @property
+    def ecc_stats(self) -> Dict:
+        dep = self.deployment
+        if dep is None:
+            return {}
+        out = dict(dep.bit_cost())
+        out.update({k: int(v) for k, v in dep.ecc_stats.items()})
+        return out
+
+    @property
+    def final_loss(self) -> float:
+        return float(self.history[-1]["loss"]) if self.history else float("nan")
+
+
+def _on_device(batch: Dict, device: torch.device) -> Dict:
+    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
+                               else v).to(device=device, dtype=torch.int64)
+            for k, v in batch.items()}
+
+
+def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
+                 log_fn: Optional[Callable[[int, Dict], None]] = None,
+                 state: Optional[steps_lib.TrainState] = None,
+                 mesh=None, *, device=None) -> TrainResult:
+    """Train for ``run.steps`` steps. Without ``state``, weights come from
+    ``torch.Generator(device).manual_seed(run.seed)`` on ``device``
+    (default ``cuda``; it raises without a card); with one, the run goes on
+    the device its parameters lie on. ``batches`` yields ``tokens`` /
+    ``labels`` arrays (numpy or tensors). History entries hold ``loss``,
+    ``accuracy``, ``tokens``, ``grad_norm``, ``lr``, ``aux_loss``, ``step``
+    and ``step_time`` (seconds, after a device synchronize)."""
+    if mesh is not None:
+        raise NotImplementedError("training on a device mesh waits for "
+                                  "ROADMAP Queue 1 item 14")
+    if run.checkpoint_dir:
+        raise NotImplementedError(
+            f"checkpoints and resume (checkpoint_dir={run.checkpoint_dir!r}) "
+            f"wait for ROADMAP Queue 1 item 11; pass checkpoint_dir=''")
+    make_fault_schedule(run)          # raises for the schedule not ported
+    step_fn = steps_lib.make_train_step(cfg, run)
+    if state is None:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(run.seed)
+        state = steps_lib.init_train_state(gen, cfg, run, device=dev)
+    dev = next(iter(state.params.values())).device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    watchdog = StragglerWatchdog(factor=run.straggler_factor)
+    history, stragglers = [], 0
+    it = iter(batches)
+    for step in range(run.steps):
+        batch = _on_device(next(it), dev)
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        sync()
+        dt = time.perf_counter() - t0
+        metrics = {k: float(v) for k, v in metrics.items()}
+        # the first step is the warm-up: never fed to the watchdog
+        if step > 0 and watchdog.observe(dt):
+            stragglers += 1
+        metrics.update(step=step, step_time=dt)
+        history.append(metrics)
+        if log_fn:
+            log_fn(step, metrics)
+    info = {"stragglers_flagged": stragglers, "resumed_from": 0,
+            "ewma_step_time": watchdog.ewma}
+    return TrainResult(state=state, history=history, info=info, cfg=cfg,
+                       run=run)

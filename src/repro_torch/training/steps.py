@@ -1,0 +1,126 @@
+"""The train step with the reliability feature wired in (port of
+``repro/training/steps.py``, the training part).
+
+A step is: forward -> loss -> gradient -> global-norm clip -> AdamW ->
+frozen-exponent projection (paper §III-C: mantissa-only updates). The
+parameters are a ``{path: tensor}`` tree in the reference's layout and
+flatten order, so each gradient, moment, frozen exponent and frozen sign
+matches one leaf of the reference one to one.
+
+Memory: the step owns its gradients and scales them in place when it
+clips. AdamW builds new parameter and moment trees beside the old ones, so
+the state a caller passed stays as it was; its temporaries and the
+projection's are one leaf's at a time.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core import align as align_lib
+from repro_torch.models import lm
+from repro_torch.models.losses import exponent_compression_penalty, lm_loss
+from repro_torch.optim import adamw
+
+GRAD_COMPRESSION_WAITS = (
+    "gradient compression (int8 error feedback) waits for the port of "
+    "distributed/compression.py (ROADMAP Queue 1 item 11)")
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Dict[str, torch.Tensor]
+    opt: dict                     # {"m": tree, "v": tree, "step": int32 0-dim}
+    exps: Dict[str, Optional[torch.Tensor]]    # frozen block exponents
+    signs: Dict[str, Optional[torch.Tensor]]   # frozen signs (int8)
+    ef_error: Optional[dict] = None            # grad compression: not ported
+
+
+def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
+                     run: RunConfig, params=None, *,
+                     device=None) -> TrainState:
+    """A fresh state (new optimizer): weights from ``generator`` (an
+    :class:`LM` built on ``device``), or the given ``params`` tree; aligned
+    and frozen when the run's reliability is on and ``freeze_exponents``."""
+    if run.grad_compression:
+        raise NotImplementedError(GRAD_COMPRESSION_WAITS)
+    if params is None:
+        from repro_torch import convert
+        model = lm.LM(cfg, generator=generator, device=device)
+        params = convert.flat_from_lm(model)
+        del model
+    rel = run.rel
+    exps = signs = {p: None for p in params}
+    if rel.enabled() and run.freeze_exponents:
+        params, exps = align_lib.align_pytree_policy(params, rel.policy)
+        signs = {p: None if exps[p] is None
+                 else torch.sign(w).to(torch.int8)
+                 for p, w in params.items()}
+    return TrainState(params=dict(params), opt=adamw.init_opt_state(params),
+                      exps=exps, signs=signs)
+
+
+def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
+    """-> ``train_step(state, batch) -> (state, metrics)``. ``batch`` holds
+    ``tokens`` and ``labels`` [B, S] tensors on the parameters' device;
+    metrics are 0-dim tensors (``loss``, ``accuracy``, ``tokens``,
+    ``grad_norm``, ``lr``, ``aux_loss``, and ``exp_penalty`` with the
+    regularizer)."""
+    if run.grad_compression:
+        raise NotImplementedError(GRAD_COMPRESSION_WAITS)
+    rel = run.rel
+    project = rel.enabled() and run.freeze_exponents
+    reg_policy = rel.policy if run.exp_reg_coef > 0 else None
+    opt_cfg = adamw.AdamWConfig(weight_decay=run.weight_decay,
+                                grad_clip=run.grad_clip)
+    lr_fn = adamw.make_lr_schedule(run.learning_rate, run.warmup_steps,
+                                   run.steps)
+    cdt = cfg.cdtype()
+    model = lm.shell(cfg)
+
+    def _cast(p):
+        # weights to the compute dtype once at the step top (a no-op for
+        # fp32 olmo); gradients come back in the parameters' dtype
+        if p.ndim >= 2 and p.is_floating_point():
+            return p.to(cdt)
+        return p
+
+    def loss_fn(params, batch):
+        params_c = {k: _cast(v) for k, v in params.items()}
+        logits = lm.forward(model, params_c, batch["tokens"])
+        loss, metrics = lm_loss(logits, batch["labels"])
+        del logits
+        if reg_policy is not None:
+            pen = exponent_compression_penalty(params, reg_policy,
+                                               margin=run.exp_reg_margin)
+            loss = loss + run.exp_reg_coef * pen
+            metrics = dict(metrics, exp_penalty=pen)
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss + aux, (metrics, aux)
+
+    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        if state.ef_error is not None:
+            raise NotImplementedError(GRAD_COMPRESSION_WAITS)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in state.params.items()}
+        with torch.enable_grad():
+            total, (metrics, aux) = loss_fn(leaves, batch)
+            grads = torch.autograd.grad(total, list(leaves.values()))
+        del total, leaves
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        grads = dict(zip(state.params, grads))
+        grads, gnorm = adamw.clip_by_global_norm(grads, opt_cfg.grad_clip)
+        lr = lr_fn(state.opt["step"])
+        params, opt = adamw.adamw_update(grads, state.opt, state.params, lr,
+                                         opt_cfg)
+        del grads
+        if project:
+            params = align_lib.project_pytree_policy(
+                params, state.exps, state.signs, rel.policy)
+        metrics = dict(metrics, grad_norm=gnorm, lr=lr, aux_loss=aux)
+        return TrainState(params, opt, state.exps, state.signs), metrics
+
+    return train_step

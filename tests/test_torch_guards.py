@@ -81,6 +81,22 @@ def test_cuda_request_without_card_raises(monkeypatch):
                                 device="cpu").shape == (2, 32)
 
 
+def test_train_entry_points_without_card_raise(monkeypatch):
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.launch import train
+    from repro_torch.training.loop import run_training
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1", "--rel-mode", "align"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1", "--device", "cuda"])
+    cfg = get_config("olmo-1b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):   # no device means cuda
+        run_training(cfg, RunConfig(steps=1, checkpoint_dir=""),
+                     iter(MarkovLM(cfg.vocab_size, 8, 2)))
+
+
 def test_chip_smoke_refuses_without_card_or_sources(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal paths are not reachable")
