@@ -14,21 +14,28 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    phase 7 counts on the FMA pipe apart from the ALU work;
 2. hold each kernel against its plain PyTorch version at the full-width
    olmo-1b unembed shape (K=2048, J=50304, n_group=8): the identity probe
-   gives the decoded weights exactly; a dense [4, 2048] input agrees within
+   at M = K (the tile kernel) gives the decoded weights exactly; a dense
+   [4, 2048] input (K1: the narrow kernel) agrees within
    allclose(rtol=1e-4, atol=1e-4) (FMA and summation order); at BER 1e-3
    the identity probe on the plain-injected image gives its plain-decoded
    weights exactly (every SECDED correction checked bit for bit; a column
    that holds an inf or NaN weight comes out all non-finite, as 0 * inf is
    NaN), the dynamic kernel equals the same kernel on that image bit for bit,
    and the plain dynamic version within 1e-4 of |x| @ |W| (the bound of the
-   summation-order error; faulted weights reach 2^15), NaN for NaN;
+   summation-order error; faulted weights reach 2^15), NaN for NaN. K1's
+   narrow kernel (M <= 8) also runs the identity probe in 8-row slices of
+   eye(K) (256 launches) on both images, exact and equal to the tile's
+   probe on every finite column; agrees with the tile kernel at M = 1, 3, 4
+   and 8 within allclose(1e-4, 1e-4) static and within 1e-4 of |x| @ |W|
+   dynamic; and repeats its bits run to run;
 3. serve full-width olmo-1b (16 layers, d_model 2048, vocab 50304, fp32,
    weights from a seeded generator) through the port's lock-step launcher,
    batch 4, prompt 64, gen 32, in five arms; the launch counts are zeroed
    just before each arm and read just after it, and each dynamic arm must
-   launch its kernel once per read (gen times); the clean fused and hbm arms must give
-   equal greedy tokens; a reduced olmo-1b served through the kernels must
-   match the port's plain CPU path;
+   launch its kernel once per read (gen times), arm (a)'s K1 reads through
+   the narrow kernel (each read's info['tiles']); the clean fused and hbm
+   arms must give equal greedy tokens; a reduced olmo-1b served through the
+   kernels must match the port's plain CPU path;
 4. hold K3/K4 against their plain versions on the card, bit for bit: the
    full-width one4n unembed image's mantissa and codeword planes and the
    none image's exponent and sign planes at T = 4 (BER 1e-3), a ragged
@@ -53,7 +60,9 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    the CPU; faulted leaves bitwise equal, accuracies within 1/1024 per cell;
 7. time each kernel at its main-path shape beside its plain version and its
    bound: K1/K2 at the serving shape with one torch.matmul on the
-   pre-decoded weights; K3 at the Fig. 6 unembed mantissa plane
+   pre-decoded weights, K1's tile kernel at M = 4 beside its narrow one, the
+   static read bound by bytes and the dynamic read by the larger of the
+   bytes and its draws on the ALU pipe (10 ops a draw); K3 at the Fig. 6 unembed mantissa plane
    ([2048, 50304] uint16, T = 4, 10 positions) and K4 on the same plane's
    16 positions (no single PyTorch call computes their function), bound by
    the busier of the ALU pipe (10 ops a draw), the FMA pipe (2 IMADs a
@@ -75,7 +84,8 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    after this call), agree with the dense product within rtol = atol = 2e-4
    and with its plain version within 1e-5; the identity probe must give the
    trained unembed bitwise; ragged shapes, n_group 4 and 16 and bf16 x
-   against the plain version.
+   against the plain version; a plane holding all 256 exponent bytes
+   bitwise equal to the plain version, +-inf from byte 143, no NaN.
 
 Phases run in the order 1-6, 8, 9, 7. Prints the card's name and power
 limit, then one ``{"kernels": [...]}`` line, and as its last line
@@ -274,23 +284,85 @@ def _unembed_store(protect: str, dev):
     return cim.pack(w_al, cim.CIMConfig(n_group=N_GROUP, protect=protect))
 
 
-def _identity_probe(name, store, w_ref, what) -> int:
-    """``eye @ W`` through the kernel gives W exactly. Entries are compared
-    by value (the kernel's f32 accumulator turns -0.0 into +0.0); a column
-    that holds a non-finite weight must come out non-finite throughout.
-    Returns the number of such columns."""
+def _identity_probe(name, store, w_ref, what, rows=None):
+    """``eye @ W`` through the kernel gives W exactly: in one call at
+    M = K (the tile kernel), or in slices of ``rows`` rows (M <= 8: K1's
+    narrow kernel, K / rows launches). Entries are compared by value (the
+    kernel's f32 accumulator turns -0.0 into +0.0); a column that holds a
+    non-finite weight must come out non-finite throughout. Returns the
+    probe's output and the number of such columns."""
     import torch
     from repro_torch.kernels.cim_read import ops
-    eye = torch.eye(store.shape[0], device=w_ref.device)
-    out, info = ops.cim_linear_store(eye, store, with_info=True)
-    _check(info["used_kernel"], f"{name}: kernel route not taken")
+    k = store.shape[0]
+    eye = torch.eye(k, device=w_ref.device)
+    want = "tile" if rows is None else "narrow"
+    outs, kernels = [], set()
+    for i in range(0, k, rows or k):
+        out, info = ops.cim_linear_store(eye[i:i + (rows or k)], store,
+                                         with_info=True)
+        _check(info["used_kernel"], f"{name}: kernel route not taken")
+        kernels.add(info["tiles"]["kernel"])
+        outs.append(out)
+    out = torch.cat(outs)
+    _check(kernels == {want}, f"{name}: identity probe ran {kernels}, "
+           f"expected {want}")
     fin = torch.isfinite(w_ref).all(0)
     _check(torch.equal(out[:, fin], w_ref[:, fin]),
-           f"{name}: identity probe != read() on the {what} image")
+           f"{name}: identity probe ({want}) != read() on the {what} image")
     _check(not bool(torch.isfinite(out[:, ~fin]).any()),
            f"{name}: finite output in a column with a non-finite weight "
-           f"({what} image)")
-    return int((~fin).sum())
+           f"({what} image, {want})")
+    return out, int((~fin).sum())
+
+
+def _tile_k1(x, store, scalars=None):
+    """K1's 16 x 64 x 64 tile kernel at any M, through its binding: the
+    geometry ``resolve_tiles`` gives a tile-sized read."""
+    from repro_torch.kernels.cim_read import ops
+    return ops._kernel_call(x, store, scalars,
+                            ops.resolve_tiles(store, ops.BLOCK_M))
+
+
+def _narrow_gates(store, injected, probes: dict, scalars, dev) -> float:
+    """K1's narrow kernel (M <= 8) against the tile kernel: the identity
+    probe in 8-row slices on the clean and the injected image (exact, and
+    equal to the tile's M = K probe on every finite column), dense inputs at
+    M = 1, 3, 4 and 8 within allclose(TOL, TOL) static and within TOL of
+    |x| @ |W| dynamic, and two runs of one call bitwise equal. Returns the
+    largest dense difference."""
+    import torch
+    from repro_torch.core import cim
+    from repro_torch.kernels.cim_read import ops
+    name = "cim_read_matmul_one4n"
+    for what, image in (("clean", store), ("BER 1e-3", injected)):
+        w_ref, _ = cim.read(image)
+        sliced, _ = _identity_probe(name, image, w_ref, what, rows=8)
+        fin = torch.isfinite(w_ref).all(0)
+        _check(torch.equal(sliced[:, fin], probes[what][:, fin]),
+               f"{name}: narrow identity slices != tile probe ({what})")
+        del sliced, w_ref
+    g = torch.Generator(device=dev).manual_seed(6)
+    w_inj_abs = cim.read(injected)[0].abs()
+    worst = 0.0
+    for m in (1, 3, 4, 8):
+        x = torch.randn((m, K), generator=g, device=dev)
+        for sc in (None, scalars):
+            got, info = ops.cim_linear_store(x, store, scalars=sc,
+                                             with_info=True)
+            _check(info["tiles"]["kernel"] == "narrow",
+                   f"{name}: M = {m} took {info['tiles']}")
+            # the injected image's weights reach 2^15: dynamic outputs are
+            # held to |x| @ |W|, as against the plain version
+            ok, err = _close(got, _tile_k1(x, store, sc),
+                             None if sc is None else x.abs() @ w_inj_abs)
+            _check(ok, f"{name}: narrow vs tile at M = {m} "
+                   f"({'dynamic' if sc is not None else 'static'}, max err "
+                   f"{err:.3e})")
+            worst = max(worst, err)
+            again = ops.cim_linear_store(x, store, scalars=sc)
+            _check(_same_bits(got, again), f"{name}: two runs at M = {m} "
+                   "differ")
+    return worst
 
 
 def phase_kernels(dev) -> dict:
@@ -310,21 +382,31 @@ def phase_kernels(dev) -> dict:
         w_ref, _ = cim.read(store)
         _check(bool(torch.isfinite(w_ref).all()), f"{name}: clean image "
                "decodes to a non-finite weight")
-        _identity_probe(name, store, w_ref, "clean")
-        got = ops.cim_linear_store(x, store)
+        probes = {"clean": _identity_probe(name, store, w_ref, "clean")[0]}
+        got, info = ops.cim_linear_store(x, store, with_info=True)
         want, _ = ref.cim_read_ref(x, store)
         ok, err = _close(got, want)
         _check(ok, f"{name}: dense output vs plain (max err {err:.3e})")
         dyn = ops.cim_linear_store(x, store, scalars=scalars)
         injected = cim.inject_with_seeds(store, seeds, thr, thr)
         w_inj, _ = cim.read(injected)
-        bad_cols = _identity_probe(name, injected, w_inj, "BER 1e-3")
+        probes["BER 1e-3"], bad_cols = _identity_probe(name, injected, w_inj,
+                                                       "BER 1e-3")
         stat = ops.cim_linear_store(x, injected)
         _check(_same_bits(dyn, stat),
                f"{name}: dynamic kernel != kernel on the injected image")
         plain_dyn, st = ref.cim_read_ref(x, store, scalars)
         ok_dyn, err_dyn = _close(dyn, plain_dyn, x.abs() @ w_inj.abs())
         _check(ok_dyn, f"{name}: dynamic kernel vs plain (max err {err_dyn:.3e})")
+        del w_inj, plain_dyn
+        narrow = ""
+        if protect == "one4n":
+            err_tile = _narrow_gates(store, injected, probes, scalars, dev)
+            narrow = (f"; narrow kernel (dense M = {BATCH}, {info['tiles']}): "
+                      f"8-row identity slices exact on both images and equal "
+                      f"to the tile's M = {K} probe, M = 1/3/4/8 vs tile max "
+                      f"err {err_tile:.3e}, repeat calls bitwise")
+        del probes, injected
         torch.cuda.synchronize()
         results[name] = {"store": store, "max_abs_err": err,
                          "max_abs_err_dynamic": err_dyn}
@@ -333,7 +415,7 @@ def phase_kernels(dev) -> dict:
               f"weight), dense max err {err:.3e}, dynamic==static-injected "
               f"bitwise, dynamic vs plain max err {err_dyn:.3e}; BER 1e-3 "
               f"image corrected={st['corrected']} "
-              f"uncorrectable={st['uncorrectable']}")
+              f"uncorrectable={st['uncorrectable']}{narrow}")
     return results
 
 
@@ -346,6 +428,23 @@ ARMS = (  # (label, serve_path, protect, inject, ber)
 )
 
 
+def _kernels_of(run):
+    """Run ``run()`` and list which kernel each fused read launched
+    (``info['tiles']['kernel']`` of every ``cim_linear_store`` call on the
+    card; the cached and plain routes launch none)."""
+    from repro_torch.kernels.cim_read import ops
+    real, seen = ops.cim_linear_store, []
+
+    def spy(*args, with_info=False, **kw):
+        out, info = real(*args, with_info=True, **kw)
+        if info.get("used_kernel"):
+            seen.append(info["tiles"]["kernel"])
+        return (out, info) if with_info else out
+    with mock.patch.object(ops, "cim_linear_store", spy):
+        res = run()
+    return res, seen
+
+
 def phase_serve(model, kernel_lib) -> dict:
     """The main path: full-width olmo-1b through the lock-step launcher."""
     import torch
@@ -354,9 +453,11 @@ def phase_serve(model, kernel_lib) -> dict:
     runs = {}
     for label, path, protect, inject, ber in ARMS:
         kernel_lib.reset_launch_counts()
-        res = serve_lib.serve(model, batch=BATCH, prompt_len=PROMPT, gen=GEN,
-                              seed=0, cim=True, ber=ber, protect=protect,
-                              serve_path=path, inject=inject, verbose=False)
+        res, kernels = _kernels_of(lambda: serve_lib.serve(
+            model, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0, cim=True,
+            ber=ber, protect=protect, serve_path=path, inject=inject,
+            verbose=False))
+        res["kernels"] = kernels
         _check(dict(kernel_lib.launch_counts) == res["launches"],
                f"{label}: launch counts {dict(kernel_lib.launch_counts)} != "
                f"the run's own {res['launches']}")
@@ -377,6 +478,13 @@ def phase_serve(model, kernel_lib) -> dict:
                  ("cim_read_matmul_raw", ARMS[1][0]))}
     _check(all(v == GEN for v in launches.values()),
            f"a dynamic arm did not launch its kernel once per read: {launches}")
+    variants = {label: sorted(set(runs[label]["kernels"])) for label in
+                (ARMS[0][0], ARMS[1][0])}
+    _check(runs[ARMS[0][0]]["kernels"] == ["narrow"] * GEN,
+           f"arm a: K1's reads went through {runs[ARMS[0][0]]['kernels']}, "
+           f"expected the narrow kernel {GEN} times")
+    _check(runs[ARMS[1][0]]["kernels"] == ["tile"] * GEN,
+           f"arm b: K2's reads went through {runs[ARMS[1][0]]['kernels']}")
     clean, hbm = runs[ARMS[3][0]], runs[ARMS[4][0]]
     for res in (clean, hbm):
         _check(bool(torch.isfinite(res["prefill_logits"]).all()),
@@ -385,7 +493,8 @@ def phase_serve(model, kernel_lib) -> dict:
            "clean fused and hbm arms disagree on greedy tokens")
     _check(torch.allclose(clean["prefill_logits"], hbm["prefill_logits"],
                           rtol=TOL, atol=TOL), "clean fused vs hbm logits")
-    print(f"phase 3: main-path launches {launches}; clean fused == hbm tokens")
+    print(f"phase 3: main-path launches {launches}, through the kernels "
+          f"{variants} (info['tiles']); clean fused == hbm tokens")
     return launches
 
 
@@ -775,7 +884,23 @@ def phase_fi_times(dev, checks: dict, k3_launches: int, fi: dict,
     return rows
 
 
+def _draws(store) -> int:
+    """Counter-PRNG draws of one dynamic read of the whole store: one per
+    stored cell the read XORs a flip into (mantissa lanes, codeword lanes,
+    or exponent and sign lanes), from the store's own geometry."""
+    cfg = store.cfg
+    k_pad, j_pad = store.man.shape
+    draws = k_pad * j_pad * cfg.fmt.man_bits
+    if cfg.protect == "one4n":
+        return draws + store.codewords[..., 0].numel() * cfg.codec.code.n
+    return draws + store.exp.numel() * cfg.fmt.exp_bits + k_pad * j_pad
+
+
 def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
+    """K1/K2 at the serving shape (M = BATCH). K1's narrow kernel is the one
+    the main path launches; the tile kernel is timed beside it through
+    its binding. The static read is bound by bytes; the dynamic read by the
+    larger of the bytes and the ALU pipe's draws (``_draws``)."""
     import torch
     from repro_torch.core import cim
     from repro_torch.kernels.cim_read import ops, ref
@@ -787,6 +912,7 @@ def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
     for name, chk in checks.items():
         store = chk["store"]
         w, _ = cim.read(store)
+        _, info = ops.cim_linear_store(x, store, with_info=True)
         ms = _time_ms(lambda: ops.cim_linear_store(x, store, scalars=scalars))
         ms_static = _time_ms(lambda: ops.cim_linear_store(x, store))
         plain_ms = _time_ms(lambda: ref.cim_read_ref(x, store, scalars), inner=1)
@@ -796,17 +922,34 @@ def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
         nbytes += x.numel() * 4 + BATCH * J * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = 2.0 * BATCH * K * J / FP32_FLOPS * 1e3
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": REPLACES[name], "launches": launches[name],
-                     "max_abs_err": chk["max_abs_err"], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                     "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                     "library_ms": library_ms, "static_ms": ms_static,
-                     "bytes": nbytes})
-        print(f"phase 7: {name}: {ms:.4f} ms dynamic, {ms_static:.4f} ms "
-              f"static, plain {plain_ms:.3f} ms, torch.matmul on decoded "
-              f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-              f"({nbytes / 1e6:.1f} MB) on {card}")
+        draws = _draws(store)
+        hash_ms = draws * ALU_OPS_PER_DRAW / INT32_OPS * 1e3
+        row = {"name": name, "route": "cuda", "source": SOURCE,
+               "replaces": REPLACES[name], "launches": launches[name],
+               "max_abs_err": chk["max_abs_err"], "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "library_ms": library_ms, "static_ms": ms_static,
+               "dynamic_bound_ms": max(bytes_ms, hash_ms),
+               "dynamic_bound_by": "bytes" if bytes_ms >= hash_ms
+               else "operations", "draws": draws, "bytes": nbytes,
+               "variant": info["tiles"]["kernel"]}
+        tile = ""
+        if name == "cim_read_matmul_one4n":
+            row["tile_ms"] = _time_ms(lambda: _tile_k1(x, store, scalars))
+            row["tile_static_ms"] = _time_ms(lambda: _tile_k1(x, store))
+            tile = (f"; tile kernel at M = {BATCH}: "
+                    f"{row['tile_ms']:.4f} ms dynamic, "
+                    f"{row['tile_static_ms']:.4f} ms static")
+        rows.append(row)
+        print(f"phase 7: {name} ({row['variant']} kernel): {ms:.4f} ms "
+              f"dynamic, {ms_static:.4f} ms static{tile}; plain "
+              f"{plain_ms:.3f} ms, torch.matmul on decoded {library_ms:.4f} "
+              f"ms; static bound {max(bytes_ms, ops_ms):.4f} ms (bytes, "
+              f"{nbytes / 1e6:.1f} MB), dynamic bound "
+              f"{row['dynamic_bound_ms']:.4f} ms (ALU pipe {hash_ms:.4f} ms "
+              f"for {draws / 1e9:.3f} G draws at {ALU_OPS_PER_DRAW} ops) on "
+              f"{card}")
     return rows
 
 
@@ -1034,6 +1177,31 @@ def phase_bfp(dev, trained: dict, bfp_kernel) -> dict:
         err = max(err, e)
         print(f"phase 9: ragged ({m}, {k}, {n}) n_group {n_group} x {dtype}: "
               f"vs plain max err {e:.3e}")
+    # every exponent byte: one block row (K = n_group = 1) whose columns
+    # cycle through all 256 bytes, so each output is one product
+    g = torch.Generator(device=dev).manual_seed(12)
+    n = 4 * 256
+    e_all = (torch.arange(n, device=dev) % 256).to(torch.uint8)[None]
+    m_all = torch.randint(0, 2 ** 16, (1, n), generator=g, device=dev,
+                          dtype=torch.int32)
+    m_all[0, :2] = torch.tensor([0, 0x8000], device=dev)
+    m_all = m_all.to(torch.uint16)
+    # x = +-1: each output is +-W exactly (a larger |x| could overflow a
+    # finite weight near 2^128)
+    x_all = torch.randint(0, 2, (130, 1), generator=g, device=dev) * 2.0 - 1.0
+    sat = (torch.arange(n, device=dev) % 256) >= 143
+    for m in (BATCH, 130):
+        got = ops.cim_linear(x_all[:m], m_all, e_all, n_group=1)
+        want = ref.bfp_matmul_ref(x_all[:m], m_all, e_all, 1)
+        _check(_same_bits(got, want), f"phase 9: every exponent byte, M = "
+               f"{m}: kernel != plain")
+        _check(not bool(got.isnan().any()) and bool(got[:, sat].isinf().all())
+               and bool(got[:, ~sat].isfinite().all()),
+               f"phase 9: every exponent byte, M = {m}: not +-inf exactly "
+               f"from byte 143")
+    print(f"phase 9: a plane holding all 256 exponent bytes: kernel == plain "
+          f"bitwise at M = {BATCH} and 130, +-inf exactly for bytes >= 143, "
+          f"no NaN")
     return {"man": man, "exp": exp, "h": h, "w": w, "launches": launches,
             "max_abs_err": max(err, err4)}
 

@@ -110,6 +110,12 @@ class SecdedCode:
         """uint32 [code_words] validity mask of stored codeword bits."""
         return _secded_packed_tables(self.data_bits)[7]
 
+    @property
+    def syndrome_masks(self) -> np.ndarray:
+        """uint32 [r, code_words]: bit ``l`` of word ``w`` is in syndrome bit
+        ``j`` iff bit ``j`` of its 1-based position ``32 w + l + 1`` is set."""
+        return _secded_packed_tables(self.data_bits)[4]
+
     def encode_packed(self, data_words: torch.Tensor) -> torch.Tensor:
         """data [..., data_words] -> codewords [..., code_words] (int64)."""
         r, n, Wd, Wc, _, encmask, _, _, data_mask, parity_pos0 = \

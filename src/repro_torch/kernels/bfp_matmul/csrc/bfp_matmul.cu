@@ -9,6 +9,9 @@
 // The weight is rebuilt exactly as the fp32 bit pattern
 //   sign<<31 | (e+112)<<23 | m<<13
 // (no exp2f, no powf), so x = I returns the aligned weights bit for bit.
+// For e >= 143, 2^(e-15) overflows fp32 (the reference's exp2 gives inf):
+// the field saturates to all ones and the mantissa is cleared, so the
+// weight is +-inf, never NaN or a wrapped exponent.
 //
 // Two variants, picked by M on the host:
 //  * bfp_matmul_narrow_kernel<MR> (M <= 8, decode-shaped). Bound: bytes.
@@ -59,11 +62,21 @@ __device__ __forceinline__ float to_f32(uint16_t bf16) {   // bf16 bits
   return __uint_as_float(static_cast<uint32_t>(bf16) << 16);
 }
 
-// (e + 112) << 23: the fp32 exponent field of 2^(e - 15).
-__device__ __forceinline__ uint32_t exp_field(uint32_t e) { return (e + 112u) << 23; }
+// The fp32 exponent field of 2^(e - 15), (e + 112) << 23, and the mantissa
+// bits the weight keeps. From e = 143 the field would carry into the sign:
+// it saturates to all ones and the mantissa is dropped (+-inf). Selects,
+// not branches: computed once per exponent word, not per weight.
+struct ExpField {
+  uint32_t field, man_mask;
+};
 
-__device__ __forceinline__ float dequant(uint32_t m, uint32_t efield) {
-  return __uint_as_float(((m & 0x8000u) << 16) | efield | ((m & 0x3FFu) << 13));
+__device__ __forceinline__ ExpField exp_field(uint32_t e) {
+  const bool inf = e >= 143u;
+  return {inf ? 0x7F800000u : (e + 112u) << 23, inf ? 0u : 0x3FFu};
+}
+
+__device__ __forceinline__ float dequant(uint32_t m, ExpField ef) {
+  return __uint_as_float(((m & 0x8000u) << 16) | ef.field | ((m & ef.man_mask) << 13));
 }
 
 template <int MR, typename XT, bool VEC>
@@ -91,10 +104,10 @@ bfp_matmul_narrow_kernel(const XT* __restrict__ x, const uint16_t* __restrict__ 
     const int kw = k0 + warp * 32;                     // this warp's 32 rows
     if (kw >= K) continue;
     int g = kw / n_group, rem = kw - g * n_group;
-    uint32_t ef[4];
+    ExpField ef[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      ef[j] = c0 + j < N ? exp_field(expw[(size_t)g * N + c0 + j]) : 0u;
+      ef[j] = c0 + j < N ? exp_field(expw[(size_t)g * N + c0 + j]) : ExpField{0u, 0u};
     for (int i0 = 0; i0 < 32; i0 += UNROLL) {
       uint32_t mv[UNROLL][4];
 #pragma unroll
@@ -131,7 +144,8 @@ bfp_matmul_narrow_kernel(const XT* __restrict__ x, const uint16_t* __restrict__ 
           if (kw + i0 + u + 1 < K) {
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-              ef[j] = c0 + j < N ? exp_field(expw[(size_t)g * N + c0 + j]) : 0u;
+              ef[j] = c0 + j < N ? exp_field(expw[(size_t)g * N + c0 + j])
+                                 : ExpField{0u, 0u};
           }
         }
       }

@@ -8,9 +8,13 @@ leading 1) and one uint8 biased exponent per ``n_group`` rows; a weight is
 and ``chip_smoke.py`` holds the kernel against it on the card.
 
 The scale is built exactly, as the fp32 bit pattern
-``sign<<31 | (e+112)<<23 | m<<13``, for every ``e`` in 0..31. The reference
+``sign<<31 | (e+112)<<23 | m<<13``, for every ``e`` in 0..142. From
+``e = 143`` the scale ``2^(e-15)`` overflows fp32: the reference gives
+``±inf`` there, and so does this version (exponent field all ones, mantissa
+cleared), never NaN or a field carried into the sign bit. The reference
 computes ``jnp.exp2(e - 15)``, which XLA's CPU backend rounds a few ulp off
-at ``e`` in {0, 2, 28, 30} (ROADMAP Queue 3); there the two differ.
+at ``e`` in {0, 2, 28, 30} and at most ``e`` in 32..142 (ROADMAP Queue 3);
+there the two differ.
 """
 from __future__ import annotations
 
@@ -37,10 +41,14 @@ def pack_bfp(w_aligned: torch.Tensor, n_group: int = 8):
 
 def dequant_ref(man: torch.Tensor, exp: torch.Tensor, n_group: int = 8):
     """Inverse of :func:`pack_bfp`: f32 [K, N], ``±(1 + m/1024)·2^(e-15)``
-    built in the fp32 exponent field (exact for every ``e``)."""
+    built in the fp32 exponent field: exact for ``e`` <= 142, ``±inf`` for
+    ``e`` >= 143, where the scale overflows fp32."""
     b = man.to(torch.int64) & 0xFFFF
     e = exp.to(torch.int64).repeat_interleave(n_group, dim=0)
-    bits = ((b >> 15) << 31) | ((e + 112) << 23) | ((b & 0x3FF) << 13)
+    inf = e >= 143
+    field = torch.where(inf, 0xFF, e + 112)
+    mant = torch.where(inf, 0, b & 0x3FF)
+    bits = ((b >> 15) << 31) | (field << 23) | (mant << 13)
     return bits.to(torch.int32).view(torch.float32)
 
 

@@ -1,7 +1,8 @@
 // Fused decode-on-read matmul over the packed CIM image, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of repro/kernels/cim_read/kernel.py:
-//   cim_read_one4n_kernel <- cim_read_matmul_one4n (protect='one4n'):
+//   cim_read_one4n_narrow_kernel, for M <= 8, and cim_read_one4n_kernel, for
+//   M > 8 <- cim_read_matmul_one4n (protect='one4n', kernel.py:381):
 //       x @ W with W decoded per tile from the uint16 mantissa plane and the
 //       word-packed One4N SECDED codewords [K/n, J/rw, S, W];
 //   cim_read_raw_kernel   <- cim_read_matmul_raw (protect='none'):
@@ -10,19 +11,49 @@
 // With `dynamic` set, each kernel first XORs counter-PRNG flip masks into
 // the words it loaded (flip.cuh), at GLOBAL store element indices, so a
 // dynamic read equals a static read of the image `inject_with_seeds` leaves.
+// The host picks the kernel by M alone (ops.resolve_tiles).
 //
-// Bound on this card: bytes. The serving call has M = batch (a few rows), so
-// the work is a matrix-vector product: every packed word is read once and
-// used for M multiply-adds. For the full-width olmo-1b unembed (K = 2048,
-// J = 50304) K1 reads 206.0 MB of mantissas + 25.8 MB of codewords, K2
-// 206.0 + 12.9 + 12.9 MB: about 232 MB a call, ~69 us at 3.35 TB/s.
-// Design against that bound: the decoded fp32 matrix never exists in device
-// memory — each block streams its [64 x 64] mantissa tile (16-byte loads)
-// and the codeword / exponent / sign words covering it into registers and
-// shared memory, decodes there, and feeds the rebuilt tile straight into
-// f32 FMAs. The grid covers (J/64 column tiles) x (M/16 row tiles), so the
-// 786 column tiles of the unembed keep every SM busy with resident blocks.
-// Simple by design (no TMA, no wgmma, no multi-stage pipeline yet).
+// The narrow kernel: the read the serving path launches (M = batch, a few
+// rows). No tensor cores: at M <= 8 a weight feeds at most 8 multiply-adds,
+// so the read is bound by bytes (static) or by integer hashes (dynamic),
+// never by FLOPs, and the port keeps fp32 FMAs (no TF32) for parity.
+//  * Static read, bound by bytes. The full-width olmo-1b unembed (K = 2048,
+//    J = 50304) is 206.0 MB of mantissas + 25.8 MB of codewords: ~69 us at
+//    3.35 TB/s. A block owns a strip of 128 columns (whole row_weights
+//    groups) and walks K through a ring of 4 shared stages of 128 rows,
+//    filled with 16-byte cp.async.cg copies (neighbouring threads on
+//    neighbouring addresses), so three stages' loads are in flight while one
+//    is decoded. Each weight is decoded once, in registers, and multiplied
+//    straight into all M rows of x: no zero-padded rows, no decoded tile in
+//    shared memory. x for the K range a block walks sits in shared memory
+//    (a slab at a time where K does not fit), read as broadcast vectors.
+//  * Decode work spread over all 256 threads: a thread corrects one
+//    codeword a stage (the unembed stage holds 256), with the syndrome masks
+//    from the host in the parameter bank, and ORs its data bits into the
+//    stage's payload strings; then a thread rebuilds 8 rows x 8 columns of
+//    weights from one 16-byte mantissa load a row, one payload byte of signs
+//    a row and one exponent window a block row. The fp16-grid rebuild is
+//    the bit pattern sign | e << 23 | m << 13 scaled by 2^112 (exact for
+//    normals and subnormals; e = 31 becomes the all-ones field: inf or NaN).
+//  * Dynamic read, bound by the ALU pipe: 10 mantissa lanes a weight and
+//    112 code lanes a codeword are ~1.21 G murmur3 draws on the unembed,
+//    ~0.72 ms at 10 ALU-pipe ops a draw. Every thread draws (its weights'
+//    mantissa lanes and its codeword's lanes); flip_mask walks only the
+//    set-lane span, and with the mantissa's lanes fixed at compile time its
+//    draws unroll, so the draws of a row's 8 weights interleave.
+//  * 393 strips of the unembed fill 132 SMs in three waves (one block an
+//    SM: 161-217 KB of shared memory for M = 1..8). Each output is a fixed-order sum: a
+//    thread's rows in K order, then the 16 row groups in order through
+//    shared memory. No atomics on floats: a call's bits repeat, and a
+//    dynamic read equals the read of the statically injected image.
+//
+// The tile kernels (M > 8, and K2 at any M): a fixed 16 x 64 x 64 tile, 256
+// threads, each block streaming its [64 x 64] mantissa tile and the
+// codeword / exponent / sign words covering it into registers and shared
+// memory, decoding there, and feeding the rebuilt tile into f32 FMAs; simple
+// by design (no cp.async pipeline). At K2's serving M the bound is the same
+// as the narrow kernel's: bytes (206.0 MB of mantissas + 12.9 MB of
+// exponents + 12.9 MB of sign words on the unembed) or, dynamic, the draws.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: the rebuild must be exact).
@@ -346,6 +377,367 @@ __global__ void __launch_bounds__(NT) cim_read_raw_kernel(
   store_out(out, acc, m0, c0, M, n_out);
 }
 
+// ---------------------------------------------------------------------------
+// The narrow kernel (M <= 8): see the note at the top.
+// ---------------------------------------------------------------------------
+
+constexpr int NR_NT = 256;                   // threads a block
+constexpr int NR_BN = 128;                   // columns a strip
+constexpr int NR_CK = 128;                   // K rows a stage
+constexpr int NR_STAGES = 4;                 // ring depth
+constexpr int NR_COLS = 8;                   // columns a thread: one 16-byte word
+constexpr int NR_ROWS = 8;                   // rows a thread, each stage
+constexpr int NR_TPR = NR_BN / NR_COLS;      // 16 threads a row
+constexpr int NR_GROUPS = NR_NT / NR_TPR;    // 16 row groups
+constexpr int NR_MAN_HALVES = NR_CK * NR_BN; // uint16 mantissas a stage
+constexpr int NR_MAX_R = 7;                  // Hamming bits of a <= 104-bit segment
+constexpr int NR_PAY_PAD = 2;                // words past a payload (exponent window)
+constexpr int SMEM_LIMIT = 232448;           // 227 KB a block on the H100
+
+static_assert(NR_GROUPS * NR_ROWS == NR_CK, "row groups cover a stage");
+static_assert(NR_GROUPS * 8 * NR_BN * 4 <= NR_STAGES * NR_MAN_HALVES * 2,
+              "the final reduction fits in the mantissa ring");
+
+struct NarrowGeo {
+  int n_group, log2n, rw, S, W, seg_bits, n_body, r;
+  int gb;         // row_weights groups a strip
+  int cb;         // block rows a stage
+  int cw_stage;   // codeword words a stage, padded to 16 bytes
+  int pw;         // payload words of one (block row, group), padded
+  int pay_buf;    // words of one payload buffer, padded to 16 bytes
+  int x_slab;     // rows of x held in shared memory at once
+  int cw_vec;     // codeword stages copy in 16-byte pieces
+  uint32_t body_mask[MAX_W], code_mask[MAX_W], hmask[NR_MAX_R][MAX_W];
+};
+
+int up16w(int words) { return (words + 3) & ~3; }
+
+// Dynamic shared memory of the narrow kernel, in bytes; ops.resolve_tiles
+// computes the same number.
+int narrow_smem_bytes(int cw_stage, int pay_buf, int x_slab, int mp) {
+  return NR_STAGES * (NR_MAN_HALVES * 2 + cw_stage * 4) + 2 * pay_buf * 4 +
+         x_slab * mp * 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 32 bits of the codeword words starting at bit `pos` (a constant after
+// unrolling, so the words stay in registers).
+__device__ __forceinline__ uint32_t window32(const uint32_t (&w)[MAX_W], int pos) {
+  const int q = pos >> 5, sh = pos & 31;
+  const uint32_t hi = q + 1 < MAX_W ? w[q + 1] : 0u;
+  return sh ? __funnelshift_r(w[q], hi, sh) : w[q];
+}
+
+__device__ __forceinline__ void or_at(uint32_t (&d)[MAX_W], uint32_t v, int pos) {
+  const int q = pos >> 5, sh = pos & 31;
+  d[q] |= v << sh;
+  if (sh && q + 1 < MAX_W) d[q + 1] |= v >> (32 - sh);
+}
+
+// One codeword of the stage: dynamic flips, SECDED syndrome and single-error
+// correction, then its data bits (the body without the parity positions
+// 2^j - 1) OR-ed into the (block row, group)'s payload string at bit
+// s * seg_bits. The string was zeroed beforehand.
+template <bool DYN>
+__device__ __forceinline__ void narrow_decode_codeword(
+    const uint32_t* __restrict__ cs, uint32_t* pay, int i, int b0, int g0,
+    int n_blocks, int n_groups, const NarrowGeo& geo, uint32_t store_g,
+    uint32_t seed_cw, uint32_t thr_meta, uint32_t off_k, uint32_t off_j) {
+  const int s = i % geo.S, bg = i / geo.S;
+  uint32_t w[MAX_W];
+  if (geo.W == MAX_W) {
+    const uint4 v = *reinterpret_cast<const uint4*>(cs + i * MAX_W);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < MAX_W; ++q) w[q] = q < geo.W ? cs[i * geo.W + q] : 0u;
+  }
+  if (DYN && thr_meta) {
+    const int bl = bg / geo.gb, gl = bg - bl * geo.gb;
+    const int gbk = b0 + bl, gg = g0 + gl;
+    if (gbk < n_blocks && gg < n_groups) {
+      const uint32_t celem = (((uint32_t)gbk + off_k / (uint32_t)geo.n_group) * store_g +
+                              (uint32_t)gg + off_j / (uint32_t)geo.rw) *
+                                 (uint32_t)(geo.S * geo.W) +
+                             (uint32_t)(s * geo.W);
+#pragma unroll
+      for (int q = 0; q < MAX_W; ++q)
+        if (q < geo.W) w[q] ^= flip_mask(celem + q, seed_cw, thr_meta, geo.code_mask[q]);
+    }
+  }
+  // syndrome bit j: parity of the body bits in column mask j; overall
+  // parity over every stored bit
+  uint32_t syn = 0u, par = 0u;
+#pragma unroll
+  for (int j = 0; j < NR_MAX_R; ++j) {
+    uint32_t t = 0u;
+#pragma unroll
+    for (int q = 0; q < MAX_W; ++q) t ^= w[q] & geo.body_mask[q] & geo.hmask[j][q];
+    syn |= (uint32_t)(__popc(t) & 1) << j;
+  }
+#pragma unroll
+  for (int q = 0; q < MAX_W; ++q) par ^= w[q] & geo.code_mask[q];
+  const uint32_t pos = syn - 1u;
+  const bool fix = (__popc(par) & 1) && syn > 0u && (int)pos < geo.n_body;
+#pragma unroll
+  for (int q = 0; q < MAX_W; ++q)
+    w[q] ^= (fix && (int)(pos >> 5) == q) ? 1u << (pos & 31u) : 0u;
+  // data runs: body bits [2^j, 2^(j+1) - 1) -> data bits from 2^j - j - 1
+  uint32_t d[MAX_W] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 1; j < NR_MAX_R; ++j) {
+    if (j < geo.r) {
+      const int src = 1 << j, dst = (1 << j) - j - 1;
+      const int len = min((1 << (j + 1)) - 1, geo.n_body) - src;
+#pragma unroll
+      for (int o = 0; o < (1 << j) - 1; o += 32) {
+        const int l = min(32, len - o);
+        if (l > 0)
+          or_at(d, window32(w, src + o) & (l == 32 ? ~0u : (1u << l) - 1u), dst + o);
+      }
+    }
+  }
+  const int p0 = s * geo.seg_bits, sh = p0 & 31;
+  uint32_t* dstw = pay + bg * geo.pw + (p0 >> 5);
+#pragma unroll
+  for (int q = 0; q <= MAX_W; ++q) {
+    uint32_t v = q < MAX_W ? d[q] << sh : 0u;
+    if (q > 0 && sh) v |= d[q - 1] >> (32 - sh);
+    if (v) atomicOr(dstw + q, v);
+  }
+}
+
+template <int MP, bool DYN>
+__global__ void __launch_bounds__(NR_NT, 1) cim_read_one4n_narrow_kernel(
+    const float* __restrict__ x, const uint16_t* __restrict__ man,
+    const uint32_t* __restrict__ cw, float* __restrict__ out, int M, int K_log,
+    int k_pad, int j_pad, int n_out, NarrowGeo geo, Scalars sc, uint32_t store_g,
+    uint32_t store_j) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* man_s = reinterpret_cast<uint16_t*>(smem);
+  uint32_t* cw_s = reinterpret_cast<uint32_t*>(smem + NR_STAGES * NR_MAN_HALVES * 2);
+  uint32_t* pay_s = cw_s + NR_STAGES * geo.cw_stage;
+  float* x_s = reinterpret_cast<float*>(pay_s + 2 * geo.pay_buf);   // [x_slab][MP]
+
+  const int tid = threadIdx.x;
+  const int rg = tid / NR_TPR, cl = tid % NR_TPR;
+  const int c0 = blockIdx.x * NR_BN, col = c0 + cl * NR_COLS;
+  const int gl = (cl * NR_COLS) / geo.rw, t0 = (cl * NR_COLS) % geo.rw;
+  const int n_chunks = (k_pad + NR_CK - 1) / NR_CK;
+  const int n_blocks = k_pad / geo.n_group, n_groups = j_pad / geo.rw;
+  const int g0 = c0 / geo.rw;
+  const int sw = geo.S * geo.W;                     // codeword words a group
+  const int row_words = geo.gb * sw;                // codeword words a block row
+  const int n_cw = geo.cb * geo.gb * geo.S;         // codewords a stage
+  const uint32_t thr_man = sc.v[THR_MAN], thr_meta = sc.v[THR_META];
+  const uint32_t seed_man = sc.v[SEED_MAN] * GOLD, seed_cw = sc.v[SEED_CW] * GOLD;
+  const uint32_t off_k = sc.v[OFF_K], off_j = sc.v[OFF_J];
+
+  auto load_stage = [&](int c) {
+    if (c < n_chunks) {
+      const int slot = c % NR_STAGES, k0 = c * NR_CK;
+      uint16_t* ms = man_s + slot * NR_MAN_HALVES;
+#pragma unroll
+      for (int q = 0; q < NR_MAN_HALVES / 8 / NR_NT; ++q) {
+        const int idx = tid + q * NR_NT, row = idx / NR_TPR, piece = idx % NR_TPR;
+        const int gk = k0 + row, gc = c0 + piece * 8;
+        const bool ok = gk < k_pad && gc < j_pad;
+        cp_async16(ms + row * NR_BN + piece * 8, ok ? man + (size_t)gk * j_pad + gc : man,
+                   ok);
+      }
+      uint32_t* cs = cw_s + slot * geo.cw_stage;
+      const int b0 = k0 / geo.n_group;
+      if (geo.cw_vec) {
+        for (int i = tid * 4; i < geo.cb * row_words; i += NR_NT * 4) {
+          const int bl = i / row_words, wd = i - bl * row_words;
+          const bool ok = b0 + bl < n_blocks && g0 + wd / sw < n_groups;
+          cp_async16(cs + i, ok ? cw + ((size_t)(b0 + bl) * n_groups + g0) * sw + wd : cw,
+                     ok);
+        }
+      } else {
+        for (int i = tid; i < geo.cb * row_words; i += NR_NT) {
+          const int bl = i / row_words, wd = i - bl * row_words;
+          const bool ok = b0 + bl < n_blocks && g0 + wd / sw < n_groups;
+          cp_async4(cs + i, ok ? cw + ((size_t)(b0 + bl) * n_groups + g0) * sw + wd : cw,
+                    ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  auto zero_payload = [&](int buf) {
+    uint4* p = reinterpret_cast<uint4*>(pay_s + buf * geo.pay_buf);
+    for (int i = tid; i < geo.pay_buf / 4; i += NR_NT) p[i] = make_uint4(0u, 0u, 0u, 0u);
+  };
+
+  float acc[MP][NR_COLS];
+#pragma unroll
+  for (int m = 0; m < MP; ++m)
+#pragma unroll
+    for (int q = 0; q < NR_COLS; ++q) acc[m][q] = 0.0f;
+
+  for (int c = 0; c < NR_STAGES - 1; ++c) load_stage(c);
+  zero_payload(0);
+  int slab0 = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<NR_STAGES - 2>();
+    __syncthreads();   // stage c landed for all; stage c - 1 and its payload consumed
+    load_stage(c + NR_STAGES - 1);
+    const int k0 = c * NR_CK;
+    if (k0 % geo.x_slab == 0) {   // the next slab of x, as [row][MP] vectors
+      slab0 = k0;
+      for (int k = tid; k < geo.x_slab; k += NR_NT) {
+        const int gk = k0 + k;
+        float v[MP];
+#pragma unroll
+        for (int m = 0; m < MP; ++m)
+          v[m] = (m < M && gk < K_log) ? x[(size_t)m * K_log + gk] : 0.0f;
+#pragma unroll
+        for (int m = 0; m < MP; ++m) x_s[k * MP + m] = v[m];
+      }
+    }
+    zero_payload((c + 1) & 1);
+    uint32_t* pay = pay_s + (c & 1) * geo.pay_buf;
+    {
+      const uint32_t* cs = cw_s + (c % NR_STAGES) * geo.cw_stage;
+      for (int i = tid; i < n_cw; i += NR_NT)
+        narrow_decode_codeword<DYN>(cs, pay, i, k0 / geo.n_group, g0, n_blocks,
+                                    n_groups, geo, store_g, seed_cw, thr_meta, off_k,
+                                    off_j);
+    }
+    __syncthreads();   // payload strings complete
+
+    const uint16_t* ms = man_s + (c % NR_STAGES) * NR_MAN_HALVES;
+    const unsigned char* payb = reinterpret_cast<const unsigned char*>(pay);
+    uint32_t ef[NR_COLS];
+    constexpr int ROW_UNROLL = DYN ? 1 : NR_ROWS;
+#pragma unroll (ROW_UNROLL)
+    for (int i = 0; i < NR_ROWS; ++i) {
+      const int kr = rg * NR_ROWS + i, gk = k0 + kr;
+      if (gk >= K_log) break;   // the store's padding rows are not weights
+      const int bl = kr >> geo.log2n, i_n = kr & (geo.n_group - 1);
+      const int pbase = (bl * geo.gb + gl) * geo.pw;
+      if (i == 0 || i_n == 0) {
+        // the 8 exponent fields of this thread's columns: 40 bits from
+        // payload bit 5 * t0
+        const int e0 = 5 * t0, q0 = pbase + (e0 >> 5);
+        const uint32_t lo = __funnelshift_r(pay[q0], pay[q0 + 1], e0 & 31);
+        const uint32_t hi = __funnelshift_r(pay[q0 + 1], pay[q0 + 2], e0 & 31);
+#pragma unroll
+        for (int q = 0; q < NR_COLS; ++q) {
+          const uint32_t e =
+              (q < 6 ? lo >> (5 * q) : (q == 6 ? __funnelshift_r(lo, hi, 30) : hi >> 3)) &
+              31u;
+          ef[q] = (e == 31u ? 0xFFu : e) << 23;
+        }
+      }
+      // sign bits of the row's 8 columns: one byte (rw, t0 are multiples of 8)
+      const uint32_t sb = payb[pbase * 4 + ((5 * geo.rw + i_n * geo.rw + t0) >> 3)];
+      const uint4 mw = *reinterpret_cast<const uint4*>(ms + kr * NR_BN + cl * NR_COLS);
+      uint32_t mv[4] = {mw.x, mw.y, mw.z, mw.w};
+      if (DYN && thr_man && col < j_pad) {
+        const uint32_t e = ((uint32_t)gk + off_k) * store_j + (uint32_t)col + off_j;
+#pragma unroll
+        for (int q = 0; q < NR_COLS; ++q) {
+          const uint32_t f = flip_mask<0x3FFu>(e + q, seed_man, thr_man);
+          mv[q >> 1] ^= (q & 1) ? f << 16 : f;
+        }
+      }
+      float xv[MP];
+      const float* xr = x_s + (gk - slab0) * MP;
+      if constexpr (MP % 4 == 0) {
+#pragma unroll
+        for (int m = 0; m < MP; m += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(xr + m);
+          xv[m] = v.x; xv[m + 1] = v.y; xv[m + 2] = v.z; xv[m + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int m = 0; m < MP; ++m) xv[m] = xr[m];
+      }
+#pragma unroll
+      for (int q = 0; q < NR_COLS; ++q) {
+        const uint32_t word = mv[q >> 1];
+        const uint32_t mb = ((q & 1) ? word >> 3 : word << 13) & 0x007FE000u;
+        const uint32_t bits = ((sb << (31 - q)) & 0x80000000u) | ef[q] | mb;
+        const float wv = __uint_as_float(bits) * __uint_as_float((127u + 112u) << 23);
+#pragma unroll
+        for (int m = 0; m < MP; ++m) acc[m][q] = fmaf(xv[m], wv, acc[m][q]);
+      }
+    }
+  }
+
+  // the 16 row groups' partial sums meet in the (drained) mantissa ring and
+  // are added in a fixed order
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);   // [NR_GROUPS][MP][NR_BN]
+#pragma unroll
+  for (int m = 0; m < MP; ++m) {
+    float4* r4 = reinterpret_cast<float4*>(red + (rg * MP + m) * NR_BN + cl * NR_COLS);
+    r4[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    r4[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
+  }
+  __syncthreads();
+  for (int idx = tid; idx < MP * NR_BN; idx += NR_NT) {
+    const int m = idx / NR_BN, cc = idx % NR_BN, gc = c0 + cc;
+    float sum = red[m * NR_BN + cc];
+#pragma unroll
+    for (int g = 1; g < NR_GROUPS; ++g) sum += red[(g * MP + m) * NR_BN + cc];
+    if (m < M && gc < n_out) out[(size_t)m * n_out + gc] = sum;
+  }
+}
+
+template <int MP, bool DYN>
+int launch_narrow_kernel(const void* x, const void* man, const void* cw, void* out, int M,
+                  int K_log, int k_pad, int j_pad, int n_out, const NarrowGeo& geo,
+                  const Scalars& sc, uint32_t store_g, uint32_t store_j, int smem,
+                  cudaStream_t stream) {
+  auto kern = cim_read_one4n_narrow_kernel<MP, DYN>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((j_pad + NR_BN - 1) / NR_BN);
+  kern<<<grid, NR_NT, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const uint16_t*>(man),
+      static_cast<const uint32_t*>(cw), static_cast<float*>(out), M, K_log, k_pad,
+      j_pad, n_out, geo, sc, store_g, store_j);
+  return (int)cudaGetLastError();
+}
+
+template <int MP>
+int launch_narrow(const void* x, const void* man, const void* cw, void* out, int M,
+                  int K_log, int k_pad, int j_pad, int n_out, const NarrowGeo& geo,
+                  const Scalars& sc, uint32_t store_g, uint32_t store_j, int smem,
+                  bool dynamic, cudaStream_t stream) {
+  return dynamic ? launch_narrow_kernel<MP, true>(x, man, cw, out, M, K_log, k_pad,
+                                                  j_pad, n_out, geo, sc, store_g,
+                                                  store_j, smem, stream)
+                 : launch_narrow_kernel<MP, false>(x, man, cw, out, M, K_log, k_pad,
+                                                   j_pad, n_out, geo, sc, store_g,
+                                                   store_j, smem, stream);
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 Scalars read_scalars(const uint32_t* s) {
@@ -384,6 +776,66 @@ extern "C" int cim_read_one4n(const void* x, const void* man, const void* cw,
       static_cast<const uint32_t*>(cw), static_cast<float*>(out), M, K_log, k_pad,
       j_pad, n_out, geo, fmt, read_scalars(scalars), dynamic, store_g, store_j);
   return (int)cudaGetLastError();
+}
+
+// The narrow kernel (M <= 8). `x_slab` and `smem_bytes` are the geometry
+// ops.resolve_tiles chose; `tables` holds the codeword words' body masks
+// [4], their stored-bit masks [4] and the syndrome column masks [7][4].
+extern "C" int cim_read_one4n_narrow(const void* x, const void* man, const void* cw,
+                                     void* out, int M, int K_log, int k_pad, int j_pad,
+                                     int n_out, int n_group, int rw, int S, int W,
+                                     int seg_bits, int n_body, int r, int man_bits,
+                                     int exp_bits, int bias, int x_slab,
+                                     int smem_bytes, unsigned int store_g,
+                                     unsigned int store_j, const unsigned int* tables,
+                                     const unsigned int* scalars, int dynamic,
+                                     void* stream) {
+  int log2n = -1;
+  for (int b = 0; b < 8; ++b)
+    if (n_group == 1 << b) log2n = b;
+  if (M <= 0 || M > 8 || k_pad <= 0 || j_pad <= 0 || man_bits != 10 || exp_bits != 5 ||
+      bias != 15 || log2n < 0 || NR_CK % n_group != 0 || rw % NR_COLS != 0 ||
+      NR_BN % rw != 0 || j_pad % 16 != 0 || k_pad % n_group != 0 || W < 1 ||
+      W > MAX_W || r < 2 || r > NR_MAX_R || n_body >= 32 * MAX_W || S < 1 ||
+      seg_bits != n_body - r || x_slab <= 0 || x_slab % NR_CK != 0 ||
+      !aligned16(man) || !aligned16(cw) || K_log > k_pad || n_out > j_pad)
+    return -1;
+  const int mp = M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8;
+  NarrowGeo geo{};
+  geo.n_group = n_group; geo.log2n = log2n; geo.rw = rw; geo.S = S; geo.W = W;
+  geo.seg_bits = seg_bits; geo.n_body = n_body; geo.r = r;
+  geo.gb = NR_BN / rw;
+  geo.cb = NR_CK / n_group;
+  geo.cw_stage = up16w(geo.cb * geo.gb * S * W);
+  geo.pw = (S * seg_bits + 31) / 32 + NR_PAY_PAD;
+  geo.pay_buf = up16w(geo.cb * geo.gb * geo.pw);
+  geo.x_slab = x_slab;
+  geo.cw_vec = (S * W) % 4 == 0;
+  for (int q = 0; q < MAX_W; ++q) {
+    geo.body_mask[q] = q < W ? tables[q] : 0u;
+    geo.code_mask[q] = q < W ? tables[MAX_W + q] : 0u;
+    for (int j = 0; j < NR_MAX_R; ++j)
+      geo.hmask[j][q] = j < r && q < W ? tables[2 * MAX_W + j * MAX_W + q] : 0u;
+  }
+  const int smem = narrow_smem_bytes(geo.cw_stage, geo.pay_buf, x_slab, mp);
+  if (smem != smem_bytes || smem > SMEM_LIMIT) return -1;
+  const Scalars sc = read_scalars(scalars);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool dyn = dynamic != 0;
+  switch (mp) {
+    case 1:
+      return launch_narrow<1>(x, man, cw, out, M, K_log, k_pad, j_pad, n_out, geo, sc,
+                              store_g, store_j, smem, dyn, st);
+    case 2:
+      return launch_narrow<2>(x, man, cw, out, M, K_log, k_pad, j_pad, n_out, geo, sc,
+                              store_g, store_j, smem, dyn, st);
+    case 4:
+      return launch_narrow<4>(x, man, cw, out, M, K_log, k_pad, j_pad, n_out, geo, sc,
+                              store_g, store_j, smem, dyn, st);
+    default:
+      return launch_narrow<8>(x, man, cw, out, M, K_log, k_pad, j_pad, n_out, geo, sc,
+                              store_g, store_j, smem, dyn, st);
+  }
 }
 
 extern "C" int cim_read_raw(const void* x, const void* man, const void* expw,

@@ -5,7 +5,8 @@ CudaLibrary` (nvcc, ``sm_90a``, into the git-ignored ``build/repro_torch/``).
 A refused argument set or a non-zero ``cudaGetLastError()`` raises.
 
 Each launch wrapper adds one to :data:`launch_counts` where it launches its
-kernel, and nowhere else.
+kernel, and nowhere else; K1's two kernels (the narrow one for M <= 8, the
+tile above it) count under K1's name.
 """
 from __future__ import annotations
 
@@ -33,6 +34,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.cim_read_one4n.argtypes = [vp, vp, vp, vp] + [i] * 16 + [u, u, vp, vp, i, vp]
     lib.cim_read_one4n.restype = i
+    lib.cim_read_one4n_narrow.argtypes = [vp, vp, vp, vp] + [i] * 17 \
+        + [u, u, vp, vp, i, vp]
+    lib.cim_read_one4n_narrow.restype = i
     lib.cim_read_raw.argtypes = [vp] * 5 + [i] * 10 + [u, u, vp, i, vp]
     lib.cim_read_raw.restype = i
 
@@ -73,6 +77,37 @@ def cim_read_matmul_one4n(x: torch.Tensor, man: torch.Tensor, cw: torch.Tensor,
     check_rc(rc, K1)
     launch_counts[K1] += 1
     del sc, wm
+    return out
+
+
+def cim_read_matmul_one4n_narrow(x: torch.Tensor, man: torch.Tensor,
+                                 cw: torch.Tensor, scalars: np.ndarray, *,
+                                 k_log: int, n_out: int, n_group: int,
+                                 row_weights: int, n_segments: int,
+                                 code_words: int, segment_bits: int,
+                                 n_body: int, r: int, tables: np.ndarray,
+                                 man_bits: int, exp_bits: int, bias: int,
+                                 x_slab: int, smem_bytes: int, store_g: int,
+                                 store_j: int, dynamic: bool) -> torch.Tensor:
+    """K1's narrow kernel, for M <= 8: the same function as
+    :func:`cim_read_matmul_one4n`. ``tables`` is uint32 [36]: the codeword
+    words' body masks [4], stored-bit masks [4] and syndrome column masks
+    [7, 4]; ``x_slab`` and ``smem_bytes`` are the geometry of
+    ``ops.resolve_tiles``, which the library checks."""
+    lib = load()
+    m = x.shape[0]
+    k_pad, j_pad = man.shape
+    out = torch.empty((m, n_out), dtype=torch.float32, device=x.device)
+    sc, sc_ptr = _scalars_arg(scalars)
+    tb, tb_ptr = _scalars_arg(tables)
+    rc = lib.cim_read_one4n_narrow(
+        x.data_ptr(), man.data_ptr(), cw.data_ptr(), out.data_ptr(), m, k_log,
+        k_pad, j_pad, n_out, n_group, row_weights, n_segments, code_words,
+        segment_bits, n_body, r, man_bits, exp_bits, bias, x_slab, smem_bytes,
+        store_g, store_j, tb_ptr, sc_ptr, int(dynamic), stream_of(x))
+    check_rc(rc, K1)
+    launch_counts[K1] += 1
+    del sc, tb
     return out
 
 

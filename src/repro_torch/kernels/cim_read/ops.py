@@ -6,16 +6,22 @@ directly. The route follows the tensors' device:
 
 * a CUDA store with ``protect`` in {one4n, none} and fp16 launches the
   hand-written kernel — K1 (``cim_read_matmul_one4n``) or K2
-  (``cim_read_matmul_raw``) — or raises; it never falls back;
+  (``cim_read_matmul_raw``) — or raises; it never falls back. K1 has two
+  kernels and M alone picks one (:func:`resolve_tiles`): the narrow,
+  pipelined kernel for the decode-shaped read (M <= 8), the 16 x 64 x 64
+  tile above it;
 * a CPU store runs the plain version (:mod:`.ref`), since no kernel runs on
   the CPU;
 * ``per_weight`` / non-fp16 stores take the plain version on either device:
   that is the reference's documented route for them (``_fallback``), as no
   kernel tiles them.
 
-``info['used_kernel']`` says whether a kernel launched.
+``info['used_kernel']`` says whether a kernel launched, ``info['tiles']``
+which kernel and geometry.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -27,13 +33,24 @@ from repro_torch.kernels.cim_read import kernel as kernel_lib
 from repro_torch.kernels.cim_read import ref
 from repro_torch.kernels.cim_read.ref import cim_read_ref
 
-# The kernels' fixed tile (csrc/cim_read.cu): BM output rows x BN columns,
+# K1's narrow kernel (M <= 8, csrc/cim_read.cu): a block owns a strip of
+# NARROW_N columns and walks K through a ring of NARROW_STAGES shared stages
+# of NARROW_K rows; 256 threads, each 8 columns x 8 rows a stage.
+NARROW_N, NARROW_K, NARROW_STAGES = 128, 128, 4
+NARROW_COLS = 8
+NARROW_M_ROWS = (1, 2, 4, 8)     # M is rounded up to one of these
+NARROW_MAX_R = 7
+# The tile kernels (K1 for M > 8, and K2): BM output rows x BN columns,
 # walking K in BK-row chunks; 256 threads a block.
 BLOCK_M, BLOCK_N, BLOCK_K = 16, 64, 64
 MAX_CW_WORDS = 512
 MAX_PAYLOAD_BITS = 512
 # Shared memory a block may use on the H100 (227 KB of the SM's 256 KB).
 H100_SMEM_PER_BLOCK = 232_448
+
+
+def _up4(words: int) -> int:
+    return -(-words // 4) * 4
 
 
 def make_scalars(seeds=None, thr_man=0, thr_meta=0, off_k=0, off_j=0,
@@ -48,16 +65,60 @@ def make_scalars(seeds=None, thr_man=0, thr_meta=0, off_k=0, off_j=0,
     return np.asarray([int(v) & 0xFFFFFFFF for v in vals], np.uint32)
 
 
+def _narrow_tiles(store, m: int) -> dict:
+    """K1's narrow geometry for ``m <= 8``: the strip, the stage ring and
+    how many rows of x a block keeps in shared memory (all of K where it
+    fits with the ring, else a slab of whole stages)."""
+    m_rows = next(p for p in NARROW_M_ROWS if p >= m)
+    return dict(_narrow_geometry(store.cfg, *store.man.shape, m_rows))
+
+
+# Cached per store geometry, as is _one4n_args: a narrow read takes ~0.14 ms
+# on the card, and the host's time per call counts against it.
+@functools.lru_cache(maxsize=None)
+def _narrow_geometry(cfg, k_pad: int, j_pad: int, m_rows: int) -> dict:
+    n, rw = cfg.n_group, cfg.row_weights
+    codec = cfg.codec
+    code = codec.code
+    if NARROW_K % n or NARROW_N % rw or rw % NARROW_COLS or j_pad % 16 \
+            or codec.codeword_words > 4 or code.r > NARROW_MAX_R:
+        raise NotImplementedError(
+            f"cim_read narrow kernel tiles n_group dividing {NARROW_K} and "
+            f"row_weights a multiple of {NARROW_COLS} dividing {NARROW_N} "
+            f"(got n_group={n}, row_weights={rw})")
+    cb, gb = NARROW_K // n, NARROW_N // rw
+    cw_stage = _up4(cb * gb * codec.n_segments * codec.codeword_words)
+    pay_words = -(-codec.n_segments * codec.segment_bits // 32) + 2
+    pay_buf = _up4(cb * gb * pay_words)
+    fixed = NARROW_STAGES * (NARROW_K * NARROW_N * 2 + cw_stage * 4) \
+        + 2 * pay_buf * 4
+    stages_of_x = min(-(-k_pad // NARROW_K),
+                      (H100_SMEM_PER_BLOCK - fixed) // (NARROW_K * m_rows * 4))
+    if stages_of_x < 1:
+        raise NotImplementedError("cim_read narrow kernel: the stage ring "
+                                  f"({fixed} bytes) leaves no room for x")
+    x_slab = stages_of_x * NARROW_K
+    smem = fixed + x_slab * m_rows * 4
+    assert smem <= H100_SMEM_PER_BLOCK
+    return {"kernel": "narrow", "m_rows": m_rows, "block_n": NARROW_N,
+            "block_k": NARROW_K, "stages": NARROW_STAGES, "x_slab": x_slab,
+            "grid": (-(-j_pad // NARROW_N),), "smem_bytes": smem}
+
+
 def resolve_tiles(store, m: int) -> dict:
-    """The kernel tile for one store, checked against its layout quanta and
-    the card's shared memory: ``BLOCK_N`` must hold whole ``row_weights``
-    groups, ``BLOCK_K`` whole exponent blocks (and whole 32-row sign words
-    for ``protect='none'``). The reference budgets 8 MiB of TPU VMEM for a
-    full-K strip; a Hopper block has 227 KB, so the kernels walk K in 64-row
-    chunks instead, with the decoded [64, 64] fp32 tile (16 KB) in shared
-    memory. Raises ``NotImplementedError`` for a geometry the kernels do not
-    tile."""
+    """The kernel and its geometry for one store and ``m`` rows of x. M
+    alone picks the kernel: a one4n store read with ``m <= 8`` gets K1's
+    narrow kernel (``kernel='narrow'``), any other read the fixed tile
+    (``kernel='tile'``). The geometry is checked against the store's layout
+    quanta and the card's shared memory; the tile's ``BLOCK_N`` must hold
+    whole ``row_weights`` groups, ``BLOCK_K`` whole exponent blocks (and
+    whole 32-row sign words for ``protect='none'``). The reference budgets
+    8 MiB of TPU VMEM for a full-K strip; a Hopper block has 227 KB, so the
+    kernels walk K in chunks instead. Raises ``NotImplementedError`` for a
+    geometry the kernel does not tile."""
     cfg = store.cfg
+    if cfg.protect == "one4n" and m <= NARROW_M_ROWS[-1]:
+        return _narrow_tiles(store, m)
     n, rw = cfg.n_group, cfg.row_weights
     k_pad, j_pad = store.man.shape
     if BLOCK_K % n or BLOCK_N % rw or j_pad % 16:
@@ -78,33 +139,62 @@ def resolve_tiles(store, m: int) -> dict:
     else:
         smem += (BLOCK_K // 32) * BLOCK_N * 4
     assert smem <= H100_SMEM_PER_BLOCK
-    return {"block_m": BLOCK_M, "block_n": BLOCK_N, "block_k": BLOCK_K,
+    return {"kernel": "tile", "block_m": BLOCK_M, "block_n": BLOCK_N,
+            "block_k": BLOCK_K,
             "grid": (-(-j_pad // BLOCK_N), -(-max(m, 1) // BLOCK_M)),
             "smem_bytes": smem}
 
 
-def _kernel_call(x2: torch.Tensor, store, scalars) -> torch.Tensor:
+def narrow_tables(code) -> np.ndarray:
+    """uint32 [36] codeword tables of the narrow kernel for a SECDED
+    ``code``, padded to 4 words a row: each codeword word's body mask and
+    stored-bit mask, then the syndrome column masks [7, 4]
+    (:attr:`~repro_torch.core.ecc.SecdedCode.syndrome_masks`)."""
+    syn = code.syndrome_masks
+    hmask = np.zeros((NARROW_MAX_R, 4), np.uint32)
+    hmask[:syn.shape[0], :syn.shape[1]] = syn
+    return np.concatenate([bitpack.word_masks(code.n_body, 4),
+                           bitpack.word_masks(code.n, 4), hmask.ravel()])
+
+
+@functools.lru_cache(maxsize=None)
+def _one4n_args(cfg) -> dict:
+    """The codeword geometry and host tables K1's kernels take."""
+    codec = cfg.codec
+    code = codec.code
+    return dict(row_weights=cfg.row_weights, n_segments=codec.n_segments,
+                code_words=codec.codeword_words,
+                segment_bits=codec.segment_bits, n_body=code.n_body, r=code.r,
+                payload_bits=codec.payload_bits, tables=narrow_tables(code),
+                word_masks=np.concatenate([bitpack.word_masks(code.n_body, 4),
+                                           bitpack.word_masks(code.n, 4)]))
+
+
+_STATIC = make_scalars()
+
+
+def _kernel_call(x2: torch.Tensor, store, scalars, tiles: dict) -> torch.Tensor:
     cfg = store.cfg
     k_log, j_log = store.shape
     k_pad, j_pad = store.man.shape
     dynamic = scalars is not None
-    sc = scalars if dynamic else make_scalars()
+    sc = scalars if dynamic else _STATIC
     fmt = cfg.fmt
     common = dict(k_log=k_log, n_out=j_log, n_group=cfg.n_group,
                   man_bits=fmt.man_bits, exp_bits=fmt.exp_bits, bias=fmt.bias,
                   store_j=j_pad, dynamic=dynamic)
     if cfg.protect == "one4n":
-        codec = cfg.codec
-        code = codec.code
+        one4n = dict(_one4n_args(cfg), store_g=j_pad // cfg.row_weights)
+        tables, payload_bits = one4n.pop("tables"), one4n.pop("payload_bits")
+        word_masks = one4n.pop("word_masks")
+        if tiles["kernel"] == "narrow":
+            return kernel_lib.cim_read_matmul_one4n_narrow(
+                x2, store.man, store.codewords, sc, tables=tables,
+                x_slab=tiles["x_slab"], smem_bytes=tiles["smem_bytes"],
+                **one4n, **common)
         return kernel_lib.cim_read_matmul_one4n(
-            x2, store.man, store.codewords, sc, row_weights=cfg.row_weights,
-            n_segments=codec.n_segments, code_words=codec.codeword_words,
-            segment_bits=codec.segment_bits, n_body=code.n_body, r=code.r,
-            payload_bits=codec.payload_bits,
-            word_masks=np.concatenate([
-                bitpack.word_masks(code.n_body, 4),
-                bitpack.word_masks(code.n, 4)]),
-            store_g=j_pad // cfg.row_weights, **common)
+            x2, store.man, store.codewords, sc, payload_bits=payload_bits,
+            word_masks=word_masks, **one4n, **common)
     return kernel_lib.cim_read_matmul_raw(
         x2, store.man, store.exp, store.sign, sc, store_k=k_pad, **common)
 
@@ -152,7 +242,7 @@ def cim_linear_store(x: torch.Tensor, store, *, scalars=None, model=None,
     kernel_route = cfg.protect in ("one4n", "none") and cfg.fmt.name == "fp16"
     if kernel_route and dev.type == "cuda":
         tiles = resolve_tiles(store, x2.shape[0])
-        out = _kernel_call(x2, store, scalars)
+        out = _kernel_call(x2, store, scalars, tiles)
         info = {"used_kernel": True, "route": "kernel", "tiles": tiles}
     else:
         out, _ = cim_read_ref(x2, store, scalars, model=model)

@@ -9,8 +9,10 @@ the two are bitwise equal at every other exponent and the gap at those four
 is measured and bounded here. Matmuls agree within 1e-5 (fp32, different
 summation orders), as ``tests/test_kernels.py`` holds the reference's
 kernel to its own oracle; the reference's Pallas kernel runs in interpret
-mode, compiled once per case with ``jax.jit``. The ``gpu`` cases hold the
-CUDA kernel against its plain version on a card and skip without one; they
+mode, compiled once per case with ``jax.jit``. Exponent bytes from 143 up,
+which ``cim_linear`` takes from any uint8 plane, give ``±inf`` in both
+packages. The ``gpu`` cases hold the CUDA kernel against its plain version
+on a card (an all-256-exponent plane among them) and skip without one; they
 need no jax, so they run on the card's machine.
 """
 import numpy as np
@@ -127,6 +129,49 @@ def test_dequant_matches_reference_outside_inexact_exp2():
     assert all(g <= 16 for g in gaps.values()), gaps
 
 
+def test_dequant_every_exponent_byte():
+    """All 256 exponent bytes, which ``cim_linear`` takes from any uint8
+    plane. The port is exact everywhere, ``±inf`` from e = 143 (the scale
+    overflows fp32) and never NaN. Against the reference: bitwise equal for
+    e >= 143 and wherever the reference's ``jnp.exp2(e - 15)`` is exact; where
+    it is not, apart by no more than that scale error explains (a weight
+    ``frac * scale`` with ``frac < 2`` moves twice the scale's ulps, plus
+    one for rounding). The scale error is read from the reference's own
+    dequantization of a zero mantissa word, not taken from a list."""
+    rng = np.random.default_rng(2)
+    words = rng.integers(0, 2 ** 16, (256 * 8, 16)).astype(np.int32)
+    words[:, :2] = (0, 0x8000)              # +-(1.0 * scale) in every block
+    man = torch.from_numpy(words).to(torch.uint16)
+    exp = torch.from_numpy(np.repeat(np.arange(256, dtype=np.uint8)[:, None],
+                                     16, axis=1))
+    t = t_ref.dequant_ref(man, exp, 8).numpy()
+    assert not np.isnan(t).any()
+    e = np.repeat(np.arange(256, dtype=np.float64), 8)[:, None]
+    with np.errstate(over="ignore"):
+        want = (np.where(words >> 15 & 1, -1.0, 1.0) * (1 + (words & 0x3FF)
+                / 1024.0) * np.exp2(e - 15)).astype(np.float32)
+    assert np.array_equal(t.view(np.uint32), want.view(np.uint32))
+    assert np.isinf(t[143 * 8:]).all()
+
+    _need_jax()
+    j = np.asarray(j_ref.dequant_ref(*_j_planes(man, exp), 8))
+    assert not np.isnan(j).any()
+    tb, jb = (a.view(np.int32).astype(np.int64).reshape(256, 8, 16)
+              for a in (t, j))
+    scale_err = jb[:, 0, 0] - tb[:, 0, 0]   # reference scale - exact, ulps
+    exact = 0
+    for ex in range(256):
+        gap = int(np.abs(tb[ex] - jb[ex]).max())
+        if ex >= 143 or scale_err[ex] == 0:
+            assert gap == 0, (ex, gap)
+            exact += 1
+        else:
+            assert gap <= 2 * abs(int(scale_err[ex])) + 1, \
+                (ex, gap, int(scale_err[ex]))
+    # the reference's exp2 is exact at most exponents a trained model uses
+    assert scale_err[1:28].tolist().count(0) >= 25 and exact >= 140
+
+
 # the matrices of tests/test_kernels.py:28-72
 SHAPES = [(128, 512, 128), (256, 1024, 256), (128, 2048, 384), (8, 512, 128)]
 BLOCKS = [(128, 128, 512), (128, 256, 256), (64, 128, 1024)]
@@ -241,23 +286,55 @@ def _card_case(m, k, n, n_group, x_dtype, dev, seed=0):
     return x.to(dev), man.to(dev), exp.to(dev), w_al.to(dev)
 
 
+def _every_exponent_case(m, n, dev, seed=0):
+    """One block row (K = n_group = 1) whose N columns cycle through all
+    256 exponent bytes, with random signs and mantissas (zero mantissas of
+    both signs included), and x = ±1: each output is ±W exactly, so kernel
+    and plain version agree bit for bit, ±inf from e = 143 and finite below
+    it, never NaN."""
+    g = torch.Generator().manual_seed(seed + m + n)
+    man = torch.randint(0, 2 ** 16, (1, n), generator=g, dtype=torch.int32)
+    man[0, :2] = torch.tensor([0, 0x8000])
+    exp = (torch.arange(n) % 256).to(torch.uint8)[None]
+    x = torch.randint(0, 2, (m, 1), generator=g) * 2.0 - 1.0   # +-W exactly
+    man = man.to(torch.uint16)
+    return x.to(dev), man.to(dev), exp.to(dev), \
+        t_ref.dequant_ref(man, exp, 1).to(dev)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n,n_group,x_dtype", [
-    (5, 72, 40, 8, torch.float32), (3, 512, 130, 8, torch.float32),
-    (130, 520, 128, 8, torch.float32), (4, 2048, 1000, 8, torch.float32),
-    (1, 64, 33, 4, torch.float32), (64, 256, 96, 16, torch.float32),
-    (8, 512, 256, 8, torch.bfloat16), (200, 512, 256, 4, torch.bfloat16)])
-def test_cuda_kernel_matches_plain_version(m, k, n, n_group, x_dtype):
+@pytest.mark.parametrize("m,k,n,n_group,x_dtype,plane", [
+    (5, 72, 40, 8, torch.float32, "aligned"),
+    (3, 512, 130, 8, torch.float32, "aligned"),
+    (130, 520, 128, 8, torch.float32, "aligned"),
+    (4, 2048, 1000, 8, torch.float32, "aligned"),
+    (1, 64, 33, 4, torch.float32, "aligned"),
+    (64, 256, 96, 16, torch.float32, "aligned"),
+    (8, 512, 256, 8, torch.bfloat16, "aligned"),
+    (200, 512, 256, 4, torch.bfloat16, "aligned"),
+    (4, 1, 1024, 1, torch.float32, "every_exponent_byte"),
+    (130, 1, 1024, 1, torch.float32, "every_exponent_byte")])
+def test_cuda_kernel_matches_plain_version(m, k, n, n_group, x_dtype, plane):
     dev = _cuda()
-    x, man, exp, w_al = _card_case(m, k, n, n_group, x_dtype, dev)
+    if plane == "aligned":
+        x, man, exp, w_al = _card_case(m, k, n, n_group, x_dtype, dev)
+    else:
+        x, man, exp, w_al = _every_exponent_case(m, n, dev)
     before = t_kernel.launch_counts[t_kernel.K5]
     out, info = t_ops.cim_linear(x, man, exp, n_group=n_group, with_info=True)
     assert info["used_kernel"]
     assert t_kernel.launch_counts[t_kernel.K5] == before + 1
     torch.cuda.synchronize()
     want = t_ref.bfp_matmul_ref(x, man, exp, n_group)
-    np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
-                               rtol=TOL, atol=TOL)
+    if plane == "aligned":
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=TOL, atol=TOL)
+    else:
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+        sat = (torch.arange(n) % 256 >= 143).to(dev)
+        assert not bool(out.isnan().any())
+        assert bool(out[:, sat].isinf().all())
+        assert bool(out[:, ~sat].isfinite().all())
     eye = torch.eye(k, device=dev)
     probe = t_ops.cim_linear(eye, man, exp, n_group=n_group)
     assert torch.equal(probe.view(torch.int32), w_al.view(torch.int32))

@@ -4,10 +4,14 @@ On the CPU the port's ``cim_linear_store`` takes the plain version (decode
 then matmul); the reference runs its Pallas kernel in interpret mode, once
 per case, with dynamic injection: the identity probe rows compare the
 decoded faulted weights bit for bit, the dense rows agree within fp32
-summation-order tolerance. The ``gpu`` case runs the CUDA
-kernels against their plain version on a card and skips without one; it
-needs no jax, so it runs on the card's machine.
+summation-order tolerance. ``resolve_tiles`` picks K1's kernel by M alone
+(the narrow one for M <= 8, the tile above) and is checked here without a
+card. The ``gpu`` cases run the CUDA kernels against their plain version on
+a card and skip without one; they need no jax, so they run on the card's
+machine.
 """
+import types
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -107,28 +111,92 @@ def test_per_weight_routes_to_plain_version():
     assert torch.equal(out, x @ t_cim.read(store)[0])
 
 
-def test_resolve_tiles_checks_geometry():
+def _unembed_geometry(cfg):
+    """A stand-in store with olmo-1b's unembed planes (K = 2048, J = 50304)
+    on the meta device: ``resolve_tiles`` reads only the shapes."""
+    return types.SimpleNamespace(cfg=cfg, man=torch.empty(
+        (2048, 50304), dtype=torch.uint16, device="meta"))
+
+
+@pytest.mark.parametrize("m,kernel,m_rows", [
+    (1, "narrow", 1), (4, "narrow", 4), (8, "narrow", 8), (9, "tile", None),
+    (16, "tile", None)])
+def test_resolve_tiles_checks_geometry(m, kernel, m_rows):
     w = torch.zeros((96, 32))
-    tiles = t_ops.resolve_tiles(t_cim.pack(w, t_cim.CIMConfig()), 4)
-    assert (tiles["block_m"], tiles["block_n"], tiles["block_k"]) == (16, 64, 64)
+    tiles = t_ops.resolve_tiles(t_cim.pack(w, t_cim.CIMConfig()), m)
+    assert tiles["kernel"] == kernel
+    if kernel == "tile":
+        assert (tiles["block_m"], tiles["block_n"], tiles["block_k"]) == \
+            (16, 64, 64)
+    else:
+        assert tiles["m_rows"] == m_rows
+        assert (tiles["block_n"], tiles["block_k"], tiles["stages"]) == \
+            (128, 128, 4)
+        assert tiles["x_slab"] == 128 and tiles["grid"] == (1,)
     assert tiles["smem_bytes"] <= t_ops.H100_SMEM_PER_BLOCK
+    # olmo-1b's unembed: all of x (K = 2048) stays in shared memory beside
+    # the 4-stage ring, within the card's 227 KB, at every narrow M
+    big = t_ops.resolve_tiles(_unembed_geometry(t_cim.CIMConfig()), m)
+    assert big["smem_bytes"] <= t_ops.H100_SMEM_PER_BLOCK
+    if kernel == "narrow":
+        assert big["x_slab"] == 2048 and big["grid"] == (393,)
+    # the none image has only the tile kernel (K2)
+    none = t_ops.resolve_tiles(t_cim.pack(w, t_cim.CIMConfig(protect="none")),
+                               m)
+    assert none["kernel"] == "tile"
     with pytest.raises(NotImplementedError):
-        t_ops.resolve_tiles(t_cim.pack(w, t_cim.CIMConfig(n_group=12)), 4)
+        t_ops.resolve_tiles(t_cim.pack(w, t_cim.CIMConfig(n_group=12)), m)
+
+
+def test_narrow_tables_are_the_codec_syndrome_masks():
+    """The host tables the narrow kernel takes in place of per-block
+    rebuilt ones: body and stored-bit masks, and syndrome column masks that
+    give each single-bit error its 1-based position."""
+    code = t_cim.CIMConfig().codec.code
+    tables = t_ops.narrow_tables(code)
+    assert tables.dtype == np.uint32 and tables.shape == (36,)
+    body, hmask = tables[:4], tables[8:].reshape(7, 4)
+    for i in range(code.n_body):
+        word, lane = divmod(i, 32)
+        assert (int(body[word]) >> lane) & 1
+        syn = sum(((int(hmask[j, word]) >> lane) & 1) << j
+                  for j in range(7))
+        assert syn == i + 1
+
+
+# ------------------------------------------------------------- on the card
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _identity_slices(store, m):
+    """``eye(K) @ W`` through ``cim_linear_store`` in slices of ``m`` rows
+    (at m <= 8 every slice takes the narrow kernel)."""
+    k = store.shape[0]
+    eye = torch.eye(k, device=store.device)
+    return torch.cat([t_ops.cim_linear_store(eye[i:i + m], store)
+                      for i in range(0, k, m)])
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 4, 8, 16])
 @pytest.mark.parametrize("protect", ["one4n", "none"])
-def test_cuda_kernels_match_plain_version(protect):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    dev = torch.device("cuda", torch.cuda.current_device())
+def test_cuda_kernels_match_plain_version(protect, m):
+    """A ragged store (K_log 261 < k_pad 264; J 130, not a multiple of the
+    narrow kernel's 128-column strip), clean and under dynamic injection."""
+    dev = _cuda()
     gen = torch.Generator().manual_seed(1)
-    w = torch.randn((264, 130), generator=gen) * 0.05
+    w = torch.randn((261, 130), generator=gen) * 0.05
     w_al, _ = t_align.align_matrix(w, t_align.AlignmentConfig())
     store = t_cim.pack(w_al.to(dev), t_cim.CIMConfig(protect=protect))
-    x = torch.randn((5, 264), generator=gen).to(dev)
+    x = torch.randn((m, 261), generator=gen).to(dev)
     out, info = t_ops.cim_linear_store(x, store, with_info=True)
     assert info["used_kernel"]
+    assert info["tiles"]["kernel"] == \
+        ("narrow" if protect == "one4n" and m <= 8 else "tile")
     np.testing.assert_allclose(out.cpu().numpy(),
                                cim_read_ref(x, store)[0].cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
@@ -136,5 +204,19 @@ def test_cuda_kernels_match_plain_version(protect):
     thr = ber_to_threshold(2e-3)
     sc = t_ops.make_scalars(seeds, thr, thr)
     dyn = t_ops.cim_linear_store(x, store, scalars=sc)
-    stat = t_ops.cim_linear_store(x, t_cim.inject_with_seeds(store, seeds, thr, thr))
+    injected = t_cim.inject_with_seeds(store, seeds, thr, thr)
+    stat = t_ops.cim_linear_store(x, injected)
     assert torch.equal(dyn.view(torch.int32), stat.view(torch.int32))
+    again = t_ops.cim_linear_store(x, store, scalars=sc)
+    assert torch.equal(dyn.view(torch.int32), again.view(torch.int32))
+    np.testing.assert_allclose(dyn.cpu().numpy(),
+                               cim_read_ref(x, store, sc)[0].cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    # the identity probe in slices of m rows: exact on every finite column,
+    # non-finite throughout a column that holds an inf or NaN weight
+    for image in (store, injected):
+        w_ref, _ = t_cim.read(image)
+        probe = _identity_slices(image, m)
+        fin = torch.isfinite(w_ref).all(0)
+        assert torch.equal(probe[:, fin], w_ref[:, fin])
+        assert not bool(torch.isfinite(probe[:, ~fin]).any())
