@@ -15,7 +15,7 @@ Phases (any failed check raises and exits non-zero; no result is printed):
 2. hold each kernel against its plain PyTorch version at the full-width
    olmo-1b unembed shape (K=2048, J=50304, n_group=8): the identity probe
    at M = K (the tile kernel) gives the decoded weights exactly; a dense
-   [4, 2048] input (K1: the narrow kernel) agrees within
+   [4, 2048] input (the narrow kernel) agrees within
    allclose(rtol=1e-4, atol=1e-4) (FMA and summation order); at BER 1e-3
    the identity probe on the plain-injected image gives its plain-decoded
    weights exactly (every SECDED correction checked bit for bit; a column
@@ -23,18 +23,19 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    NaN), the dynamic kernel equals the same kernel on that image bit for bit,
    and the plain dynamic version within 1e-4 of |x| @ |W| (the bound of the
    summation-order error; faulted weights reach 2^15), NaN for NaN. K1's
-   narrow kernel (M <= 8) also runs the identity probe in 8-row slices of
-   eye(K) (256 launches) on both images, exact and equal to the tile's
-   probe on every finite column; agrees with the tile kernel at M = 1, 3, 4
-   and 8 within allclose(1e-4, 1e-4) static and within 1e-4 of |x| @ |W|
-   dynamic; and repeats its bits run to run;
+   and K2's narrow kernels (M <= 8) also run the identity probe in 8-row
+   slices of eye(K) (256 launches) on both images, exact and equal to the
+   tile's probe on every finite column; agree with the tile kernel at M =
+   1, 3, 4 and 8 within allclose(1e-4, 1e-4) static and within 1e-4 of
+   |x| @ |W| dynamic; and repeat their bits run to run;
 3. serve full-width olmo-1b (16 layers, d_model 2048, vocab 50304, fp32,
    weights from a seeded generator) through the port's lock-step launcher,
    batch 4, prompt 64, gen 32, in five arms; the launch counts are zeroed
    just before each arm and read just after it, and each dynamic arm must
-   launch its kernel once per read (gen times), arm (a)'s K1 reads through
-   the narrow kernel (each read's info['tiles']); the clean fused and hbm
-   arms must give equal greedy tokens; a reduced olmo-1b served through the
+   launch its kernel once per read (gen times), arm (a)'s K1 reads and arm
+   (b)'s K2 reads through their narrow kernels (each read's
+   info['tiles']); the clean fused and hbm arms must give equal greedy
+   tokens; a reduced olmo-1b served through the
    kernels must match the port's plain CPU path;
 4. hold K3/K4 against their plain versions on the card, bit for bit: the
    full-width one4n unembed image's mantissa and codeword planes and the
@@ -60,8 +61,8 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    the CPU; faulted leaves bitwise equal, accuracies within 1/1024 per cell;
 7. time each kernel at its main-path shape beside its plain version and its
    bound: K1/K2 at the serving shape with one torch.matmul on the
-   pre-decoded weights, K1's tile kernel at M = 4 beside its narrow one, the
-   static read bound by bytes and the dynamic read by the larger of the
+   pre-decoded weights, each one's tile kernel at M = 4 beside its narrow
+   one, the static read bound by bytes and the dynamic read by the larger of the
    bytes and its draws on the ALU pipe (10 ops a draw); K3 at the Fig. 6 unembed mantissa plane
    ([2048, 50304] uint16, T = 4, 10 positions) and K4 on the same plane's
    16 positions (no single PyTorch call computes their function), bound by
@@ -286,7 +287,7 @@ def _unembed_store(protect: str, dev):
 
 def _identity_probe(name, store, w_ref, what, rows=None):
     """``eye @ W`` through the kernel gives W exactly: in one call at
-    M = K (the tile kernel), or in slices of ``rows`` rows (M <= 8: K1's
+    M = K (the tile kernel), or in slices of ``rows`` rows (M <= 8: the
     narrow kernel, K / rows launches). Entries are compared by value (the
     kernel's f32 accumulator turns -0.0 into +0.0); a column that holds a
     non-finite weight must come out non-finite throughout. Returns the
@@ -315,17 +316,18 @@ def _identity_probe(name, store, w_ref, what, rows=None):
     return out, int((~fin).sum())
 
 
-def _tile_k1(x, store, scalars=None):
-    """K1's 16 x 64 x 64 tile kernel at any M, through its binding: the
-    geometry ``resolve_tiles`` gives a tile-sized read."""
+def _tile(x, store, scalars=None):
+    """The store's 16 x 64 x 64 tile kernel (K1's or K2's) at any M, through
+    its binding: the geometry ``resolve_tiles`` gives a tile-sized read."""
     from repro_torch.kernels.cim_read import ops
     return ops._kernel_call(x, store, scalars,
                             ops.resolve_tiles(store, ops.BLOCK_M))
 
 
-def _narrow_gates(store, injected, probes: dict, scalars, dev) -> float:
-    """K1's narrow kernel (M <= 8) against the tile kernel: the identity
-    probe in 8-row slices on the clean and the injected image (exact, and
+def _narrow_gates(name, store, injected, probes: dict, scalars,
+                  dev) -> float:
+    """``name``'s narrow kernel (M <= 8) against its tile kernel: the
+    identity probe in 8-row slices on the clean and the injected image (exact, and
     equal to the tile's M = K probe on every finite column), dense inputs at
     M = 1, 3, 4 and 8 within allclose(TOL, TOL) static and within TOL of
     |x| @ |W| dynamic, and two runs of one call bitwise equal. Returns the
@@ -333,7 +335,6 @@ def _narrow_gates(store, injected, probes: dict, scalars, dev) -> float:
     import torch
     from repro_torch.core import cim
     from repro_torch.kernels.cim_read import ops
-    name = "cim_read_matmul_one4n"
     for what, image in (("clean", store), ("BER 1e-3", injected)):
         w_ref, _ = cim.read(image)
         sliced, _ = _identity_probe(name, image, w_ref, what, rows=8)
@@ -353,7 +354,7 @@ def _narrow_gates(store, injected, probes: dict, scalars, dev) -> float:
                    f"{name}: M = {m} took {info['tiles']}")
             # the injected image's weights reach 2^15: dynamic outputs are
             # held to |x| @ |W|, as against the plain version
-            ok, err = _close(got, _tile_k1(x, store, sc),
+            ok, err = _close(got, _tile(x, store, sc),
                              None if sc is None else x.abs() @ w_inj_abs)
             _check(ok, f"{name}: narrow vs tile at M = {m} "
                    f"({'dynamic' if sc is not None else 'static'}, max err "
@@ -399,13 +400,11 @@ def phase_kernels(dev) -> dict:
         ok_dyn, err_dyn = _close(dyn, plain_dyn, x.abs() @ w_inj.abs())
         _check(ok_dyn, f"{name}: dynamic kernel vs plain (max err {err_dyn:.3e})")
         del w_inj, plain_dyn
-        narrow = ""
-        if protect == "one4n":
-            err_tile = _narrow_gates(store, injected, probes, scalars, dev)
-            narrow = (f"; narrow kernel (dense M = {BATCH}, {info['tiles']}): "
-                      f"8-row identity slices exact on both images and equal "
-                      f"to the tile's M = {K} probe, M = 1/3/4/8 vs tile max "
-                      f"err {err_tile:.3e}, repeat calls bitwise")
+        err_tile = _narrow_gates(name, store, injected, probes, scalars, dev)
+        narrow = (f"; narrow kernel (dense M = {BATCH}, {info['tiles']}): "
+                  f"8-row identity slices exact on both images and equal "
+                  f"to the tile's M = {K} probe, M = 1/3/4/8 vs tile max "
+                  f"err {err_tile:.3e}, repeat calls bitwise")
         del probes, injected
         torch.cuda.synchronize()
         results[name] = {"store": store, "max_abs_err": err,
@@ -483,8 +482,9 @@ def phase_serve(model, kernel_lib) -> dict:
     _check(runs[ARMS[0][0]]["kernels"] == ["narrow"] * GEN,
            f"arm a: K1's reads went through {runs[ARMS[0][0]]['kernels']}, "
            f"expected the narrow kernel {GEN} times")
-    _check(runs[ARMS[1][0]]["kernels"] == ["tile"] * GEN,
-           f"arm b: K2's reads went through {runs[ARMS[1][0]]['kernels']}")
+    _check(runs[ARMS[1][0]]["kernels"] == ["narrow"] * GEN,
+           f"arm b: K2's reads went through {runs[ARMS[1][0]]['kernels']}, "
+           f"expected the narrow kernel {GEN} times")
     clean, hbm = runs[ARMS[3][0]], runs[ARMS[4][0]]
     for res in (clean, hbm):
         _check(bool(torch.isfinite(res["prefill_logits"]).all()),
@@ -897,9 +897,9 @@ def _draws(store) -> int:
 
 
 def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
-    """K1/K2 at the serving shape (M = BATCH). K1's narrow kernel is the one
-    the main path launches; the tile kernel is timed beside it through
-    its binding. The static read is bound by bytes; the dynamic read by the
+    """K1/K2 at the serving shape (M = BATCH). Each one's narrow kernel is
+    the one the main path launches; its tile kernel is timed beside it
+    through its binding. The static read is bound by bytes; the dynamic read by the
     larger of the bytes and the ALU pipe's draws (``_draws``)."""
     import torch
     from repro_torch.core import cim
@@ -934,13 +934,10 @@ def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
                "dynamic_bound_by": "bytes" if bytes_ms >= hash_ms
                else "operations", "draws": draws, "bytes": nbytes,
                "variant": info["tiles"]["kernel"]}
-        tile = ""
-        if name == "cim_read_matmul_one4n":
-            row["tile_ms"] = _time_ms(lambda: _tile_k1(x, store, scalars))
-            row["tile_static_ms"] = _time_ms(lambda: _tile_k1(x, store))
-            tile = (f"; tile kernel at M = {BATCH}: "
-                    f"{row['tile_ms']:.4f} ms dynamic, "
-                    f"{row['tile_static_ms']:.4f} ms static")
+        row["tile_ms"] = _time_ms(lambda: _tile(x, store, scalars))
+        row["tile_static_ms"] = _time_ms(lambda: _tile(x, store))
+        tile = (f"; tile kernel at M = {BATCH}: {row['tile_ms']:.4f} ms "
+                f"dynamic, {row['tile_static_ms']:.4f} ms static")
         rows.append(row)
         print(f"phase 7: {name} ({row['variant']} kernel): {ms:.4f} ms "
               f"dynamic, {ms_static:.4f} ms static{tile}; plain "

@@ -5,7 +5,8 @@
 //   M > 8 <- cim_read_matmul_one4n (protect='one4n', kernel.py:381):
 //       x @ W with W decoded per tile from the uint16 mantissa plane and the
 //       word-packed One4N SECDED codewords [K/n, J/rw, S, W];
-//   cim_read_raw_kernel   <- cim_read_matmul_raw (protect='none'):
+//   cim_read_raw_narrow_kernel, for M <= 8, and cim_read_raw_kernel, for
+//   M > 8 <- cim_read_matmul_raw (protect='none', kernel.py:428):
 //       the same over a raw uint8 shared-exponent plane [K/n, J] and K-packed
 //       uint32 sign words [ceil(K/32), J].
 // With `dynamic` set, each kernel first XORs counter-PRNG flip masks into
@@ -47,13 +48,29 @@
 //    shared memory. No atomics on floats: a call's bits repeat, and a
 //    dynamic read equals the read of the statically injected image.
 //
-// The tile kernels (M > 8, and K2 at any M): a fixed 16 x 64 x 64 tile, 256
+// K2's narrow kernel is the same design over the unprotected image, with a
+// simpler decode: the exponent is a raw byte per (block row, column), the
+// sign a bit of a K-packed word.
+//  * Static read, bound by bytes: 206.0 MB of mantissas + 12.9 MB of
+//    exponents + 12.9 MB of sign words on the unembed, ~69 us at 3.35 TB/s.
+//    Each ring stage holds 128 rows of mantissas (32 KB), their 128/n
+//    exponent rows (2 KB at n = 8) and their four 32-row sign-word rows
+//    (2 KB), all copied with 16-byte cp.async. A thread's 8 rows lie in one
+//    sign word: it reads its 8 columns' sign words once a stage and its 8
+//    exponent bytes once a block row, and rebuilds each weight as K1 does.
+//  * Dynamic read, bound by the ALU pipe: 1.030 G mantissa draws and
+//    0.167 G exponent and sign draws on the unembed, ~0.72 ms at 10 ops a
+//    draw. An exponent byte serves n rows and a sign word 32, so the
+//    landed stage's meta words are flipped in place in shared memory, each
+//    drawn by exactly one thread, before one barrier; the mantissas are
+//    flipped in registers. Every draw has its lanes fixed at compile time
+//    (0x3FF, 0x1F, all 32 then AND the valid lanes), so all of them unroll.
+//
+// The tile kernels (M > 8): a fixed 16 x 64 x 64 tile, 256
 // threads, each block streaming its [64 x 64] mantissa tile and the
 // codeword / exponent / sign words covering it into registers and shared
 // memory, decoding there, and feeding the rebuilt tile into f32 FMAs; simple
-// by design (no cp.async pipeline). At K2's serving M the bound is the same
-// as the narrow kernel's: bytes (206.0 MB of mantissas + 12.9 MB of
-// exponents + 12.9 MB of sign words on the unembed) or, dynamic, the draws.
+// by design (no cp.async pipeline).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: the rebuild must be exact).
@@ -440,6 +457,63 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// A stage's 128 x 128 mantissas into `ms`, 16-byte copies, neighbouring
+// threads on neighbouring addresses; rows and columns past the plane are
+// zero-filled.
+__device__ __forceinline__ void narrow_copy_man(uint16_t* ms, const uint16_t* __restrict__ man,
+                                                int k0, int c0, int k_pad, int j_pad) {
+#pragma unroll
+  for (int q = 0; q < NR_MAN_HALVES / 8 / NR_NT; ++q) {
+    const int idx = threadIdx.x + q * NR_NT, row = idx / NR_TPR, piece = idx % NR_TPR;
+    const int gk = k0 + row, gc = c0 + piece * 8;
+    const bool ok = gk < k_pad && gc < j_pad;
+    cp_async16(ms + row * NR_BN + piece * 8, ok ? man + (size_t)gk * j_pad + gc : man, ok);
+  }
+}
+
+// Rows [k0, k0 + x_slab) of x into shared memory as [row][MP] vectors, zero
+// past M and K_log.
+template <int MP>
+__device__ __forceinline__ void narrow_load_x(float* x_s, const float* __restrict__ x,
+                                              int k0, int x_slab, int M, int K_log) {
+  for (int k = threadIdx.x; k < x_slab; k += NR_NT) {
+    const int gk = k0 + k;
+    float v[MP];
+#pragma unroll
+    for (int m = 0; m < MP; ++m)
+      v[m] = (m < M && gk < K_log) ? x[(size_t)m * K_log + gk] : 0.0f;
+#pragma unroll
+    for (int m = 0; m < MP; ++m) x_s[k * MP + m] = v[m];
+  }
+}
+
+// The 16 row groups' partial sums meet in the (drained) mantissa ring and
+// are added in a fixed order; row group rg, column group cl holds acc.
+template <int MP>
+__device__ __forceinline__ void narrow_reduce_store(unsigned char* smem,
+                                                    const float (&acc)[MP][NR_COLS],
+                                                    float* __restrict__ out, int M, int c0,
+                                                    int n_out) {
+  const int rg = threadIdx.x / NR_TPR, cl = threadIdx.x % NR_TPR;
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);   // [NR_GROUPS][MP][NR_BN]
+#pragma unroll
+  for (int m = 0; m < MP; ++m) {
+    float4* r4 = reinterpret_cast<float4*>(red + (rg * MP + m) * NR_BN + cl * NR_COLS);
+    r4[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    r4[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < MP * NR_BN; idx += NR_NT) {
+    const int m = idx / NR_BN, cc = idx % NR_BN, gc = c0 + cc;
+    float sum = red[m * NR_BN + cc];
+#pragma unroll
+    for (int g = 1; g < NR_GROUPS; ++g) sum += red[(g * MP + m) * NR_BN + cc];
+    if (m < M && gc < n_out) out[(size_t)m * n_out + gc] = sum;
+  }
+}
+
 // 32 bits of the codeword words starting at bit `pos` (a constant after
 // unrolling, so the words stay in registers).
 __device__ __forceinline__ uint32_t window32(const uint32_t (&w)[MAX_W], int pos) {
@@ -556,15 +630,7 @@ __global__ void __launch_bounds__(NR_NT, 1) cim_read_one4n_narrow_kernel(
   auto load_stage = [&](int c) {
     if (c < n_chunks) {
       const int slot = c % NR_STAGES, k0 = c * NR_CK;
-      uint16_t* ms = man_s + slot * NR_MAN_HALVES;
-#pragma unroll
-      for (int q = 0; q < NR_MAN_HALVES / 8 / NR_NT; ++q) {
-        const int idx = tid + q * NR_NT, row = idx / NR_TPR, piece = idx % NR_TPR;
-        const int gk = k0 + row, gc = c0 + piece * 8;
-        const bool ok = gk < k_pad && gc < j_pad;
-        cp_async16(ms + row * NR_BN + piece * 8, ok ? man + (size_t)gk * j_pad + gc : man,
-                   ok);
-      }
+      narrow_copy_man(man_s + slot * NR_MAN_HALVES, man, k0, c0, k_pad, j_pad);
       uint32_t* cs = cw_s + slot * geo.cw_stage;
       const int b0 = k0 / geo.n_group;
       if (geo.cw_vec) {
@@ -604,17 +670,9 @@ __global__ void __launch_bounds__(NR_NT, 1) cim_read_one4n_narrow_kernel(
     __syncthreads();   // stage c landed for all; stage c - 1 and its payload consumed
     load_stage(c + NR_STAGES - 1);
     const int k0 = c * NR_CK;
-    if (k0 % geo.x_slab == 0) {   // the next slab of x, as [row][MP] vectors
+    if (k0 % geo.x_slab == 0) {   // the next slab of x
       slab0 = k0;
-      for (int k = tid; k < geo.x_slab; k += NR_NT) {
-        const int gk = k0 + k;
-        float v[MP];
-#pragma unroll
-        for (int m = 0; m < MP; ++m)
-          v[m] = (m < M && gk < K_log) ? x[(size_t)m * K_log + gk] : 0.0f;
-#pragma unroll
-        for (int m = 0; m < MP; ++m) x_s[k * MP + m] = v[m];
-      }
+      narrow_load_x<MP>(x_s, x, k0, geo.x_slab, M, K_log);
     }
     zero_payload((c + 1) & 1);
     uint32_t* pay = pay_s + (c & 1) * geo.pay_buf;
@@ -687,25 +745,7 @@ __global__ void __launch_bounds__(NR_NT, 1) cim_read_one4n_narrow_kernel(
     }
   }
 
-  // the 16 row groups' partial sums meet in the (drained) mantissa ring and
-  // are added in a fixed order
-  cp_async_wait<0>();
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(smem);   // [NR_GROUPS][MP][NR_BN]
-#pragma unroll
-  for (int m = 0; m < MP; ++m) {
-    float4* r4 = reinterpret_cast<float4*>(red + (rg * MP + m) * NR_BN + cl * NR_COLS);
-    r4[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-    r4[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
-  }
-  __syncthreads();
-  for (int idx = tid; idx < MP * NR_BN; idx += NR_NT) {
-    const int m = idx / NR_BN, cc = idx % NR_BN, gc = c0 + cc;
-    float sum = red[m * NR_BN + cc];
-#pragma unroll
-    for (int g = 1; g < NR_GROUPS; ++g) sum += red[(g * MP + m) * NR_BN + cc];
-    if (m < M && gc < n_out) out[(size_t)m * n_out + gc] = sum;
-  }
+  narrow_reduce_store<MP>(smem, acc, out, M, c0, n_out);
 }
 
 template <int MP, bool DYN>
@@ -736,6 +776,206 @@ int launch_narrow(const void* x, const void* man, const void* cw, void* out, int
                  : launch_narrow_kernel<MP, false>(x, man, cw, out, M, K_log, k_pad,
                                                    j_pad, n_out, geo, sc, store_g,
                                                    store_j, smem, stream);
+}
+
+// ---------------------------------------------------------------------------
+// K2's narrow kernel (M <= 8): see the note at the top.
+// ---------------------------------------------------------------------------
+
+constexpr int NR_SIGN_WORDS = NR_CK / 32 * NR_BN;   // sign words a stage: 4 rows
+
+struct RawNarrow {
+  const float* x;
+  const uint16_t* man;
+  const uint8_t* expw;
+  const uint32_t* signw;
+  float* out;
+  int M, K_log, k_pad, j_pad, n_out, sw_rows, log2n, x_slab;
+  uint32_t store_k, store_j;
+  Scalars sc;
+};
+
+// Dynamic shared memory of K2's narrow kernel, in bytes (`exp_stage`: the
+// exponent bytes of one stage, 128 / n rows of 128); ops.resolve_tiles
+// computes the same number.
+int raw_narrow_smem_bytes(int exp_stage, int x_slab, int mp) {
+  return NR_STAGES * (NR_MAN_HALVES * 2 + NR_SIGN_WORDS * 4 + exp_stage) + x_slab * mp * 4;
+}
+
+// The landed stage's exponent bytes and sign words, flipped in place, each
+// word drawn by exactly one thread, at the global store indices the tile
+// kernel draws: exponent byte (gb + off_k/n) * store_j + gc + off_j, sign
+// word (gw + off_k/32) * store_j + gc + off_j, its lanes at or past the
+// store's K rows masked out (they are not cells).
+__device__ __forceinline__ void raw_narrow_flip_meta(uint8_t* es, uint32_t* ss, int k0, int c0,
+                                                     const RawNarrow& p, int n_blocks,
+                                                     uint32_t seed_meta, uint32_t seed_sign,
+                                                     uint32_t thr_meta) {
+  const uint32_t off_k = p.sc.v[OFF_K], off_j = p.sc.v[OFF_J];
+  const int cb = NR_CK >> p.log2n;
+  uint32_t* ew = reinterpret_cast<uint32_t*>(es);   // 4 exponent bytes a word
+  for (int i = threadIdx.x; i < cb * (NR_BN / 4); i += NR_NT) {
+    const int gb = (k0 >> p.log2n) + i / (NR_BN / 4), gc = c0 + (i % (NR_BN / 4)) * 4;
+    if (gb < n_blocks && gc < p.j_pad) {
+      const uint32_t e = ((uint32_t)gb + (off_k >> p.log2n)) * p.store_j + (uint32_t)gc + off_j;
+      uint32_t f = 0u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) f |= flip_mask<0x1Fu>(e + q, seed_meta, thr_meta) << (8 * q);
+      ew[i] ^= f;
+    }
+  }
+  for (int i = threadIdx.x; i < NR_SIGN_WORDS; i += NR_NT) {
+    const int gw = (k0 >> 5) + i / NR_BN, gc = c0 + i % NR_BN;
+    if (gw < p.sw_rows && gc < p.j_pad) {
+      const uint32_t grow = (uint32_t)gw + off_k / 32u;
+      const uint64_t first = (uint64_t)grow * 32u;
+      const uint64_t valid = first >= p.store_k ? 0u : p.store_k - first;
+      const uint32_t lanes = (uint32_t)((1ull << (valid < 32u ? valid : 32u)) - 1ull);
+      ss[i] ^= flip_mask<0xFFFFFFFFu>(grow * p.store_j + (uint32_t)gc + off_j, seed_sign,
+                                      thr_meta) & lanes;
+    }
+  }
+}
+
+template <int MP, bool DYN>
+__global__ void __launch_bounds__(NR_NT, 1) cim_read_raw_narrow_kernel(const __grid_constant__ RawNarrow p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cb = NR_CK >> p.log2n;                   // block rows a stage
+  uint16_t* man_s = reinterpret_cast<uint16_t*>(smem);
+  uint32_t* sign_s = reinterpret_cast<uint32_t*>(smem + NR_STAGES * NR_MAN_HALVES * 2);
+  uint8_t* exp_s = reinterpret_cast<uint8_t*>(sign_s + NR_STAGES * NR_SIGN_WORDS);
+  float* x_s = reinterpret_cast<float*>(exp_s + NR_STAGES * cb * NR_BN);   // [x_slab][MP]
+
+  const int tid = threadIdx.x;
+  const int rg = tid / NR_TPR, cl = tid % NR_TPR;
+  const int c0 = blockIdx.x * NR_BN, col = c0 + cl * NR_COLS;
+  const int n_chunks = (p.k_pad + NR_CK - 1) / NR_CK, n_blocks = p.k_pad >> p.log2n;
+  const int n_mask = (1 << p.log2n) - 1;
+  const uint32_t thr_man = p.sc.v[THR_MAN], thr_meta = p.sc.v[THR_META];
+  const uint32_t seed_man = p.sc.v[SEED_MAN] * GOLD, seed_meta = p.sc.v[SEED_META] * GOLD;
+  const uint32_t seed_sign = p.sc.v[SEED_CW] * GOLD;
+  const uint32_t off_k = p.sc.v[OFF_K], off_j = p.sc.v[OFF_J];
+
+  auto load_stage = [&](int c) {
+    if (c < n_chunks) {
+      const int slot = c % NR_STAGES, k0 = c * NR_CK;
+      narrow_copy_man(man_s + slot * NR_MAN_HALVES, p.man, k0, c0, p.k_pad, p.j_pad);
+      uint32_t* ss = sign_s + slot * NR_SIGN_WORDS;
+      for (int i = tid; i < NR_SIGN_WORDS / 4; i += NR_NT) {
+        const int row = i / (NR_BN / 4), piece = i % (NR_BN / 4);
+        const int gw = (k0 >> 5) + row, gc = c0 + piece * 4;
+        const bool ok = gw < p.sw_rows && gc < p.j_pad;
+        cp_async16(ss + row * NR_BN + piece * 4,
+                   ok ? p.signw + (size_t)gw * p.j_pad + gc : p.signw, ok);
+      }
+      uint8_t* es = exp_s + slot * cb * NR_BN;
+      for (int i = tid; i < cb * (NR_BN / 16); i += NR_NT) {
+        const int row = i / (NR_BN / 16), piece = i % (NR_BN / 16);
+        const int gb = (k0 >> p.log2n) + row, gc = c0 + piece * 16;
+        const bool ok = gb < n_blocks && gc < p.j_pad;
+        cp_async16(es + row * NR_BN + piece * 16,
+                   ok ? p.expw + (size_t)gb * p.j_pad + gc : p.expw, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[MP][NR_COLS];
+#pragma unroll
+  for (int m = 0; m < MP; ++m)
+#pragma unroll
+    for (int q = 0; q < NR_COLS; ++q) acc[m][q] = 0.0f;
+
+  for (int c = 0; c < NR_STAGES - 1; ++c) load_stage(c);
+  int slab0 = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<NR_STAGES - 2>();
+    __syncthreads();   // stage c landed for all; stage c - 1 consumed
+    load_stage(c + NR_STAGES - 1);
+    const int k0 = c * NR_CK, slot = c % NR_STAGES;
+    uint32_t* ss = sign_s + slot * NR_SIGN_WORDS;
+    uint8_t* es = exp_s + slot * cb * NR_BN;
+    bool sync = false;
+    if (k0 % p.x_slab == 0) {   // the next slab of x
+      slab0 = k0;
+      narrow_load_x<MP>(x_s, p.x, k0, p.x_slab, p.M, p.K_log);
+      sync = true;
+    }
+    if (DYN && thr_meta) {
+      raw_narrow_flip_meta(es, ss, k0, c0, p, n_blocks, seed_meta, seed_sign, thr_meta);
+      sync = true;
+    }
+    if (sync) __syncthreads();   // x and the flipped meta words seen by all
+
+    const uint16_t* ms = man_s + slot * NR_MAN_HALVES;
+    // this thread's 8 columns' sign words (its 8 rows lie in one 32-row
+    // word), shifted so that bit i is row i
+    const uint4 sw0 = *reinterpret_cast<const uint4*>(ss + (rg >> 2) * NR_BN + cl * NR_COLS);
+    const uint4 sw1 = *reinterpret_cast<const uint4*>(ss + (rg >> 2) * NR_BN + cl * NR_COLS + 4);
+    const int sh = (rg & 3) * NR_ROWS;
+    const uint32_t sg[NR_COLS] = {sw0.x >> sh, sw0.y >> sh, sw0.z >> sh, sw0.w >> sh,
+                                  sw1.x >> sh, sw1.y >> sh, sw1.z >> sh, sw1.w >> sh};
+    uint32_t ef[NR_COLS];
+    constexpr int ROW_UNROLL = DYN ? 1 : NR_ROWS;
+#pragma unroll (ROW_UNROLL)
+    for (int i = 0; i < NR_ROWS; ++i) {
+      const int kr = rg * NR_ROWS + i, gk = k0 + kr;
+      if (gk >= p.K_log) break;   // the store's padding rows are not weights
+      if (i == 0 || (kr & n_mask) == 0) {
+        // the 8 exponent bytes of this block row's columns: one 8-byte load
+        const uint2 ev = *reinterpret_cast<const uint2*>(es + (kr >> p.log2n) * NR_BN +
+                                                         cl * NR_COLS);
+#pragma unroll
+        for (int q = 0; q < NR_COLS; ++q) {
+          const uint32_t e = ((q < 4 ? ev.x : ev.y) >> (8 * (q & 3))) & 0xFFu;
+          ef[q] = (e == 31u ? 0xFFu : e) << 23;
+        }
+      }
+      const uint4 mw = *reinterpret_cast<const uint4*>(ms + kr * NR_BN + cl * NR_COLS);
+      uint32_t mv[4] = {mw.x, mw.y, mw.z, mw.w};
+      if (DYN && thr_man && col < p.j_pad) {
+        const uint32_t elem = ((uint32_t)gk + off_k) * p.store_j + (uint32_t)col + off_j;
+#pragma unroll
+        for (int q = 0; q < NR_COLS; ++q) {
+          const uint32_t fm = flip_mask<0x3FFu>(elem + q, seed_man, thr_man);
+          mv[q >> 1] ^= (q & 1) ? fm << 16 : fm;
+        }
+      }
+      float xv[MP];
+      const float* xr = x_s + (gk - slab0) * MP;
+      if constexpr (MP % 4 == 0) {
+#pragma unroll
+        for (int m = 0; m < MP; m += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(xr + m);
+          xv[m] = v.x; xv[m + 1] = v.y; xv[m + 2] = v.z; xv[m + 3] = v.w;
+        }
+      } else {
+#pragma unroll
+        for (int m = 0; m < MP; ++m) xv[m] = xr[m];
+      }
+#pragma unroll
+      for (int q = 0; q < NR_COLS; ++q) {
+        const uint32_t mword = mv[q >> 1];
+        const uint32_t mb = ((q & 1) ? mword >> 3 : mword << 13) & 0x007FE000u;
+        const uint32_t bits = ((sg[q] << (31 - i)) & 0x80000000u) | ef[q] | mb;
+        const float wv = __uint_as_float(bits) * __uint_as_float((127u + 112u) << 23);
+#pragma unroll
+        for (int m = 0; m < MP; ++m) acc[m][q] = fmaf(xv[m], wv, acc[m][q]);
+      }
+    }
+  }
+  narrow_reduce_store<MP>(smem, acc, p.out, p.M, c0, p.n_out);
+}
+
+template <int MP>
+int launch_raw_narrow(const RawNarrow& p, bool dynamic, int smem, cudaStream_t stream) {
+  auto kern = dynamic ? cim_read_raw_narrow_kernel<MP, true>
+                      : cim_read_raw_narrow_kernel<MP, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3((p.j_pad + NR_BN - 1) / NR_BN), NR_NT, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -857,4 +1097,40 @@ extern "C" int cim_read_raw(const void* x, const void* man, const void* expw,
       static_cast<float*>(out), M, K_log, k_pad, j_pad, n_out, sw_rows, n_group, fmt,
       read_scalars(scalars), dynamic, store_k, store_j);
   return (int)cudaGetLastError();
+}
+
+// K2's narrow kernel (M <= 8). `x_slab` and `smem_bytes` are the geometry
+// ops.resolve_tiles chose; n_group must be a power of two dividing 128, the
+// format fp16.
+extern "C" int cim_read_raw_narrow(const void* x, const void* man, const void* expw,
+                                   const void* signw, void* out, int M, int K_log,
+                                   int k_pad, int j_pad, int n_out, int sw_rows,
+                                   int n_group, int man_bits, int exp_bits, int bias,
+                                   int x_slab, int smem_bytes, unsigned int store_k,
+                                   unsigned int store_j, const unsigned int* scalars,
+                                   int dynamic, void* stream) {
+  int log2n = -1;
+  for (int b = 0; b < 8; ++b)
+    if (n_group == 1 << b) log2n = b;
+  if (M <= 0 || M > 8 || k_pad <= 0 || j_pad <= 0 || man_bits != 10 || exp_bits != 5 ||
+      bias != 15 || log2n < 0 || j_pad % 16 != 0 || k_pad % n_group != 0 ||
+      sw_rows != (k_pad + 31) / 32 || x_slab <= 0 || x_slab % NR_CK != 0 ||
+      !aligned16(man) || !aligned16(expw) || !aligned16(signw) || K_log > k_pad ||
+      n_out > j_pad)
+    return -1;
+  const int mp = M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8;
+  const int smem = raw_narrow_smem_bytes((NR_CK / n_group) * NR_BN, x_slab, mp);
+  if (smem != smem_bytes || smem > SMEM_LIMIT) return -1;
+  const RawNarrow p{static_cast<const float*>(x), static_cast<const uint16_t*>(man),
+                    static_cast<const uint8_t*>(expw), static_cast<const uint32_t*>(signw),
+                    static_cast<float*>(out), M, K_log, k_pad, j_pad, n_out, sw_rows, log2n,
+                    x_slab, store_k, store_j, read_scalars(scalars)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool dyn = dynamic != 0;
+  switch (mp) {
+    case 1: return launch_raw_narrow<1>(p, dyn, smem, st);
+    case 2: return launch_raw_narrow<2>(p, dyn, smem, st);
+    case 4: return launch_raw_narrow<4>(p, dyn, smem, st);
+    default: return launch_raw_narrow<8>(p, dyn, smem, st);
+  }
 }

@@ -5,8 +5,8 @@ CudaLibrary` (nvcc, ``sm_90a``, into the git-ignored ``build/repro_torch/``).
 A refused argument set or a non-zero ``cudaGetLastError()`` raises.
 
 Each launch wrapper adds one to :data:`launch_counts` where it launches its
-kernel, and nowhere else; K1's two kernels (the narrow one for M <= 8, the
-tile above it) count under K1's name.
+kernel, and nowhere else; each of K1's and K2's two kernels (the narrow one
+for M <= 8, the tile above it) counts under its function's name.
 """
 from __future__ import annotations
 
@@ -39,6 +39,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.cim_read_one4n_narrow.restype = i
     lib.cim_read_raw.argtypes = [vp] * 5 + [i] * 10 + [u, u, vp, i, vp]
     lib.cim_read_raw.restype = i
+    lib.cim_read_raw_narrow.argtypes = [vp] * 5 + [i] * 12 + [u, u, vp, i, vp]
+    lib.cim_read_raw_narrow.restype = i
 
 
 LIBRARY = CudaLibrary(CSRC / "cim_read.cu", _bind)
@@ -129,6 +131,32 @@ def cim_read_matmul_raw(x: torch.Tensor, man: torch.Tensor, exp: torch.Tensor,
         out.data_ptr(), m, k_log, k_pad, j_pad, n_out, signw.shape[0], n_group,
         man_bits, exp_bits, bias, store_k, store_j, sc_ptr, int(dynamic),
         stream_of(x))
+    check_rc(rc, K2)
+    launch_counts[K2] += 1
+    del sc
+    return out
+
+
+def cim_read_matmul_raw_narrow(x: torch.Tensor, man: torch.Tensor,
+                               exp: torch.Tensor, signw: torch.Tensor,
+                               scalars: np.ndarray, *, k_log: int, n_out: int,
+                               n_group: int, man_bits: int, exp_bits: int,
+                               bias: int, x_slab: int, smem_bytes: int,
+                               store_k: int, store_j: int,
+                               dynamic: bool) -> torch.Tensor:
+    """K2's narrow kernel, for M <= 8: the same function as
+    :func:`cim_read_matmul_raw`. ``x_slab`` and ``smem_bytes`` are the
+    geometry of ``ops.resolve_tiles``, which the library checks."""
+    lib = load()
+    m = x.shape[0]
+    k_pad, j_pad = man.shape
+    out = torch.empty((m, n_out), dtype=torch.float32, device=x.device)
+    sc, sc_ptr = _scalars_arg(scalars)
+    rc = lib.cim_read_raw_narrow(
+        x.data_ptr(), man.data_ptr(), exp.data_ptr(), signw.data_ptr(),
+        out.data_ptr(), m, k_log, k_pad, j_pad, n_out, signw.shape[0], n_group,
+        man_bits, exp_bits, bias, x_slab, smem_bytes, store_k, store_j, sc_ptr,
+        int(dynamic), stream_of(x))
     check_rc(rc, K2)
     launch_counts[K2] += 1
     del sc

@@ -6,7 +6,7 @@ directly. The route follows the tensors' device:
 
 * a CUDA store with ``protect`` in {one4n, none} and fp16 launches the
   hand-written kernel — K1 (``cim_read_matmul_one4n``) or K2
-  (``cim_read_matmul_raw``) — or raises; it never falls back. K1 has two
+  (``cim_read_matmul_raw``) — or raises; it never falls back. Each has two
   kernels and M alone picks one (:func:`resolve_tiles`): the narrow,
   pipelined kernel for the decode-shaped read (M <= 8), the 16 x 64 x 64
   tile above it;
@@ -33,15 +33,17 @@ from repro_torch.kernels.cim_read import kernel as kernel_lib
 from repro_torch.kernels.cim_read import ref
 from repro_torch.kernels.cim_read.ref import cim_read_ref
 
-# K1's narrow kernel (M <= 8, csrc/cim_read.cu): a block owns a strip of
-# NARROW_N columns and walks K through a ring of NARROW_STAGES shared stages
-# of NARROW_K rows; 256 threads, each 8 columns x 8 rows a stage.
+# The narrow kernels of K1 and K2 (M <= 8, csrc/cim_read.cu): a block owns
+# a strip of NARROW_N columns and walks K through a ring of NARROW_STAGES
+# shared stages of NARROW_K rows; 256 threads, each 8 columns x 8 rows a
+# stage. K2's stages hold NARROW_K / n exponent rows of NARROW_N bytes and
+# NARROW_K / 32 sign-word rows of NARROW_N words beside the mantissas.
 NARROW_N, NARROW_K, NARROW_STAGES = 128, 128, 4
 NARROW_COLS = 8
 NARROW_M_ROWS = (1, 2, 4, 8)     # M is rounded up to one of these
 NARROW_MAX_R = 7
-# The tile kernels (K1 for M > 8, and K2): BM output rows x BN columns,
-# walking K in BK-row chunks; 256 threads a block.
+# The tile kernels (M > 8): BM output rows x BN columns, walking K in
+# BK-row chunks; 256 threads a block.
 BLOCK_M, BLOCK_N, BLOCK_K = 16, 64, 64
 MAX_CW_WORDS = 512
 MAX_PAYLOAD_BITS = 512
@@ -66,15 +68,35 @@ def make_scalars(seeds=None, thr_man=0, thr_meta=0, off_k=0, off_j=0,
 
 
 def _narrow_tiles(store, m: int) -> dict:
-    """K1's narrow geometry for ``m <= 8``: the strip, the stage ring and
-    how many rows of x a block keeps in shared memory (all of K where it
-    fits with the ring, else a slab of whole stages)."""
+    """The narrow geometry of K1 or K2 for ``m <= 8``: the strip, the stage
+    ring and how many rows of x a block keeps in shared memory (all of K
+    where it fits with the ring, else a slab of whole stages)."""
     m_rows = next(p for p in NARROW_M_ROWS if p >= m)
-    return dict(_narrow_geometry(store.cfg, *store.man.shape, m_rows))
+    geometry = _narrow_geometry if store.cfg.protect == "one4n" \
+        else _raw_narrow_geometry
+    return dict(geometry(store.cfg, *store.man.shape, m_rows))
 
 
-# Cached per store geometry, as is _one4n_args: a narrow read takes ~0.14 ms
-# on the card, and the host's time per call counts against it.
+def _fit_x(fixed: int, k_pad: int, j_pad: int, m_rows: int, **stage) -> dict:
+    """The narrow geometry around a ring of ``fixed`` bytes: the rows of x
+    that fit beside it, in whole stages, and the block's shared memory."""
+    stages_of_x = min(-(-k_pad // NARROW_K),
+                      (H100_SMEM_PER_BLOCK - fixed) // (NARROW_K * m_rows * 4))
+    if stages_of_x < 1:
+        raise NotImplementedError("cim_read narrow kernel: the stage ring "
+                                  f"({fixed} bytes) leaves no room for x")
+    x_slab = stages_of_x * NARROW_K
+    smem = fixed + x_slab * m_rows * 4
+    assert smem <= H100_SMEM_PER_BLOCK
+    return {"kernel": "narrow", "m_rows": m_rows, "block_n": NARROW_N,
+            "block_k": NARROW_K, "stages": NARROW_STAGES, **stage,
+            "x_slab": x_slab, "grid": (-(-j_pad // NARROW_N),),
+            "smem_bytes": smem}
+
+
+# The narrow geometries are cached per store geometry, as is _one4n_args: a
+# narrow read takes 0.10-0.14 ms on the card, and the host's time per call
+# counts against it.
 @functools.lru_cache(maxsize=None)
 def _narrow_geometry(cfg, k_pad: int, j_pad: int, m_rows: int) -> dict:
     n, rw = cfg.n_group, cfg.row_weights
@@ -92,32 +114,36 @@ def _narrow_geometry(cfg, k_pad: int, j_pad: int, m_rows: int) -> dict:
     pay_buf = _up4(cb * gb * pay_words)
     fixed = NARROW_STAGES * (NARROW_K * NARROW_N * 2 + cw_stage * 4) \
         + 2 * pay_buf * 4
-    stages_of_x = min(-(-k_pad // NARROW_K),
-                      (H100_SMEM_PER_BLOCK - fixed) // (NARROW_K * m_rows * 4))
-    if stages_of_x < 1:
-        raise NotImplementedError("cim_read narrow kernel: the stage ring "
-                                  f"({fixed} bytes) leaves no room for x")
-    x_slab = stages_of_x * NARROW_K
-    smem = fixed + x_slab * m_rows * 4
-    assert smem <= H100_SMEM_PER_BLOCK
-    return {"kernel": "narrow", "m_rows": m_rows, "block_n": NARROW_N,
-            "block_k": NARROW_K, "stages": NARROW_STAGES, "x_slab": x_slab,
-            "grid": (-(-j_pad // NARROW_N),), "smem_bytes": smem}
+    return _fit_x(fixed, k_pad, j_pad, m_rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _raw_narrow_geometry(cfg, k_pad: int, j_pad: int, m_rows: int) -> dict:
+    n = cfg.n_group
+    if NARROW_K % n or j_pad % 16 or cfg.fmt.name != "fp16":
+        raise NotImplementedError(
+            f"cim_read narrow kernel (none) tiles fp16 with n_group a power "
+            f"of two dividing {NARROW_K} (got n_group={n}, {cfg.fmt.name})")
+    exp_stage = NARROW_K // n * NARROW_N
+    sign_stage = NARROW_K // 32 * NARROW_N * 4
+    fixed = NARROW_STAGES * (NARROW_K * NARROW_N * 2 + sign_stage + exp_stage)
+    return _fit_x(fixed, k_pad, j_pad, m_rows, exp_stage=exp_stage,
+                  sign_stage=sign_stage)
 
 
 def resolve_tiles(store, m: int) -> dict:
     """The kernel and its geometry for one store and ``m`` rows of x. M
-    alone picks the kernel: a one4n store read with ``m <= 8`` gets K1's
-    narrow kernel (``kernel='narrow'``), any other read the fixed tile
-    (``kernel='tile'``). The geometry is checked against the store's layout
-    quanta and the card's shared memory; the tile's ``BLOCK_N`` must hold
-    whole ``row_weights`` groups, ``BLOCK_K`` whole exponent blocks (and
-    whole 32-row sign words for ``protect='none'``). The reference budgets
-    8 MiB of TPU VMEM for a full-K strip; a Hopper block has 227 KB, so the
-    kernels walk K in chunks instead. Raises ``NotImplementedError`` for a
-    geometry the kernel does not tile."""
+    alone picks the kernel: a one4n or none store read with ``m <= 8`` gets
+    K1's or K2's narrow kernel (``kernel='narrow'``), any other read the
+    fixed tile (``kernel='tile'``). The geometry is checked against the
+    store's layout quanta and the card's shared memory; the tile's
+    ``BLOCK_N`` must hold whole ``row_weights`` groups, ``BLOCK_K`` whole
+    exponent blocks (and whole 32-row sign words for ``protect='none'``).
+    The reference budgets 8 MiB of TPU VMEM for a full-K strip; a Hopper
+    block has 227 KB, so the kernels walk K in chunks instead. Raises
+    ``NotImplementedError`` for a geometry the kernel does not tile."""
     cfg = store.cfg
-    if cfg.protect == "one4n" and m <= NARROW_M_ROWS[-1]:
+    if cfg.protect in ("one4n", "none") and m <= NARROW_M_ROWS[-1]:
         return _narrow_tiles(store, m)
     n, rw = cfg.n_group, cfg.row_weights
     k_pad, j_pad = store.man.shape
@@ -195,6 +221,10 @@ def _kernel_call(x2: torch.Tensor, store, scalars, tiles: dict) -> torch.Tensor:
         return kernel_lib.cim_read_matmul_one4n(
             x2, store.man, store.codewords, sc, payload_bits=payload_bits,
             word_masks=word_masks, **one4n, **common)
+    if tiles["kernel"] == "narrow":
+        return kernel_lib.cim_read_matmul_raw_narrow(
+            x2, store.man, store.exp, store.sign, sc, store_k=k_pad,
+            x_slab=tiles["x_slab"], smem_bytes=tiles["smem_bytes"], **common)
     return kernel_lib.cim_read_matmul_raw(
         x2, store.man, store.exp, store.sign, sc, store_k=k_pad, **common)
 

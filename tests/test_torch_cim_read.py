@@ -4,9 +4,9 @@ On the CPU the port's ``cim_linear_store`` takes the plain version (decode
 then matmul); the reference runs its Pallas kernel in interpret mode, once
 per case, with dynamic injection: the identity probe rows compare the
 decoded faulted weights bit for bit, the dense rows agree within fp32
-summation-order tolerance. ``resolve_tiles`` picks K1's kernel by M alone
-(the narrow one for M <= 8, the tile above) and is checked here without a
-card. The ``gpu`` cases run the CUDA kernels against their plain version on
+summation-order tolerance. ``resolve_tiles`` picks K1's and K2's kernel by
+M alone (the narrow one for M <= 8, the tile above) and is checked here
+without a card. The ``gpu`` cases run the CUDA kernels against their plain version on
 a card and skip without one; they need no jax, so they run on the card's
 machine.
 """
@@ -140,12 +140,48 @@ def test_resolve_tiles_checks_geometry(m, kernel, m_rows):
     assert big["smem_bytes"] <= t_ops.H100_SMEM_PER_BLOCK
     if kernel == "narrow":
         assert big["x_slab"] == 2048 and big["grid"] == (393,)
-    # the none image has only the tile kernel (K2)
+    # the none image (K2) takes its narrow kernel at the same M; at the
+    # unembed it too keeps all of x beside its ring
     none = t_ops.resolve_tiles(t_cim.pack(w, t_cim.CIMConfig(protect="none")),
                                m)
-    assert none["kernel"] == "tile"
+    assert none["kernel"] == kernel
+    assert none["smem_bytes"] <= t_ops.H100_SMEM_PER_BLOCK
+    big_none = t_ops.resolve_tiles(
+        _unembed_geometry(t_cim.CIMConfig(protect="none")), m)
+    assert big_none["smem_bytes"] <= t_ops.H100_SMEM_PER_BLOCK
+    if kernel == "narrow":
+        assert none["m_rows"] == m_rows and none["x_slab"] == 128
+        assert (none["exp_stage"], none["sign_stage"]) == (2048, 2048)
+        assert big_none["x_slab"] == 2048 and big_none["grid"] == (393,)
     with pytest.raises(NotImplementedError):
         t_ops.resolve_tiles(t_cim.pack(w, t_cim.CIMConfig(n_group=12)), m)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 9])
+@pytest.mark.parametrize("n_group", [4, 16])
+def test_resolve_tiles_none_n_group(n_group, m):
+    """K2's narrow kernel tiles every power-of-two n_group dividing 128: a
+    stage holds 128 / n exponent rows of 128 bytes."""
+    w = torch.zeros((96, 32))
+    cfg = t_cim.CIMConfig(protect="none", n_group=n_group)
+    tiles = t_ops.resolve_tiles(t_cim.pack(w, cfg), m)
+    assert tiles["kernel"] == ("narrow" if m <= 8 else "tile")
+    assert tiles["smem_bytes"] <= t_ops.H100_SMEM_PER_BLOCK
+    if m <= 8:
+        assert tiles["exp_stage"] == 128 // n_group * 128
+        big = t_ops.resolve_tiles(_unembed_geometry(cfg), m)
+        assert big["x_slab"] == 2048 and big["grid"] == (393,)
+        assert big["smem_bytes"] <= t_ops.H100_SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_resolve_tiles_none_refuses_n_group_12(m):
+    """n_group 12 divides neither the narrow stage (128 rows) nor the tile's
+    64-row chunk: the read raises instead of falling back."""
+    w = torch.zeros((96, 32))
+    with pytest.raises(NotImplementedError):
+        t_ops.resolve_tiles(
+            t_cim.pack(w, t_cim.CIMConfig(protect="none", n_group=12)), m)
 
 
 def test_narrow_tables_are_the_codec_syndrome_masks():
@@ -195,8 +231,7 @@ def test_cuda_kernels_match_plain_version(protect, m):
     x = torch.randn((m, 261), generator=gen).to(dev)
     out, info = t_ops.cim_linear_store(x, store, with_info=True)
     assert info["used_kernel"]
-    assert info["tiles"]["kernel"] == \
-        ("narrow" if protect == "one4n" and m <= 8 else "tile")
+    assert info["tiles"]["kernel"] == ("narrow" if m <= 8 else "tile")
     np.testing.assert_allclose(out.cpu().numpy(),
                                cim_read_ref(x, store)[0].cpu().numpy(),
                                rtol=1e-4, atol=1e-4)
@@ -217,6 +252,40 @@ def test_cuda_kernels_match_plain_version(protect, m):
     for image in (store, injected):
         w_ref, _ = t_cim.read(image)
         probe = _identity_slices(image, m)
+        fin = torch.isfinite(w_ref).all(0)
+        assert torch.equal(probe[:, fin], w_ref[:, fin])
+        assert not bool(torch.isfinite(probe[:, ~fin]).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_group", [4, 16])
+def test_cuda_raw_narrow_n_group(n_group):
+    """K2's narrow kernel at M = 4 where a thread's 8 rows span two block
+    rows (n_group 4) or a block row spans two row groups (16): clean and
+    dynamic against the plain version, dynamic == static-injected bitwise,
+    and the identity probe in 4-row slices exact."""
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(2)
+    w = torch.randn((261, 130), generator=gen) * 0.05
+    cfg = t_cim.CIMConfig(protect="none", n_group=n_group)
+    w_al, _ = t_align.align_matrix(w, t_align.AlignmentConfig(n_group=n_group))
+    store = t_cim.pack(w_al.to(dev), cfg)
+    x = torch.randn((4, 261), generator=gen).to(dev)
+    out, info = t_ops.cim_linear_store(x, store, with_info=True)
+    assert info["tiles"]["kernel"] == "narrow"
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               cim_read_ref(x, store)[0].cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    seeds = {"man": 4, "meta": 5, "cw": 6}
+    thr = ber_to_threshold(2e-3)
+    sc = t_ops.make_scalars(seeds, thr, thr)
+    dyn = t_ops.cim_linear_store(x, store, scalars=sc)
+    injected = t_cim.inject_with_seeds(store, seeds, thr, thr)
+    assert torch.equal(dyn.view(torch.int32),
+                       t_ops.cim_linear_store(x, injected).view(torch.int32))
+    for image in (store, injected):
+        w_ref, _ = t_cim.read(image)
+        probe = _identity_slices(image, 4)
         fin = torch.isfinite(w_ref).all(0)
         assert torch.equal(probe[:, fin], w_ref[:, fin])
         assert not bool(torch.isfinite(probe[:, ~fin]).any())

@@ -85,10 +85,10 @@ def _build(name: str, src: str, out_dir: Path):
     return lib, proc.stdout + proc.stderr
 
 
-def _sass_census(lib_path: Path) -> None:
-    """Per narrow instantiation: SASS instructions, branches and the copies
-    of the hash's first multiply (0x85EBCA6B) in the code, i.e. how far the
-    draw loops were unrolled."""
+def _sass_census(lib_path: Path, family: str = "one4n") -> None:
+    """Per narrow instantiation of ``family`` (``one4n``: K1, ``raw``: K2):
+    SASS instructions, branches and the copies of the hash's first multiply
+    (0x85EBCA6B) in the code, i.e. how far the draw loops were unrolled."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
@@ -96,7 +96,7 @@ def _sass_census(lib_path: Path) -> None:
     name, counts = None, {}
     for ln in sass.splitlines():
         if "Function :" in ln:
-            m = re.search(r"narrow_kernelILi(\d)ELb(\d)", ln)
+            m = re.search(rf"{family}_narrow_kernelILi(\d)ELb(\d)", ln)
             name = f"M{m.group(1)} {'dynamic' if m.group(2) == '1' else 'static'}" \
                 if m else None
             if name:
@@ -108,8 +108,8 @@ def _sass_census(lib_path: Path) -> None:
             c[1] += " BRA" in ln
             c[2] += "-0x7a143595" in ln
     for name, (n, bra, muls) in sorted(counts.items()):
-        print(f"sass: narrow {name}: {n} instructions, {bra} branches, "
-              f"{muls} hash bodies in the code")
+        print(f"sass: {family} narrow {name}: {n} instructions, {bra} "
+              f"branches, {muls} hash bodies in the code")
 
 
 def main() -> int:
@@ -133,8 +133,8 @@ def main() -> int:
         built = dict(zip(srcs, pool.map(lambda kv: _build(*kv, out_dir),
                                         srcs.items())))
     for ln in built["full"][1].splitlines():
-        m = re.search(r"\d(cim_read_(?:one4n_narrow|one4n|raw)_kernel)"
-                      r"(?:ILi(\d)ELb(\d)E)?", ln)
+        m = re.search(r"\d(cim_read_(?:one4n_narrow|raw_narrow|one4n|raw)"
+                      r"_kernel)(?:ILi(\d)ELb(\d)E)?", ln)
         if "Compiling entry" in ln and m:
             print(f"ptxas: {m.group(1)}" + (
                 f" M{m.group(2)} {'dynamic' if m.group(3) == '1' else 'static'}"
