@@ -11,7 +11,9 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    (fault_inject) from fault_inject.cu, K5 (bfp_matmul) from bfp_matmul.cu;
    read K3's hash bodies from the SASS
    (cuobjdump) and check both hash multiplies are IMADs, which the bound of
-   phase 7 counts on the FMA pipe apart from the ALU work;
+   phase 7 counts on the FMA pipe apart from the ALU work; read K5's tile
+   instantiations' SASS and fail unless each holds TF32 HMMAs (tensor-core
+   MMAs), and print every K5 instantiation's registers, failing on a spill;
 2. hold each kernel against its plain PyTorch version at the full-width
    olmo-1b unembed shape (K=2048, J=50304, n_group=8): the identity probe
    at M = K (the tile kernel) gives the decoded weights exactly; a dense
@@ -69,7 +71,10 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    the busier of the ALU pipe (10 ops a draw), the FMA pipe (2 IMADs a
    draw) and the bytes; K5 on the trained unembed's BFP planes at M = 4
    (decode-shaped, bound by bytes) and M = 1024 (the phase 9 batch, bound
-   by fp32 FMAs), beside torch.matmul over the pre-dequantized matrix;
+   by its two TF32 products on the tensor cores, the fp32-FMA figure
+   beside it), beside torch.matmul over the pre-dequantized matrix (TF32
+   off); at M = 1024 K5's max abs error against a float64 product must be
+   at most twice torch.matmul's;
 8. train full-width olmo-1b (weights from a seeded generator) through
    run_training with a one-rule align policy (n_group 8, index 2) for 4
    steps of MarkovLM(vocab, 128, 8), the launcher's defaults: per-step loss,
@@ -109,6 +114,7 @@ BATCH, PROMPT, GEN = 4, 64, 32
 TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS = 67e12               # H100 SXM, float32 outside the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM, TF32 tensor cores, dense
 # INT32: an SM issues 64 INT32 lanes a clock against 128 FP32 lanes, and the
 # float32 rate counts an FMA as 2 operations: 67e12 / 4 INT32 ops/s. That
 # rate holds on each of two pipes: logic, shift and compare issue on the ALU
@@ -226,14 +232,18 @@ def phase_build(libs: dict) -> None:
                 print(f"  ptxas: {ln.strip()}")
 
 
+def _cuobjdump(lib_path, flag: str) -> str:
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, flag, str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
 def _sass_hash_bodies(lib_path, mangled: str) -> list:
     """The compiled hash bodies of one kernel: the runs of SASS between two
     branches that hold the hash's first multiply, each as a list of opcodes
     (with their immediates kept for the multiplies)."""
-    import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
+    sass = _cuobjdump(lib_path, "-sass")
     body, bodies, inside = [], [], False
     for ln in sass.splitlines():
         if "Function :" in ln:
@@ -274,6 +284,57 @@ def phase_sass(lib_path) -> None:
           f"{n} of them with {alu} ALU-pipe, {imad} IMAD and {other} other "
           f"instructions a draw (bound counts {ALU_OPS_PER_DRAW} ALU, "
           f"{IMAD_OPS_PER_DRAW} IMAD); census {dict(census)}")
+
+
+def _k5_variant(mangled: str) -> str:
+    m = re.search(r"bfp_matmul_(tc|narrow)_kernelI(?:Li(\d)E)?(f|t)Lb(\d)E",
+                  mangled)
+    if not m:
+        return ""
+    kind, mr, xt, vec = m.groups()
+    return (f"{'tile' if kind == 'tc' else 'narrow'}"
+            f"{' M' + mr if mr else ''} x {'f32' if xt == 'f' else 'bf16'} "
+            f"{'16-byte' if vec == '1' else 'element'}")
+
+
+def phase_k5_sass(lib_path) -> None:
+    """K5's tile variant must run on the tensor cores: every instantiation's
+    SASS holds TF32 HMMAs. Registers and spills of every K5 instantiation
+    from ``cuobjdump -res-usage`` (which holds for a library built before
+    this run too); a tile instantiation with a stack frame or local memory
+    (a spill) fails. The narrow variant's are printed: its M = 4
+    element-load instantiation, on no main path, keeps an 8-byte frame."""
+    usage, name = {}, None
+    for ln in _cuobjdump(lib_path, "-res-usage").splitlines():
+        m = re.search(r"Function (\S+?):?\s*$", ln)
+        if m:
+            name = _k5_variant(m.group(1))
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)", ln)
+        if name and m:
+            usage[name] = tuple(int(v) for v in m.groups())
+            name = None
+    _check(len(usage) == 16 + 4, f"K5 res-usage: {len(usage)} instantiations "
+           f"found, expected 20: {sorted(usage)}")
+    for v, (reg, stack, _, local) in sorted(usage.items()):
+        print(f"  ptxas: K5 {v}: {reg} registers, stack {stack} B, local "
+              f"{local} B")
+    spills = {v: u for v, u in usage.items()
+              if v.startswith("tile") and (u[1] or u[3])}
+    _check(not spills, f"K5 tile spills (stack or local memory): {spills}")
+    hmma, name = {}, None
+    for ln in _cuobjdump(lib_path, "-sass").splitlines():
+        if "Function :" in ln:
+            name = _k5_variant(ln.split("Function :")[1].strip())
+            if name.startswith("tile"):
+                hmma[name] = 0
+            continue
+        if name in hmma:
+            hmma[name] += bool(re.search(r"\bHMMA\.\S*TF32", ln))
+    _check(len(hmma) == 4 and all(hmma.values()),
+           f"K5 SASS: tile instantiations without TF32 HMMAs: {hmma}")
+    print(f"phase 1: K5 SASS: TF32 HMMA instructions in each tile "
+          f"instantiation {hmma}; no tile instantiation spills")
 
 
 def _unembed_store(protect: str, dev):
@@ -1203,11 +1264,27 @@ def phase_bfp(dev, trained: dict, bfp_kernel) -> dict:
             "max_abs_err": max(err, err4)}
 
 
+def _f64_errors(x, w, out) -> tuple:
+    """Max abs error against the float64 product x @ w of K5's ``out`` and of
+    torch.matmul in fp32 (TF32 off) on the same inputs."""
+    import torch
+    want = x.double() @ w.double()
+    k5 = float((out.double() - want).abs().max())
+    lib = float((torch.matmul(x, w).double() - want).abs().max())
+    return k5, lib
+
+
 def phase_bfp_times(dev, bfp: dict, card: str) -> dict:
-    """K5 at M = 4 and M = 1024 on the trained unembed's planes."""
+    """K5 at M = 4 (the narrow variant, fp32 FMAs; bound by bytes) and at
+    M = 1024 (the tile variant: two TF32 products on the tensor cores; bound
+    by the larger of the bytes and those products, with the fp32-FMA figure
+    beside it) on the trained unembed's planes. At M = 1024, K5's max abs
+    error against a float64 product must be at most twice torch.matmul's."""
     import torch
     from repro_torch.kernels.bfp_matmul import ops, ref
     man, exp, w = bfp["man"], bfp["exp"], bfp["w"]
+    _check(not torch.backends.cuda.matmul.allow_tf32,
+           "phase 7: torch.matmul would run in TF32")
     row = {"name": "bfp_matmul", "route": "cuda", "source": BFP_SOURCE,
            "replaces": REPLACES["bfp_matmul"], "launches": bfp["launches"],
            "max_abs_err": bfp["max_abs_err"]}
@@ -1219,21 +1296,35 @@ def phase_bfp_times(dev, bfp: dict, card: str) -> dict:
         library_ms = _time_ms(lambda: torch.matmul(x, w))
         nbytes = man.numel() * 2 + exp.numel() + x.numel() * 4 + m * J * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2.0 * m * K * J / FP32_FLOPS * 1e3
+        fma_ms = 2.0 * m * K * J / FP32_FLOPS * 1e3
+        # the tile variant (M > 8) does two TF32 products on the tensor cores
+        ops_ms = fma_ms if m <= 8 else 2 * 2.0 * m * K * J / TF32_FLOPS * 1e3
         vals = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "bytes": nbytes}
+        what = "bytes" if bytes_ms >= ops_ms else (
+            "fp32 FMAs" if m <= 8 else "two TF32 products")
+        extra = ""
         if m == BATCH:
             row.update({f"{k}_m{m}": v for k, v in vals.items()})
         else:
+            out = ops.cim_linear(x, man, exp, n_group=N_GROUP)
+            k5_err, lib_err = _f64_errors(x, w, out)
+            del out
+            _check(k5_err <= 2 * lib_err, f"phase 7: K5 at M = {m}: max err "
+                   f"{k5_err:.3e} vs float64, more than twice torch.matmul's "
+                   f"{lib_err:.3e}")
+            vals.update(fp32_fma_bound_ms=fma_ms, err_vs_f64=k5_err,
+                        library_err_vs_f64=lib_err)
             row.update(vals, m=m)
+            extra = (f"; fp32-FMA figure {fma_ms:.4f} ms; max err vs float64 "
+                     f"{k5_err:.3e} (torch.matmul {lib_err:.3e})")
         print(f"phase 7: bfp_matmul at M = {m}: {ms:.4f} ms, plain "
               f"{plain_ms:.3f} ms, torch.matmul on dequantized "
               f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-              f"({'bytes' if bytes_ms >= ops_ms else 'fp32 FMAs'}: "
-              f"{nbytes / 1e6:.1f} MB, {2.0 * m * K * J / 1e9:.1f} GFLOP) on "
-              f"{card}")
+              f"({what}: {nbytes / 1e6:.1f} MB, {2.0 * m * K * J / 1e9:.1f} "
+              f"GFLOP a product){extra} on {card}")
     return row
 
 
@@ -1260,6 +1351,7 @@ def main() -> int:
     phase_build({"K1+K2": kernel_lib.LIBRARY, "K3+K4": fi_kernel.LIBRARY,
                  "K5": bfp_kernel.LIBRARY})
     phase_sass(fi_kernel.LIBRARY.build())
+    phase_k5_sass(bfp_kernel.LIBRARY.build())
     checks = phase_kernels(dev)
     model = LM(get_config("olmo-1b"),
                generator=torch.Generator(device=dev).manual_seed(0), device=dev)

@@ -5,7 +5,8 @@ K5 :func:`bfp_matmul` replaces ``bfp_matmul_pallas``: ``x [M, K]`` (fp32 or
 bf16) @ the block-FP weights of ``man`` uint16 [K, N] and ``exp`` uint8
 [K/n_group, N] -> f32 [M, N]. The kernel masks ragged edges itself, so any
 M, K and N are taken (K a multiple of ``n_group``); M <= 8 runs the narrow,
-bytes-bound variant, larger M the 128 x 128 tiled one.
+bytes-bound variant, larger M the 128 x 128 tile on the TF32 tensor cores
+(x split into two TF32 parts, :func:`.ref.split_tf32`, for fp32 accuracy).
 
 The library is built at first use by :class:`repro_torch.kernels.nvcc.
 CudaLibrary`. The wrapper takes CUDA tensors only (the CPU goes to

@@ -15,6 +15,10 @@ cleared), never NaN or a field carried into the sign bit. The reference
 computes ``jnp.exp2(e - 15)``, which XLA's CPU backend rounds a few ulp off
 at ``e`` in {0, 2, 28, 30} and at most ``e`` in 32..142 (ROADMAP Queue 3);
 there the two differ.
+
+:func:`split_tf32` states the split of x that lets K5's tile variant run on
+the TF32 tensor cores at fp32 accuracy; the CPU tests hold that recipe to
+the reference with it, and nothing on the main path calls it.
 """
 from __future__ import annotations
 
@@ -56,3 +60,29 @@ def bfp_matmul_ref(x: torch.Tensor, man: torch.Tensor, exp: torch.Tensor,
                    n_group: int = 8) -> torch.Tensor:
     """x [M, K] (f32 or bf16) @ dequant(man, exp) -> f32 [M, N]."""
     return x.to(torch.float32) @ dequant_ref(man, exp, n_group)
+
+
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` as bit operations: fp32 rounded half away from
+    zero to 10 mantissa bits (low 13 bits zero); inf and NaN pass as they
+    are, a magnitude that rounds past the largest finite value gives inf."""
+    b = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    mag = b & 0x7FFFFFFF
+    rounded = (b & 0x80000000) | ((mag + 0x1000) & 0x7FFFE000)
+    return torch.where(mag >= 0x7F800000, b, rounded).to(torch.int32) \
+        .view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """K5's split of an fp32 ``x`` into two TF32 parts, ``(hi, lo)``:
+    ``hi = cvt.rna.tf32.f32(x)``, ``lo`` the same rounding of ``x - hi``
+    (exact in fp32), and ``lo = 0`` where that difference is NaN (an inf or
+    NaN ``x``, which ``hi`` carries alone). For normal ``x``,
+    ``|x - hi - lo| <= 2^-22 |x|``. Every K5 weight is exact in TF32, so
+    ``hi @ W`` and ``lo @ W'`` are exact products (``W'`` is ``W`` with its
+    ``±inf`` set to 0)."""
+    x = x.to(torch.float32)
+    hi = _tf32_rna(x)
+    d = x - hi
+    lo = torch.where(torch.isnan(d), torch.zeros_like(d), _tf32_rna(d))
+    return hi, lo

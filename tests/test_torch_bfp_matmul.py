@@ -11,10 +11,16 @@ summation orders), as ``tests/test_kernels.py`` holds the reference's
 kernel to its own oracle; the reference's Pallas kernel runs in interpret
 mode, compiled once per case with ``jax.jit``. Exponent bytes from 143 up,
 which ``cim_linear`` takes from any uint8 plane, give ``±inf`` in both
-packages. The ``gpu`` cases hold the CUDA kernel against its plain version
-on a card (an all-256-exponent plane among them) and skip without one; they
-need no jax, so they run on the card's machine.
+packages. The tile variant's TF32 split (``ref.split_tf32``) is checked
+here in float64: weights exact in TF32, the split's residual, and the
+recipe against the reference's kernel. The ``gpu`` cases hold the CUDA
+kernel against its plain version on a card (an all-256-exponent plane and
+the tile variant's ragged strides, n_group 12 and K = 1 among them; repeat
+calls bitwise) and skip without one; they need no jax, so they run on the
+card's machine.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -197,11 +203,19 @@ def _j_kernel(x, man, exp, n_group=8, bm=128, bn=128, bk=512):
     return np.asarray(f(xj, *_j_planes(man, exp)))
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_case(m, k, n, n_group=8):
+    """A case and the reference kernel's output on it, computed once per
+    process (the plain-version and the split-recipe tests share it)."""
+    x, man, exp, w_al = _case(m, k, n, n_group)
+    return x, man, exp, w_al, _j_kernel(x, man, exp, n_group)
+
+
 @pytest.mark.parametrize("m,k,n", SHAPES)
 def test_plain_matches_reference_kernel_shapes(m, k, n):
-    x, man, exp, w_al = _case(m, k, n)
+    x, man, exp, w_al, j_out = _ref_case(m, k, n)
     out = t_ref.bfp_matmul_ref(x, man, exp).numpy()
-    np.testing.assert_allclose(out, _j_kernel(x, man, exp), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(out, j_out, rtol=TOL, atol=TOL)
     np.testing.assert_allclose(out, x.numpy() @ w_al, rtol=TOL, atol=TOL)
 
 
@@ -268,6 +282,134 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
         t_ops.cim_linear(torch.zeros((2, 16)), man.to("meta"), exp)
 
 
+# ------------------------------------------- the tile variant's TF32 split
+# K5's tile variant runs on the TF32 tensor cores: every weight is exact in
+# TF32, x is split into hi + lo (ref.split_tf32, cvt.rna.tf32.f32 as bit
+# operations), and the two exact products hi @ W and lo @ W' (W' = W with
+# its +-inf set to 0) give the fp32 product. The card's accumulation is
+# checked on the card; here the recipe's arithmetic, emulated in float64.
+
+def test_dequant_weights_exact_in_tf32():
+    """Every weight the planes can hold (all 65,536 mantissa words x all 256
+    exponent bytes) has its low 13 bits zero and an exponent field that is
+    fp32's own: TF32 holds it exactly, so W needs no split."""
+    words = torch.arange(2 ** 16, dtype=torch.int32).to(torch.uint16)
+    for e0 in range(0, 256, 32):
+        man = words[:, None].expand(-1, 32).contiguous()
+        exp = torch.arange(e0, e0 + 32, dtype=torch.int32).to(torch.uint8)[None]
+        w = t_ref.dequant_ref(man, exp, 2 ** 16)
+        bits = w.view(torch.int32)
+        assert not bool((bits & 0x1FFF).any()), e0
+        hi, lo = t_ref.split_tf32(w)
+        assert torch.equal(hi.view(torch.int32), bits)
+        assert not bool(lo.any())
+
+
+def _tf32_round_f64(x):
+    """Round half away from zero to 11 significant bits, in float64 (an
+    independent statement of cvt.rna.tf32.f32 for normal fp32 x)."""
+    x = x.astype(np.float64)
+    ulp = np.exp2(np.floor(np.log2(np.abs(x))) - 10)
+    return np.sign(x) * np.floor(np.abs(x) / ulp + 0.5) * ulp
+
+
+def _split_inputs(kind, rng, n=4096):
+    """fp32 x of one kind, as uint32 bit patterns, with biased exponents
+    24..253: there x - hi and its rounding stay normal (below, lo loses bits
+    to fp32's subnormal spacing; above, hi could round to inf)."""
+    sign = rng.integers(0, 2, n, dtype=np.uint32) << 31
+    expo = rng.integers(24, 254, n, dtype=np.uint32) << 23
+    top = rng.integers(0, 1024, n, dtype=np.uint32) << 13     # TF32 bits
+    low = rng.integers(0, 2 ** 13, n, dtype=np.uint32)
+    if kind == "random":
+        bits = (rng.standard_normal(n) * np.exp2(rng.integers(-60, 60, n))) \
+            .astype(np.float32).view(np.uint32)
+        return bits[np.abs(bits.view(np.float32)) > 0]
+    if kind == "ties":                          # exactly half a TF32 ulp
+        low = np.full(n, 0x1000, np.uint32)
+    elif kind == "low_bits":                    # every low bit set, or one
+        low = np.where(rng.integers(0, 2, n) == 1, 0x1FFF, 0x0001) \
+            .astype(np.uint32)
+        low[::3] = 0x0FFF
+        low[1::3] = 0x1001
+    elif kind == "powers_of_two":
+        top[:] = 0
+        low[:] = 0
+    elif kind == "bf16_exact":
+        top &= 0x7F << 16
+        low[:] = 0
+    return sign | expo | top | low
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "low_bits",
+                                  "powers_of_two", "bf16_exact"])
+def test_split_tf32_residual(kind):
+    """hi and lo are TF32 (low 13 bits zero), hi is the round-half-away-from
+    -zero of x to 11 significant bits, and |x - hi - lo| <= 2^-22 |x|; a
+    bf16-exact x is its own hi with lo = 0."""
+    bits = _split_inputs(kind, np.random.default_rng(len(kind)))
+    x = bits.view(np.float32)
+    hi, lo = (a.numpy() for a in t_ref.split_tf32(torch.from_numpy(x.copy())))
+    for part in (hi, lo):
+        assert not (part.view(np.uint32) & 0x1FFF).any()
+    assert np.array_equal(hi.astype(np.float64), _tf32_round_f64(x))
+    x64 = x.astype(np.float64)
+    resid = np.abs(x64 - hi.astype(np.float64) - lo.astype(np.float64))
+    assert (resid <= np.exp2(-22) * np.abs(x64)).all(), float(
+        (resid / np.abs(x64)).max())
+    if kind == "ties":          # half an ulp rounds away from zero
+        assert (np.abs(hi.astype(np.float64)) > np.abs(x64)).all()
+    if kind in ("powers_of_two", "bf16_exact"):
+        assert np.array_equal(hi, x) and not lo.any()
+
+
+def _recipe_f64(x, man, exp, n_group):
+    """The tile variant's arithmetic in float64: hi @ W + lo @ W'."""
+    w = t_ref.dequant_ref(man, exp, n_group).double()
+    w0 = torch.where(torch.isinf(w), torch.zeros_like(w), w)
+    if x.dtype == torch.bfloat16:           # exact in TF32: one product
+        return x.double() @ w
+    hi, lo = t_ref.split_tf32(x)
+    return hi.double() @ w + lo.double() @ w0
+
+
+@pytest.mark.parametrize("m,k,n,n_group", [s + (8,) for s in SHAPES]
+                         + [(128, 504, 128, 12)])
+def test_split_recipe_matches_reference_kernel(m, k, n, n_group):
+    x, man, exp, w_al, j_out = _ref_case(m, k, n, n_group)
+    out = _recipe_f64(x, man, exp, n_group).numpy()
+    np.testing.assert_allclose(out, j_out, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(out, x.double().numpy() @ w_al.astype(
+        np.float64), rtol=TOL, atol=TOL)
+
+
+def test_split_recipe_every_exponent_byte():
+    """On a plane holding all 256 exponent bytes the recipe gives +-inf
+    exactly where x @ W does and NaN exactly where x @ W does (x = 0 against
+    an inf weight), with random x whose lo part is nonzero; lo @ W without
+    the inf lanes zeroed would add NaN wherever lo and hi differ in sign."""
+    rng = np.random.default_rng(3)
+    n = 4 * 256
+    man = torch.from_numpy(rng.integers(0, 2 ** 16, (1, n)).astype(
+        np.int32)).to(torch.uint16)
+    exp = (torch.arange(n) % 256).to(torch.uint8)[None]
+    x = torch.from_numpy(rng.standard_normal((64, 1)).astype(np.float32))
+    x[0] = 0.0
+    hi, lo = t_ref.split_tf32(x)
+    assert bool((lo[1:] != 0).all())
+    got = _recipe_f64(x, man, exp, 1)
+    want = x.double() @ t_ref.dequant_ref(man, exp, 1).double()
+    for f in (torch.isnan, torch.isposinf, torch.isneginf, torch.isfinite):
+        assert torch.equal(f(got), f(want)), f.__name__
+    assert not bool(got[1:].isnan().any())
+    assert bool(got[1:, 143:256].isinf().all())
+    fin = torch.isfinite(want)
+    assert bool(((got - want)[fin].abs() <= 2.0 ** -22 * want[fin].abs()).all())
+    naive = hi.double() @ t_ref.dequant_ref(man, exp, 1).double() \
+        + lo.double() @ t_ref.dequant_ref(man, exp, 1).double()
+    assert bool(naive[1:].isnan().any())
+
+
 # ------------------------------------------------------------- on the card
 
 def _cuda():
@@ -313,7 +455,17 @@ def _every_exponent_case(m, n, dev, seed=0):
     (8, 512, 256, 8, torch.bfloat16, "aligned"),
     (200, 512, 256, 4, torch.bfloat16, "aligned"),
     (4, 1, 1024, 1, torch.float32, "every_exponent_byte"),
-    (130, 1, 1024, 1, torch.float32, "every_exponent_byte")])
+    (130, 1, 1024, 1, torch.float32, "every_exponent_byte"),
+    # the tile variant's traps: rows that forbid 16-byte copies (N = 130,
+    # K = 18), n_group 12 across 32-row stages, K = 1, the real depth, and
+    # the smallest tile call
+    (130, 72, 130, 8, torch.float32, "aligned"),
+    (130, 72, 130, 8, torch.bfloat16, "aligned"),
+    (33, 18, 64, 6, torch.float32, "aligned"),
+    (96, 600, 256, 12, torch.float32, "aligned"),
+    (130, 1, 130, 1, torch.float32, "aligned"),
+    (1024, 2048, 512, 8, torch.float32, "aligned"),
+    (9, 256, 128, 8, torch.float32, "aligned")])
 def test_cuda_kernel_matches_plain_version(m, k, n, n_group, x_dtype, plane):
     dev = _cuda()
     if plane == "aligned":
@@ -335,6 +487,8 @@ def test_cuda_kernel_matches_plain_version(m, k, n, n_group, x_dtype, plane):
         assert not bool(out.isnan().any())
         assert bool(out[:, sat].isinf().all())
         assert bool(out[:, ~sat].isfinite().all())
+    again = t_ops.cim_linear(x, man, exp, n_group=n_group)   # fixed order
+    assert torch.equal(again.view(torch.int32), out.view(torch.int32))
     eye = torch.eye(k, device=dev)
     probe = t_ops.cim_linear(eye, man, exp, n_group=n_group)
     assert torch.equal(probe.view(torch.int32), w_al.view(torch.int32))
