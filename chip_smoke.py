@@ -29,7 +29,14 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    slices of eye(K) (256 launches) on both images, exact and equal to the
    tile's probe on every finite column; agree with the tile kernel at M =
    1, 3, 4 and 8 within allclose(1e-4, 1e-4) static and within 1e-4 of
-   |x| @ |W| dynamic; and repeat their bits run to run;
+   |x| @ |W| dynamic; and repeat their bits run to run. Then K1 and K2
+   under each fault process of MODEL_SPECS (burst on the row, col and bank
+   axes, correlated) at BER 1e-4: the dynamic identity probe through the
+   tile (M = K) and the narrow kernel (8-row slices) gives the weights of
+   the image cim.inject_with_seeds(..., model=) leaves exactly and equals
+   the static read of that image bitwise; dense M = 4 within 1e-4 of
+   |x| @ |W| of the plain version; narrow against tile at M = 1, 3, 4, 8;
+   the image's flips a strict subset of the i.i.d. ones;
 3. serve full-width olmo-1b (16 layers, d_model 2048, vocab 50304, fp32,
    weights from a seeded generator) through the port's lock-step launcher,
    batch 4, prompt 64, gen 32, in five arms; the launch counts are zeroed
@@ -37,8 +44,11 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    launch its kernel once per read (gen times), arm (a)'s K1 reads and arm
    (b)'s K2 reads through their narrow kernels (each read's
    info['tiles']); the clean fused and hbm arms must give equal greedy
-   tokens; a reduced olmo-1b served through the
-   kernels must match the port's plain CPU path;
+   tokens; arms (a) and (b) again with --fault-model
+   burst:rate=0.25,length=4,axis=col and drift:drift_rate=0.02 (counts
+   zeroed before each, read after: one narrow launch a read); a reduced
+   olmo-1b served through the kernels must match the port's plain CPU
+   path;
 4. hold K3/K4 against their plain versions on the card, bit for bit: the
    full-width one4n unembed image's mantissa and codeword planes and the
    none image's exponent and sign planes at T = 4 (BER 1e-3), a ragged
@@ -46,7 +56,11 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    through its entry point fault_inject_fp16 on the full-width unembed
    weights for each field (its main path: counts zeroed just before, read
    just after) at BER 1e-3, where its double threshold is one below the
-   sweep's float32 one; a plane of 2^27 + 1 elements must raise;
+   sweep's float32 one; a plane of 2^27 + 1 elements must raise; K3 under
+   each fault process of MODEL_SPECS on the one4n unembed's mantissa plane
+   (uint16) and its flattened codeword plane (uint32, col_div = S*W), T = 4,
+   bitwise against the plain version, its flips a strict subset of the
+   i.i.d. flips at the same seeds;
 5. Fig. 6 on full-width olmo-1b: characterize_protection with arms none,
    per_weight and one4n (CIMConfig(n_group=8, index=2)), BERs 1e-5..1e-3,
    4 trials; eval is greedy-token agreement with the fault-free deployment
@@ -57,7 +71,9 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    redone with the plain injection on the card give identical stores, ECC
    counts (their means equal to the row's at 1e-5) and agreement; a
    torch.profiler rerun of the one4n arm prints its top
-   device kernels and their share of the arm's wall time;
+   device kernels and their share of the arm's wall time; the one4n arm
+   again with fault_models=("iid", "burst:rate=0.5,length=4") (K3 count
+   checked): its iid arm's rows equal the default plan's value for value;
 6. Fig. 2 on the CNN (seeded init_cnn, GaussianBlobs, 1024 images): all four
    fields, BERs 1e-6..1e-2, 8 trials, on the card (K3 count checked) and on
    the CPU; faulted leaves bitwise equal, accuracies within 1/1024 per cell;
@@ -65,8 +81,12 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    bound: K1/K2 at the serving shape with one torch.matmul on the
    pre-decoded weights, each one's tile kernel at M = 4 beside its narrow
    one, the static read bound by bytes and the dynamic read by the larger of the
-   bytes and its draws on the ALU pipe (10 ops a draw); K3 at the Fig. 6 unembed mantissa plane
-   ([2048, 50304] uint16, T = 4, 10 positions) and K4 on the same plane's
+   bytes and its draws on the ALU pipe (10 ops a draw); each narrow dynamic
+   read again under each fault process of MODEL_SPECS, with the draws it
+   performs (a burst read draws only in its hit units) and their bound;
+   K3 at the Fig. 6 unembed mantissa plane
+   ([2048, 50304] uint16, T = 4, 10 positions; and under each fault
+   process, with its draws and bound) and K4 on the same plane's
    16 positions (no single PyTorch call computes their function), bound by
    the busier of the ALU pipe (10 ops a draw), the FMA pipe (2 IMADs a
    draw) and the bytes; K5 on the trained unembed's BFP planes at M = 4
@@ -146,6 +166,14 @@ FIG6_BATCH, FIG6_SEQ = 4, 64
 FIG2_BERS, FIG2_TRIALS, FIG2_N = (1e-6, 1e-5, 1e-4, 1e-3, 1e-2), 8, 1024
 FIG2_FIELDS = ("sign", "exponent", "mantissa", "full")
 PROTECT_OF = {"cim_read_matmul_one4n": "one4n", "cim_read_matmul_raw": "none"}
+# fault processes held on the card: each burst axis and the correlated kind
+MODEL_SPECS = ("burst:rate=0.25,length=4,axis=row",
+               "burst:rate=0.25,length=4,axis=col",
+               "burst:rate=0.25,length=8,axis=bank",
+               "correlated:strength=0.8,period=4")
+MODEL_BER = 1e-4
+SERVE_MODELS = ("burst:rate=0.25,length=4,axis=col", "drift:drift_rate=0.02")
+FIG6_MODELS = ("iid", "burst:rate=0.5,length=4")
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 128   # the train launcher's defaults
 REDUCED_STEPS, REDUCED_LR = 3, 1e-3            # tests/test_torch_train.py's
 REDUCED_MIN_TRAVEL = 4                         # fp16 ulps, median
@@ -268,7 +296,9 @@ def phase_sass(lib_path) -> None:
     timing shape) both hash multiplies are IMADs, i.e. they issue on the FMA
     pipe beside the ALU work; print the compiled per-draw census."""
     from collections import Counter
-    bodies = _sass_hash_bodies(lib_path, "fault_inject_batched_kernelItLi8E")
+    # <uint16, 8, MODEL_IID>: the i.i.d. instantiation (the burst and
+    # correlated ones hash their units beside the draws)
+    bodies = _sass_hash_bodies(lib_path, "fault_inject_batched_kernelItLi8ELi0EE")
     _check(len(bodies) > 0, "K3 SASS: no hash body found")
     census = Counter()
     for body in bodies:
@@ -346,13 +376,16 @@ def _unembed_store(protect: str, dev):
     return cim.pack(w_al, cim.CIMConfig(n_group=N_GROUP, protect=protect))
 
 
-def _identity_probe(name, store, w_ref, what, rows=None):
+def _identity_probe(name, store, w_ref, what, rows=None, scalars=None,
+                    model=None):
     """``eye @ W`` through the kernel gives W exactly: in one call at
     M = K (the tile kernel), or in slices of ``rows`` rows (M <= 8: the
     narrow kernel, K / rows launches). Entries are compared by value (the
     kernel's f32 accumulator turns -0.0 into +0.0); a column that holds a
-    non-finite weight must come out non-finite throughout. Returns the
-    probe's output and the number of such columns."""
+    non-finite weight must come out non-finite throughout. With dynamic
+    ``scalars`` (and a fault ``model``) ``w_ref`` is the image the read's
+    flips leave. Returns the probe's output and the number of such
+    columns."""
     import torch
     from repro_torch.kernels.cim_read import ops
     k = store.shape[0]
@@ -361,6 +394,7 @@ def _identity_probe(name, store, w_ref, what, rows=None):
     outs, kernels = [], set()
     for i in range(0, k, rows or k):
         out, info = ops.cim_linear_store(eye[i:i + (rows or k)], store,
+                                         scalars=scalars, model=model,
                                          with_info=True)
         _check(info["used_kernel"], f"{name}: kernel route not taken")
         kernels.add(info["tiles"]["kernel"])
@@ -377,12 +411,14 @@ def _identity_probe(name, store, w_ref, what, rows=None):
     return out, int((~fin).sum())
 
 
-def _tile(x, store, scalars=None):
+def _tile(x, store, scalars=None, model=None):
     """The store's 16 x 64 x 64 tile kernel (K1's or K2's) at any M, through
     its binding: the geometry ``resolve_tiles`` gives a tile-sized read."""
     from repro_torch.kernels.cim_read import ops
+    if scalars is not None:
+        scalars = ops.model_scalars_of(scalars, model)
     return ops._kernel_call(x, store, scalars,
-                            ops.resolve_tiles(store, ops.BLOCK_M))
+                            ops.resolve_tiles(store, ops.BLOCK_M), model)
 
 
 def _narrow_gates(name, store, injected, probes: dict, scalars,
@@ -479,6 +515,110 @@ def phase_kernels(dev) -> dict:
     return results
 
 
+def _flip_counts(store, a, b) -> tuple:
+    """(bits flipped in image ``a``, bits flipped in ``a`` but not in
+    ``b``), both against the clean ``store``, over every plane."""
+    import torch
+    n_a = n_extra = 0
+    for name in ("man", "sign", "exp", "codewords"):
+        clean = getattr(store, name)
+        if clean is None:
+            continue
+        c = clean.to(torch.int64)
+        fa = (getattr(a, name).to(torch.int64) ^ c) & 0xFFFFFFFF
+        fb = (getattr(b, name).to(torch.int64) ^ c) & 0xFFFFFFFF
+        n_a += _popcount(fa)
+        n_extra += _popcount(fa & ~fb)
+    return n_a, n_extra
+
+
+def _popcount(words) -> int:
+    import torch
+    count = torch.zeros((), dtype=torch.int64, device=words.device)
+    for b in range(32):
+        count += ((words >> b) & 1).sum()
+    return int(count)
+
+
+def phase_models(dev, checks: dict) -> dict:
+    """K1 and K2 under each fault process of MODEL_SPECS at BER 1e-4 on the
+    full-width unembed, with the gates the i.i.d. read has: the dynamic
+    identity probe through the tile (M = K) and through the narrow kernel
+    (8-row slices) gives the weights of ``cim.inject_with_seeds(...,
+    model=)``'s image exactly, and equals the static kernel read of that
+    image bitwise; dense M = 4 within TOL of |x| @ |W| of the plain version
+    and bitwise equal to the static read of the image; the narrow kernel
+    against the tile at M = 1, 3, 4 and 8; the image's flips a strict
+    subset of the i.i.d. ones at the same seeds. Returns the largest dense
+    difference per kernel."""
+    import torch
+    from repro_torch.core import cim
+    from repro_torch.core import faultmodels as fm
+    from repro_torch.kernels.cim_read import ops, ref
+    from repro_torch.kernels.fault_inject.ops import ber_to_threshold
+    seeds = {"man": 0x1234567, "meta": 0x89ABCDE, "cw": 0x2468ACE}
+    thr = ber_to_threshold(MODEL_BER)
+    g = torch.Generator(device=dev).manual_seed(8)
+    xs = {m: torch.randn((m, K), generator=g, device=dev) for m in (1, 3, 4, 8)}
+    worst = {}
+    for name in PROTECT_OF:
+        store = checks[name]["store"]
+        iid_img = cim.inject_with_seeds(store, seeds, thr, thr)
+        n_iid, _ = _flip_counts(store, iid_img, iid_img)
+        worst[name] = 0.0
+        for spec in MODEL_SPECS:
+            model = fm.parse_fault_model(spec)
+            sc = ops.make_scalars(seeds, thr, thr, model=model)
+            injected = cim.inject_with_seeds(store, seeds, thr, thr,
+                                             model=model)
+            n_model, extra = _flip_counts(store, injected, iid_img)
+            _check(extra == 0 and 0 < n_model < n_iid,
+                   f"{name} {spec}: {n_model} flips ({extra} outside the "
+                   f"i.i.d. set of {n_iid})")
+            w_inj, _ = cim.read(injected)
+            tile, bad = _identity_probe(name, store, w_inj, spec, scalars=sc,
+                                        model=model)
+            static, _ = _identity_probe(name, injected, w_inj, spec)
+            fin = torch.isfinite(w_inj).all(0)
+            _check(_same_bits(tile[:, fin], static[:, fin]),
+                   f"{name} {spec}: dynamic probe != static read of the "
+                   f"injected image")
+            del tile, static
+            narrow, _ = _identity_probe(name, store, w_inj, spec, rows=8,
+                                        scalars=sc, model=model)
+            del narrow
+            x = xs[BATCH]
+            got, info = ops.cim_linear_store(x, store, scalars=sc, model=model,
+                                             with_info=True)
+            _check(info["tiles"]["kernel"] == "narrow",
+                   f"{name} {spec}: M = {BATCH} took {info['tiles']}")
+            _check(_same_bits(got, ops.cim_linear_store(x, injected)),
+                   f"{name} {spec}: dynamic != static read of the image")
+            plain, _ = ref.cim_read_ref(x, store, ops.model_scalars_of(
+                sc, model), model)
+            scale = x.abs() @ w_inj.abs()
+            ok, dense_err = _close(got, plain, scale)
+            _check(ok, f"{name} {spec}: dense vs plain max err "
+                   f"{dense_err:.3e}")
+            worst[name] = max(worst[name], dense_err)
+            for m, xm in xs.items():
+                a = ops.cim_linear_store(xm, store, scalars=sc, model=model)
+                ok, err = _close(a, _tile(xm, store, sc, model),
+                                 xm.abs() @ w_inj.abs())
+                _check(ok, f"{name} {spec}: narrow vs tile at M = {m} (max "
+                       f"err {err:.3e})")
+            del w_inj, scale, injected
+            torch.cuda.synchronize()
+            print(f"phase 2: {name} under {spec} at BER {MODEL_BER:g}: "
+                  f"{n_model} of the i.i.d. read's {n_iid} flips (a subset); "
+                  f"dynamic identity probe exact through the tile (M = {K}) "
+                  f"and the narrow kernel (8-row slices), equal to the static "
+                  f"read of the injected image ({bad} non-finite columns); "
+                  f"dense M = {BATCH} vs plain max err {dense_err:.3e}; narrow vs "
+                  f"tile at M = 1/3/4/8 within tolerance")
+    return worst
+
+
 ARMS = (  # (label, serve_path, protect, inject, ber)
     ("a fused one4n dynamic", "fused", "one4n", "dynamic", 1e-4),
     ("b fused none dynamic", "fused", "none", "dynamic", 1e-4),
@@ -556,6 +696,26 @@ def phase_serve(model, kernel_lib) -> dict:
                           rtol=TOL, atol=TOL), "clean fused vs hbm logits")
     print(f"phase 3: main-path launches {launches}, through the kernels "
           f"{variants} (info['tiles']); clean fused == hbm tokens")
+    for spec in SERVE_MODELS:
+        for name, (label, _, protect, inject, ber) in zip(
+                ("cim_read_matmul_one4n", "cim_read_matmul_raw"), ARMS[:2]):
+            kernel_lib.reset_launch_counts()
+            res, kernels = _kernels_of(lambda: serve_lib.serve(
+                model, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0,
+                cim=True, ber=ber, protect=protect, serve_path="fused",
+                inject=inject, fault_model=spec, verbose=False))
+            counts = dict(kernel_lib.launch_counts)
+            _check(counts == res["launches"] and counts[name] == GEN,
+                   f"arm {label} under {spec}: launches {counts}")
+            _check(kernels == ["narrow"] * GEN, f"arm {label} under {spec}: "
+                   f"reads went through {kernels}")
+            _check(res["tokens"].shape == (BATCH, GEN) and
+                   ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab_size))
+                   .all(), f"arm {label} under {spec}: tokens out of range")
+            print(f"phase 3: arm {label} --fault-model {spec}: "
+                  f"{res['tok_per_s']:.1f} tok/s, prefill "
+                  f"{res['prefill_s'] * 1e3:.1f} ms, {counts[name]} reads, "
+                  f"all narrow")
     return launches
 
 
@@ -632,6 +792,41 @@ def phase_fault_inject(dev, checks: dict, fi_kernel) -> dict:
         ops.fault_inject_bits_batched(ragged, seeds, 0, positions=range(16)),
         ragged[None].expand(4, -1, -1))), "threshold 0 flipped a bit")
 
+    # K3 under each fault process: the Fig. 6 unembed mantissa plane and the
+    # flattened codeword plane, whose column unit is S*W words
+    one4n = checks["cim_read_matmul_one4n"]["store"]
+    cw = one4n.codewords
+    for spec in MODEL_SPECS:
+        for name, plane, pos, col_div in (
+                ("one4n man", one4n.man, range(10), 1),
+                ("one4n codewords", _cw2d(one4n), range(32),
+                 cw.shape[2] * cw.shape[3])):
+            got = ops.fault_inject_bits_batched(plane, seeds, thr,
+                                                positions=pos, model=spec,
+                                                col_div=col_div)
+            want = _plain_k3(plane, seeds, thr, pos, spec, col_div)
+            torch.cuda.synchronize()
+            err["K3"] = max(err["K3"], _word_err(got, want))
+            _check(torch.equal(got, want), f"K3 under {spec} != plain on the "
+                   f"{name} plane")
+            del want
+            iid = ops.fault_inject_bits_batched(plane, seeds, thr,
+                                                positions=pos)
+            f_model = (got.to(torch.int64) ^ plane[None].to(torch.int64)) \
+                & 0xFFFFFFFF
+            f_iid = (iid.to(torch.int64) ^ plane[None].to(torch.int64)) \
+                & 0xFFFFFFFF
+            n_model, n_iid = _popcount(f_model), _popcount(f_iid)
+            extra = _popcount(f_model & ~f_iid)
+            _check(extra == 0 and 0 < n_model < n_iid,
+                   f"K3 under {spec} on {name}: {n_model} flips, {extra} "
+                   f"outside the i.i.d. set of {n_iid}")
+            del got, iid, f_model, f_iid
+            print(f"phase 4: K3 under {spec} on the {name} plane "
+                  f"{tuple(plane.shape)} (col_div {col_div}) T=4: bitwise "
+                  f"equal to plain; {n_model} of the i.i.d. {n_iid} bits "
+                  f"flipped, a subset")
+
     # K4's main path: the fault_inject_fp16 entry point on the unembed
     w = checks["unembed_weights"]
     fi_kernel.reset_launch_counts()
@@ -665,6 +860,20 @@ def phase_fault_inject(dev, checks: dict, fi_kernel) -> dict:
     return {"k4_launches": k4_launches, "max_abs_err": err}
 
 
+def _plain_k3(plane, seeds, thr, positions, spec, col_div=1):
+    """K3's plain version under the fault process ``spec`` (drift pre-scaled
+    by its static tick, as the entry point does)."""
+    from repro_torch.core import faultmodels as fm
+    from repro_torch.kernels.fault_inject import ref
+    model = fm.parse_fault_model(spec)
+    m_thr, m_len = fm.model_scalars(model)
+    return ref.fault_inject_batched_ref(
+        plane, seeds, fm.compiled_threshold(model, thr),
+        positions=tuple(positions), m_thr=m_thr, m_len=m_len,
+        model_kind=model.kind if model else "iid",
+        model_axis=model.axis if model else "row", col_div=col_div)
+
+
 def _word_err(a, b) -> float:
     """Largest |a - b| over the words, as unsigned integers."""
     import torch
@@ -675,11 +884,8 @@ def _word_err(a, b) -> float:
 def _flipped_bits(got, plane) -> int:
     """Bits that differ between ``got`` [T, ...] and ``plane``."""
     import torch
-    diff = (got.to(torch.int64) ^ plane[None].to(torch.int64)) & 0xFFFFFFFF
-    count = torch.zeros((), dtype=torch.int64, device=got.device)
-    for b in range(32):
-        count += ((diff >> b) & 1).sum()
-    return int(count)
+    return _popcount((got.to(torch.int64) ^ plane[None].to(torch.int64))
+                     & 0xFFFFFFFF)
 
 
 def phase_fig6(dev, model, fi_kernel) -> dict:
@@ -690,7 +896,6 @@ def phase_fig6(dev, model, fi_kernel) -> dict:
     from repro_torch.core import cim, resilience
     from repro_torch.core import sweep as sweep_lib
     from repro_torch.data.synthetic import MarkovLM
-    from repro_torch.kernels.fault_inject import ref
     from repro_torch.models import lm
     cfg = model.cfg
     params = convert.flat_from_lm(model)
@@ -744,6 +949,42 @@ def phase_fig6(dev, model, fi_kernel) -> dict:
     _check(res["one4n"]["rows"][-1].corrected > 0,
            "Fig. 6: one4n corrected nothing at 1e-3")
 
+    # the fault_models axis: one4n under i.i.d. and burst in one plan; its
+    # i.i.d. arm takes the default plan's one4n seeds and must give its
+    # rows value for value
+    a = FIG6_PROTECTS.index("one4n")
+    mseeds = np.concatenate([seeds[a:a + 1], sweep_lib.default_seeds(
+        7, 1, len(FIG6_BERS), FIG6_TRIALS)])
+    fi_kernel.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mrows = resilience.characterize_protection(
+        mseeds, params, agreement, FIG6_BERS, cim_cfg=cim_cfg,
+        n_trials=FIG6_TRIALS, protects=("one4n",), fault_models=FIG6_MODELS,
+        device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    m_launches = fi_kernel.launch_counts[fi_kernel.K3]
+    want = len(FIG6_MODELS) * 2 * FIG6_PLANES["one4n"] * len(FIG6_BERS)
+    _check(m_launches == want, f"Fig. 6 fault_models: {m_launches} K3 "
+           f"launches, expected {want}")
+    iid_rows = [r for r in mrows if r.fault_model == "iid"]
+    for r, base in zip(iid_rows, res["one4n"]["rows"]):
+        _check(r.accuracies == base.accuracies and
+               (r.corrected, r.uncorrectable) ==
+               (base.corrected, base.uncorrectable),
+               f"Fig. 6 fault_models: the iid arm at {r.ber:.0e} gives "
+               f"{r.accuracies}, the default plan {base.accuracies}")
+    for r in mrows:
+        _check(all(0.0 <= x <= 1.0 for x in r.accuracies),
+               f"Fig. 6 {r.fault_model}: agreement out of range")
+        print(f"phase 5: fig6 one4n {r.fault_model} ber {r.ber:.0e}: "
+              f"agreement {r.mean:.4f} +- {r.std:.4f}, corrected "
+              f"{r.corrected:.1f}, uncorrectable {r.uncorrectable:.1f}")
+    print(f"phase 5: fig6 one4n fault_models {FIG6_MODELS}: {secs:.2f} s, "
+          f"{m_launches} K3 launches; the iid arm equals the default plan's "
+          f"rows value for value")
+
     # cells again with the plain injection on the card: every trial at 1e-5,
     # where agreement varies between trials, and trial 0 at 1e-3, where the
     # ECC counts are largest
@@ -751,9 +992,8 @@ def phase_fig6(dev, model, fi_kernel) -> dict:
     stores, _ = cim.deploy_pytree_impl(params, cim.CIMConfig(
         n_group=8, index=2, protect="one4n"))
 
-    def plain(bits, seeds_, threshold, positions, model=None):
-        return ref.fault_inject_batched_ref(bits, seeds_, threshold,
-                                            positions=tuple(positions))
+    def plain(bits, seeds_, threshold, positions, model=None, col_div=1):
+        return _plain_k3(bits, seeds_, threshold, positions, model, col_div)
     for b, n_redo in ((0, FIG6_TRIALS), (len(FIG6_BERS) - 1, 1)):
         row = res["one4n"]["rows"][b]
         thr = sweep_lib.fi_ops.ber_to_threshold(FIG6_BERS[b])
@@ -936,6 +1176,9 @@ def phase_fi_times(dev, checks: dict, k3_launches: int, fi: dict,
                      "bound_ms": max(bytes_ms, ops_ms),
                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                      "library_ms": None, "bytes": nbytes, "hashes": hashes})
+        if t > 1:
+            rows[-1]["models"] = _k3_model_times(man, seeds, thr, pos, nbytes,
+                                                 hashes, ms, card)
         print(f"phase 7: {name}: {ms:.4f} ms at [{K}, {J}] uint16, T={t}, "
               f"{len(pos)} positions; plain {plain_ms:.2f} ms; bound "
               f"{max(bytes_ms, ops_ms):.4f} ms (ALU pipe {alu_ms:.4f} ms, "
@@ -945,16 +1188,72 @@ def phase_fi_times(dev, checks: dict, k3_launches: int, fi: dict,
     return rows
 
 
-def _draws(store) -> int:
+def _k3_model_times(man, seeds, thr, positions, nbytes, hashes, iid_ms,
+                    card) -> dict:
+    """K3 on the unembed mantissa plane under each fault process: its time
+    beside the i.i.d. one, the draws it performs (burst: only in hit units,
+    counted per trial from the plane thresholds) and their bound."""
+    import torch
+    from repro_torch.core import faultmodels as fm
+    from repro_torch.kernels.fault_inject import ops
+    out = {}
+    elem = torch.arange(man.numel(), dtype=torch.int64,
+                        device=man.device).reshape(man.shape)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    for spec in MODEL_SPECS:
+        model = fm.parse_fault_model(spec)
+        ms = _time_ms(lambda: ops.fault_inject_bits_batched(
+            man, seeds, thr, positions=positions, model=model))
+        draws = hashes
+        if model.kind == "burst":
+            draws = sum(int((fm.plane_thresholds(model, thr, elem, int(sd),
+                                                 man.shape) != 0).sum())
+                        for sd in seeds) * len(positions)
+        alu_ms = draws * ALU_OPS_PER_DRAW / INT32_OPS * 1e3
+        out[spec] = {"ms": ms, "draws": draws,
+                     "bound_ms": max(bytes_ms, alu_ms),
+                     "bound_by": "bytes" if bytes_ms >= alu_ms
+                     else "operations"}
+        print(f"phase 7: fault_inject_batched under {spec}: {ms:.4f} ms "
+              f"({ms / iid_ms:.3f}x the i.i.d. call), {draws / 1e9:.3f} G "
+              f"draws ({draws / hashes:.3f}x), bound "
+              f"{max(bytes_ms, alu_ms):.4f} ms on {card}")
+    return out
+
+
+def _draws(store, seeds=None, thr=None, model=None) -> int:
     """Counter-PRNG draws of one dynamic read of the whole store: one per
     stored cell the read XORs a flip into (mantissa lanes, codeword lanes,
-    or exponent and sign lanes), from the store's own geometry."""
+    or exponent and sign lanes), from the store's own geometry. Under a
+    fault ``model`` only the words whose compiled threshold is nonzero draw
+    (a burst read draws in its hit units alone): those are counted from the
+    plane thresholds of ``seeds`` and ``thr``."""
+    import torch
+    from repro_torch.core import cim
+    from repro_torch.core import faultmodels as fm
     cfg = store.cfg
     k_pad, j_pad = store.man.shape
-    draws = k_pad * j_pad * cfg.fmt.man_bits
+
+    def live(plane, seed):
+        """Words of ``plane`` that draw under the model."""
+        if model is None or model.kind != "burst":
+            return torch.ones(plane.shape, dtype=torch.bool,
+                              device=plane.device)
+        elem = torch.arange(plane.numel(), dtype=torch.int64,
+                            device=plane.device).reshape(plane.shape)
+        return fm.plane_thresholds(model, thr, elem, seed, plane.shape) != 0
+    draws = int(live(store.man, (seeds or {}).get("man")).sum()) \
+        * cfg.fmt.man_bits
     if cfg.protect == "one4n":
-        return draws + store.codewords[..., 0].numel() * cfg.codec.code.n
-    return draws + store.exp.numel() * cfg.fmt.exp_bits + k_pad * j_pad
+        lanes = torch.as_tensor([bin(int(w)).count("1") for w in
+                                 cim.codeword_valid_masks(cfg)],
+                                device=store.man.device)
+        cw_live = live(store.codewords, (seeds or {}).get("cw"))
+        return draws + int((cw_live * lanes).sum())
+    exp_draws = int(live(store.exp, (seeds or {}).get("meta")).sum()) \
+        * cfg.fmt.exp_bits
+    sign_draws = int(live(store.sign, (seeds or {}).get("cw")).sum()) * 32
+    return draws + exp_draws + sign_draws
 
 
 def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
@@ -964,10 +1263,12 @@ def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
     larger of the bytes and the ALU pipe's draws (``_draws``)."""
     import torch
     from repro_torch.core import cim
+    from repro_torch.core import faultmodels as fm
     from repro_torch.kernels.cim_read import ops, ref
     from repro_torch.kernels.fault_inject.ops import ber_to_threshold
-    thr = ber_to_threshold(1e-4)
-    scalars = ops.make_scalars({"man": 7, "meta": 8, "cw": 9}, thr, thr)
+    thr = ber_to_threshold(MODEL_BER)
+    seeds = {"man": 7, "meta": 8, "cw": 9}
+    scalars = ops.make_scalars(seeds, thr, thr)
     x = torch.randn((BATCH, K), device=dev)
     rows = []
     for name, chk in checks.items():
@@ -991,6 +1292,7 @@ def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "library_ms": library_ms, "static_ms": ms_static,
+               "max_abs_err_models": chk["max_abs_err_models"],
                "dynamic_bound_ms": max(bytes_ms, hash_ms),
                "dynamic_bound_by": "bytes" if bytes_ms >= hash_ms
                else "operations", "draws": draws, "bytes": nbytes,
@@ -999,6 +1301,23 @@ def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
         row["tile_static_ms"] = _time_ms(lambda: _tile(x, store))
         tile = (f"; tile kernel at M = {BATCH}: {row['tile_ms']:.4f} ms "
                 f"dynamic, {row['tile_static_ms']:.4f} ms static")
+        row["models"] = {}
+        for spec in MODEL_SPECS:
+            model = fm.parse_fault_model(spec)
+            sc = ops.make_scalars(seeds, thr, thr, model=model)
+            m_ms = _time_ms(lambda: ops.cim_linear_store(
+                x, store, scalars=sc, model=model))
+            m_draws = _draws(store, seeds, thr, model)
+            m_hash_ms = m_draws * ALU_OPS_PER_DRAW / INT32_OPS * 1e3
+            row["models"][spec] = {
+                "ms": m_ms, "draws": m_draws,
+                "bound_ms": max(bytes_ms, m_hash_ms),
+                "bound_by": "bytes" if bytes_ms >= m_hash_ms
+                else "operations"}
+            print(f"phase 7: {name} narrow under {spec}: {m_ms:.4f} ms "
+                  f"dynamic ({m_ms / ms:.3f}x the i.i.d. read), "
+                  f"{m_draws / 1e9:.3f} G draws ({m_draws / draws:.3f}x), "
+                  f"bound {max(bytes_ms, m_hash_ms):.4f} ms on {card}")
         rows.append(row)
         print(f"phase 7: {name} ({row['variant']} kernel): {ms:.4f} ms "
               f"dynamic, {ms_static:.4f} ms static{tile}; plain "
@@ -1353,6 +1672,8 @@ def main() -> int:
     phase_sass(fi_kernel.LIBRARY.build())
     phase_k5_sass(bfp_kernel.LIBRARY.build())
     checks = phase_kernels(dev)
+    for name, err in phase_models(dev, checks).items():
+        checks[name]["max_abs_err_models"] = err
     model = LM(get_config("olmo-1b"),
                generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     launches = phase_serve(model, kernel_lib)

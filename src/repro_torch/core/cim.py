@@ -176,10 +176,13 @@ def _flip_gathered(words: torch.Tensor, elem: torch.Tensor, seed: int,
     """Counter-PRNG flips of ``words`` at flat store indices ``elem``.
 
     ``valid`` is a lane mask: an int or numpy array (only its set lanes are
-    drawn) or a tensor (all 32 lanes drawn, then masked)."""
-    threshold = int(threshold)
-    if threshold == 0:
-        return words
+    drawn) or a tensor (all 32 lanes drawn, then masked). ``threshold`` is
+    an int or an int64 tensor of per-element thresholds (a compiled fault
+    process, :func:`faultmodels.plane_thresholds`)."""
+    if not isinstance(threshold, torch.Tensor):
+        threshold = int(threshold)
+        if threshold == 0:
+            return words
     if isinstance(valid, torch.Tensor):
         union = M32
         vmask = valid.to(torch.int64)

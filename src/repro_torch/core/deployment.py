@@ -201,12 +201,17 @@ class CIMDeployment:
 
     def runtime(self, seeds: dict, ber, field: str = "full", model=None) -> dict:
         """Per-read dynamic-injection runtime: base plane seeds plus the
-        per-cell-class thresholds."""
+        per-cell-class thresholds. A non-i.i.d. ``model`` (process or
+        grammar string) rides along under ``"model"``; serving reads compile
+        it to per-element thresholds, drift keyed on the read position."""
         check_enum("field", field, VALID_FIELDS, "CIMDeployment.runtime")
-        fm_lib.check_iid(model)
         thr_man, thr_meta = cim_lib.field_thresholds(ber, field)
-        return {"seeds": {k: int(v) for k, v in seeds.items()},
-                "thr_man": thr_man, "thr_meta": thr_meta}
+        rt = {"seeds": {k: int(v) for k, v in seeds.items()},
+              "thr_man": thr_man, "thr_meta": thr_meta}
+        model = fm_lib.parse_fault_model(model)
+        if model is not None and model.kind != "iid":
+            rt["model"] = model
+        return rt
 
     # ------------------------------------------------------------ read paths
 
@@ -252,7 +257,9 @@ class CIMDeployment:
         """``x [..., K] @ leaf(path) -> [..., J]``, route auto-dispatched
         (:func:`dispatch_linear`; ``serve_path='hbm'`` decodes once).
         ``request=(req_salt, pos)`` with a ``runtime`` derives the per-read
-        dynamic-injection scalars of that read."""
+        dynamic-injection scalars of that read, under the runtime's fault
+        process: a drift model's tick is the read position ``pos``, folded
+        into the thresholds here, and the model handed on carries tick 0."""
         from repro_torch.kernels.cim_read import ops as cr_ops
         if request is not None:
             if scalars is not None:
@@ -264,8 +271,9 @@ class CIMDeployment:
             req_salt, pos = request
             seeds = request_read_seeds(runtime["seeds"], leaf_salt(path),
                                        req_salt, pos)
-            scalars = cr_ops.make_scalars(seeds, runtime["thr_man"],
-                                          runtime["thr_meta"])
+            thr_man, thr_meta, model = read_thresholds(runtime, pos)
+            scalars = cr_ops.make_scalars(seeds, thr_man, thr_meta,
+                                          model=model)
         leaf, rule = self._leaf(path)
         if not _is_store(leaf):
             if scalars is not None:
@@ -351,6 +359,19 @@ def leaf_salt(path: str) -> int:
 def request_salt(request_id: int) -> int:
     """uint32 counter-PRNG salt of a serving request id."""
     return cim_lib.fold_seed(_REQUEST_SALT_CONST, request_id)
+
+
+def read_thresholds(runtime: dict, pos: int):
+    """``(thr_man, thr_meta, model)`` of the read at position ``pos`` under
+    a dynamic runtime: drift keys its tick on ``pos`` and the thresholds
+    absorb that time scaling, so the model handed downstream carries tick 0
+    (no double scaling); other processes pass through."""
+    model = runtime.get("model")
+    thr_man = fm_lib.compiled_threshold(model, runtime["thr_man"], tick=pos)
+    thr_meta = fm_lib.compiled_threshold(model, runtime["thr_meta"], tick=pos)
+    if model is not None and model.kind == "drift":
+        model = dataclasses.replace(model, tick=0)
+    return thr_man, thr_meta, model
 
 
 def request_read_seeds(seeds: dict, leaf_salt_: int, req_salt, pos) -> dict:

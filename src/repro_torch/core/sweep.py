@@ -12,6 +12,10 @@ How it differs from the reference's engine:
   K3 on ``cuda``, its plain version only for ``device="cpu"``; the
   reference's ``xla`` backend draws ``jax.random.bernoulli`` streams and
   raises here (ROADMAP Queue 1 item 8);
+* every ``fault_models`` arm runs on that route: burst and correlated
+  thresholds are computed per element inside K3 (the reference, too, sends
+  a non-i.i.d. Fig. 2 arm through its batched kernel whatever the engine's
+  backend);
 * trial randomness is explicit: each arm takes a uint32 ``[B, T]`` seed
   array, in the order the reference's ``_trial_randomness`` consumes keys
   (arms in plan order, one ``jax.random.bits(sub, (B, T), uint32)`` each);
@@ -119,9 +123,10 @@ def _arm_model(spec) -> Optional[fm_lib.FaultProcess]:
     return None if model is not None and model.kind == "iid" else model
 
 
-def _inject(bits, seeds, threshold, positions, model=None):
+def _inject(bits, seeds, threshold, positions, model=None, col_div=1):
     return fi_ops.fault_inject_bits_batched(
-        bits, seeds, threshold, positions=tuple(positions), model=model)
+        bits, seeds, threshold, positions=tuple(positions), model=model,
+        col_div=col_div)
 
 
 def inject_pytree_batched(params: Mapping, seeds, threshold: int, field: str,
@@ -180,8 +185,10 @@ def _store_inject_batched(store: cim_lib.CIMStore, seeds, threshold: int,
                          model)
         else:
             cw2d = cw_arr.reshape(cw_arr.shape[0], -1)     # [B, G*S*W]
+            # macro-column units of the flattened plane are S*W words wide
+            # (the geometry faultmodels.plane_geometry derives from 4-D)
             flipped = _inject(cw2d, _salted(seeds, 102), threshold, range(32),
-                              model)
+                              model, col_div=cw_arr.shape[2] * cw_arr.shape[3])
             valid = _valid_words(np.tile(masks, cw2d.shape[1] // masks.size),
                                  dev)
             flipped = (flipped & valid) | (cw2d[None] & ~valid)

@@ -66,6 +66,19 @@
 //    flipped in registers. Every draw has its lanes fixed at compile time
 //    (0x3FF, 0x1F, all 32 then AND the valid lanes), so all of them unroll.
 //
+// Fault processes (flip.cuh, repro/core/faultmodels.py): a dynamic read
+// under burst or correlated scales each word's threshold, from its row and
+// macro-column unit in its own plane (mantissas and K2's exponent bytes and
+// sign words: row and column of the 2-D plane; codewords: block row and
+// row_weights group) and one hash of that unit, keyed by the plane seed.
+// The narrow kernels take the kind as a template parameter, so the i.i.d.
+// instantiations keep their code: a thread finds its 8 columns' correlated
+// thresholds or burst units once a kernel and its rows' burst hits once a
+// row unit, a codeword thread one threshold a codeword, K2's meta flips one
+// a word. A burst thread draws only in hit units, but its warp runs the
+// draws of any hit lane. The tile kernels branch on the kind at run time.
+// Drift comes pre-scaled in the thresholds and runs the i.i.d. code.
+//
 // The tile kernels (M > 8): a fixed 16 x 64 x 64 tile, 256
 // threads, each block streaming its [64 x 64] mantissa tile and the
 // codeword / exponent / sign words covering it into registers and shared
@@ -106,6 +119,19 @@ struct One4NGeo {
 
 struct Fmt { int man_bits, exp_bits, bias; };
 
+// The fault process of a dynamic read (flip.cuh): kind and axis from the
+// launch, parameters from the scalars. The tile kernels branch on `kind` at
+// run time (a uniform branch); the narrow kernels take it as a template
+// parameter, so their i.i.d. instantiations keep their code.
+struct ReadModel {
+  int kind, axis;
+  uint32_t m_thr, m_len;
+  __device__ __forceinline__ uint32_t thr(uint32_t row, uint32_t col, uint32_t useed,
+                                          uint32_t thr_) const {
+    return model_threshold(kind, axis, row, col, useed, m_thr, m_len, thr_);
+  }
+};
+
 // IEEE-faithful fp16-grid rebuild (subnormals, inf, NaN), the scale built in
 // the float32 exponent field rather than with exp2f.
 __device__ __forceinline__ float reconstruct(uint32_t sign, uint32_t e,
@@ -139,7 +165,8 @@ __device__ __forceinline__ void load_man(uint32_t mv[16], const uint16_t* __rest
                                          int k0, int c0, int k_pad, int j_pad,
                                          int dynamic, uint32_t thr, uint32_t seed_mul,
                                          uint32_t off_k, uint32_t off_j,
-                                         uint32_t store_j, uint32_t lanes) {
+                                         uint32_t store_j, uint32_t lanes,
+                                         const ReadModel& md, uint32_t useed) {
   const int kk = threadIdx.x >> 2, cs = (threadIdx.x & 3) * 16;
   const int gk = k0 + kk, gc = c0 + cs;
   if (gk < k_pad && gc < j_pad) {
@@ -152,10 +179,12 @@ __device__ __forceinline__ void load_man(uint32_t mv[16], const uint16_t* __rest
       mv[2 * q + 1] = w[q] >> 16;
     }
     if (dynamic && thr) {
-      const uint32_t row = ((uint32_t)gk + off_k) * store_j;
+      const uint32_t grow = (uint32_t)gk + off_k, row = grow * store_j;
 #pragma unroll
-      for (int q = 0; q < 16; ++q)
-        mv[q] ^= flip_mask(row + (uint32_t)(gc + q) + off_j, seed_mul, thr, lanes);
+      for (int q = 0; q < 16; ++q) {
+        const uint32_t gcol = (uint32_t)(gc + q) + off_j;
+        mv[q] ^= flip_mask(row + gcol, seed_mul, md.thr(grow, gcol, useed, thr), lanes);
+      }
     }
   } else {
 #pragma unroll
@@ -191,7 +220,7 @@ __global__ void __launch_bounds__(NT) cim_read_one4n_kernel(
     const float* __restrict__ x, const uint16_t* __restrict__ man,
     const uint32_t* __restrict__ cw, float* __restrict__ out, int M, int K_log,
     int k_pad, int j_pad, int n_out, One4NGeo geo, Fmt fmt, Scalars sc,
-    int dynamic, uint32_t store_g, uint32_t store_j) {
+    int dynamic, uint32_t store_g, uint32_t store_j, ReadModel md) {
   __shared__ float x_s[BM][BK];
   __shared__ float w_s[BK][BN];
   __shared__ uint32_t cw_s[MAX_CW_WORDS];
@@ -232,6 +261,8 @@ __global__ void __launch_bounds__(NT) cim_read_one4n_kernel(
   const uint32_t seed_man = sc.v[SEED_MAN] * GOLD, seed_cw = sc.v[SEED_CW] * GOLD;
   const uint32_t off_k = sc.v[OFF_K], off_j = sc.v[OFF_J];
   const uint32_t man_lanes = (1u << fmt.man_bits) - 1u;
+  const uint32_t useed_man = md.kind ? unit_seed_mul(sc.v[SEED_MAN]) : 0u;
+  const uint32_t useed_cw = md.kind ? unit_seed_mul(sc.v[SEED_CW]) : 0u;
   const int kk_t = tid >> 2, cs_t = (tid & 3) * 16;
   float acc[ROWS_PER_THREAD];
 #pragma unroll
@@ -242,7 +273,7 @@ __global__ void __launch_bounds__(NT) cim_read_one4n_kernel(
     __syncthreads();  // tables ready; previous chunk's tiles consumed
     load_x(x_s, x, m0, k0, M, K_log);
     load_man(mv, man, k0, c0, k_pad, j_pad, dynamic, thr_man, seed_man, off_k,
-             off_j, store_j, man_lanes);
+             off_j, store_j, man_lanes, md, useed_man);
     const int b0 = k0 / n;
     const int nb = min(bpc, (k_pad - k0) / n);
     const int ng = min(gpt, (j_pad - c0) / rw);
@@ -253,9 +284,11 @@ __global__ void __launch_bounds__(NT) cim_read_one4n_kernel(
         const uint32_t gb = (uint32_t)(b0 + bl), gg = (uint32_t)(c0 / rw + gl);
         v = cw[((size_t)gb * g_local + gg) * SW + sw];
         if (dynamic) {
-          const uint32_t celem = ((gb + off_k / (uint32_t)n) * store_g + gg
-                                  + off_j / (uint32_t)rw) * (uint32_t)SW + (uint32_t)sw;
-          v ^= flip_mask(celem, seed_cw, thr_meta, geo.code_mask[sw % W]);
+          // codeword plane: row = block row, column unit = row_weights group
+          const uint32_t crow = gb + off_k / (uint32_t)n, cgrp = gg + off_j / (uint32_t)rw;
+          const uint32_t celem = (crow * store_g + cgrp) * (uint32_t)SW + (uint32_t)sw;
+          v ^= flip_mask(celem, seed_cw, md.thr(crow, cgrp, useed_cw, thr_meta),
+                         geo.code_mask[sw % W]);
         }
       }
       cw_s[i] = v;
@@ -318,7 +351,7 @@ __global__ void __launch_bounds__(NT) cim_read_raw_kernel(
     const uint8_t* __restrict__ expw, const uint32_t* __restrict__ signw,
     float* __restrict__ out, int M, int K_log, int k_pad, int j_pad, int n_out,
     int sw_rows, int n_group, Fmt fmt, Scalars sc, int dynamic,
-    uint32_t store_k, uint32_t store_j) {
+    uint32_t store_k, uint32_t store_j, ReadModel md) {
   __shared__ float x_s[BM][BK];
   __shared__ float w_s[BK][BN];
   __shared__ uint8_t e_s[BK][BN];
@@ -333,6 +366,9 @@ __global__ void __launch_bounds__(NT) cim_read_raw_kernel(
   const uint32_t off_k = sc.v[OFF_K], off_j = sc.v[OFF_J];
   const uint32_t man_lanes = (1u << fmt.man_bits) - 1u;
   const uint32_t exp_lanes = (1u << fmt.exp_bits) - 1u;
+  const uint32_t useed_man = md.kind ? unit_seed_mul(sc.v[SEED_MAN]) : 0u;
+  const uint32_t useed_meta = md.kind ? unit_seed_mul(sc.v[SEED_META]) : 0u;
+  const uint32_t useed_sign = md.kind ? unit_seed_mul(sc.v[SEED_CW]) : 0u;
   const int kk_t = tid >> 2, cs_t = (tid & 3) * 16;
   float acc[ROWS_PER_THREAD];
 #pragma unroll
@@ -343,7 +379,7 @@ __global__ void __launch_bounds__(NT) cim_read_raw_kernel(
     __syncthreads();
     load_x(x_s, x, m0, k0, M, K_log);
     load_man(mv, man, k0, c0, k_pad, j_pad, dynamic, thr_man, seed_man, off_k,
-             off_j, store_j, man_lanes);
+             off_j, store_j, man_lanes, md, useed_man);
     const int b0 = k0 / n, nb = min(bpc, (k_pad - k0) / n);
     for (int i = tid; i < bpc * BN; i += NT) {
       const int bl = i / BN, gc = c0 + i % BN;
@@ -351,9 +387,11 @@ __global__ void __launch_bounds__(NT) cim_read_raw_kernel(
       if (bl < nb && gc < j_pad) {
         const uint32_t gb = (uint32_t)(b0 + bl);
         e = expw[(size_t)gb * j_pad + gc];
-        if (dynamic)
-          e ^= flip_mask((gb + off_k / (uint32_t)n) * store_j + (uint32_t)gc + off_j,
-                         seed_meta, thr_meta, exp_lanes);
+        if (dynamic) {
+          const uint32_t erow = gb + off_k / (uint32_t)n, ecol = (uint32_t)gc + off_j;
+          e ^= flip_mask(erow * store_j + ecol, seed_meta,
+                         md.thr(erow, ecol, useed_meta, thr_meta), exp_lanes);
+        }
       }
       e_s[bl][i % BN] = (uint8_t)e;
     }
@@ -369,8 +407,9 @@ __global__ void __launch_bounds__(NT) cim_read_raw_kernel(
           const uint64_t first = (uint64_t)grow * 32u;
           const uint64_t valid = first >= store_k ? 0u : store_k - first;
           const uint32_t lanes = (uint32_t)((1ull << (valid < 32u ? valid : 32u)) - 1ull);
-          v ^= flip_mask(grow * store_j + (uint32_t)gc + off_j, seed_sign, thr_meta,
-                         lanes);
+          const uint32_t scol = (uint32_t)gc + off_j;
+          v ^= flip_mask(grow * store_j + scol, seed_sign,
+                         md.thr(grow, scol, useed_sign, thr_meta), lanes);
         }
       }
       s_s[wl][i % BN] = v;
@@ -528,15 +567,86 @@ __device__ __forceinline__ void or_at(uint32_t (&d)[MAX_W], uint32_t v, int pos)
   if (sh && q + 1 < MAX_W) d[q + 1] |= v >> (32 - sh);
 }
 
+// The mantissa thresholds of a narrow thread's 8 columns [cg, cg + 8)
+// (global store columns) under a fault process of kind KIND; for the i.i.d.
+// kind every member folds away. Correlated: each column's threshold, once a
+// kernel. Burst: each column's unit (col, bank) and the live-column mask of
+// the current row (bit q: column q draws), found once a kernel (col axis)
+// or once a row unit (row, bank axes): one hash a unit, never one a draw.
+template <int KIND>
+struct NarrowManModel {
+  uint32_t useed, m_thr, m_len, ru, live;
+  int axis;
+  uint32_t col[NR_COLS];   // correlated: thresholds; burst: column units
+
+  __device__ __forceinline__ void init(const Scalars& sc, int axis_, uint32_t cg,
+                                       uint32_t thr) {
+    if constexpr (KIND != MODEL_IID) {
+      useed = unit_seed_mul(sc.v[SEED_MAN]);
+      m_thr = sc.v[M_THR];
+      m_len = sc.v[M_LEN];
+      axis = axis_;
+      ru = 0u;
+      live = 0u;
+#pragma unroll
+      for (int q = 0; q < NR_COLS; ++q) {
+        const uint32_t unit = (cg + q) / m_len;
+        col[q] = KIND == MODEL_CORRELATED
+                     ? correlated_threshold(hash_u32(unit ^ useed), m_thr, thr)
+                     : unit;
+      }
+      if (KIND == MODEL_BURST && axis == AXIS_COL) {
+        bool hit = false;
+#pragma unroll
+        for (int q = 0; q < NR_COLS; ++q) {
+          if (q == 0 || col[q] != col[q - 1]) hit = hash_u32(col[q] ^ useed) < m_thr;
+          live |= (uint32_t)hit << q;
+        }
+      }
+    }
+  }
+
+  // Burst row and bank axes: the live columns of global row `grow`,
+  // recomputed where its row unit differs from the last row's (or `fresh`).
+  __device__ __forceinline__ void row(uint32_t grow, bool fresh) {
+    if constexpr (KIND == MODEL_BURST) {
+      if (axis == AXIS_COL) return;
+      const uint32_t u = grow / m_len;
+      if (!fresh && u == ru) return;
+      ru = u;
+      if (axis == AXIS_ROW) {
+        live = hash_u32(u ^ useed) < m_thr ? 0xFFu : 0u;
+      } else {
+        live = 0u;
+        bool hit = false;
+#pragma unroll
+        for (int q = 0; q < NR_COLS; ++q) {
+          if (q == 0 || col[q] != col[q - 1])
+            hit = hash_u32((u * 0x10001u + col[q]) ^ useed) < m_thr;
+          live |= (uint32_t)hit << q;
+        }
+      }
+    }
+  }
+
+  // The threshold of column q in the current row.
+  __device__ __forceinline__ uint32_t thr(int q, uint32_t thr_) const {
+    if constexpr (KIND == MODEL_BURST) return (live >> q) & 1u ? thr_ : 0u;
+    if constexpr (KIND == MODEL_CORRELATED) return col[q];
+    return thr_;
+  }
+};
+
 // One codeword of the stage: dynamic flips, SECDED syndrome and single-error
 // correction, then its data bits (the body without the parity positions
 // 2^j - 1) OR-ed into the (block row, group)'s payload string at bit
 // s * seg_bits. The string was zeroed beforehand.
-template <bool DYN>
+template <bool DYN, int KIND>
 __device__ __forceinline__ void narrow_decode_codeword(
     const uint32_t* __restrict__ cs, uint32_t* pay, int i, int b0, int g0,
     int n_blocks, int n_groups, const NarrowGeo& geo, uint32_t store_g,
-    uint32_t seed_cw, uint32_t thr_meta, uint32_t off_k, uint32_t off_j) {
+    uint32_t seed_cw, uint32_t thr_meta, uint32_t off_k, uint32_t off_j,
+    const ReadModel& md, uint32_t useed_cw) {
   const int s = i % geo.S, bg = i / geo.S;
   uint32_t w[MAX_W];
   if (geo.W == MAX_W) {
@@ -554,9 +664,16 @@ __device__ __forceinline__ void narrow_decode_codeword(
                               (uint32_t)gg + off_j / (uint32_t)geo.rw) *
                                  (uint32_t)(geo.S * geo.W) +
                              (uint32_t)(s * geo.W);
+      // codeword plane: row = block row, column unit = row_weights group;
+      // one threshold a codeword
+      uint32_t t = thr_meta;
+      if constexpr (KIND != MODEL_IID)
+        t = model_threshold(KIND, md.axis, (uint32_t)gbk + off_k / (uint32_t)geo.n_group,
+                            (uint32_t)gg + off_j / (uint32_t)geo.rw, useed_cw, md.m_thr,
+                            md.m_len, thr_meta);
 #pragma unroll
       for (int q = 0; q < MAX_W; ++q)
-        if (q < geo.W) w[q] ^= flip_mask(celem + q, seed_cw, thr_meta, geo.code_mask[q]);
+        if (q < geo.W) w[q] ^= flip_mask(celem + q, seed_cw, t, geo.code_mask[q]);
     }
   }
   // syndrome bit j: parity of the body bits in column mask j; overall
@@ -601,12 +718,12 @@ __device__ __forceinline__ void narrow_decode_codeword(
   }
 }
 
-template <int MP, bool DYN>
+template <int MP, bool DYN, int KIND>
 __global__ void __launch_bounds__(NR_NT, 1) cim_read_one4n_narrow_kernel(
     const float* __restrict__ x, const uint16_t* __restrict__ man,
     const uint32_t* __restrict__ cw, float* __restrict__ out, int M, int K_log,
     int k_pad, int j_pad, int n_out, NarrowGeo geo, Scalars sc, uint32_t store_g,
-    uint32_t store_j) {
+    uint32_t store_j, ReadModel md) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* man_s = reinterpret_cast<uint16_t*>(smem);
   uint32_t* cw_s = reinterpret_cast<uint32_t*>(smem + NR_STAGES * NR_MAN_HALVES * 2);
@@ -626,6 +743,12 @@ __global__ void __launch_bounds__(NR_NT, 1) cim_read_one4n_narrow_kernel(
   const uint32_t thr_man = sc.v[THR_MAN], thr_meta = sc.v[THR_META];
   const uint32_t seed_man = sc.v[SEED_MAN] * GOLD, seed_cw = sc.v[SEED_CW] * GOLD;
   const uint32_t off_k = sc.v[OFF_K], off_j = sc.v[OFF_J];
+  uint32_t useed_cw = 0u;
+  NarrowManModel<KIND> mm;
+  if constexpr (KIND != MODEL_IID) {
+    useed_cw = unit_seed_mul(sc.v[SEED_CW]);
+    mm.init(sc, md.axis, (uint32_t)col + off_j, thr_man);
+  }
 
   auto load_stage = [&](int c) {
     if (c < n_chunks) {
@@ -679,9 +802,9 @@ __global__ void __launch_bounds__(NR_NT, 1) cim_read_one4n_narrow_kernel(
     {
       const uint32_t* cs = cw_s + (c % NR_STAGES) * geo.cw_stage;
       for (int i = tid; i < n_cw; i += NR_NT)
-        narrow_decode_codeword<DYN>(cs, pay, i, k0 / geo.n_group, g0, n_blocks,
-                                    n_groups, geo, store_g, seed_cw, thr_meta, off_k,
-                                    off_j);
+        narrow_decode_codeword<DYN, KIND>(cs, pay, i, k0 / geo.n_group, g0, n_blocks,
+                                          n_groups, geo, store_g, seed_cw, thr_meta, off_k,
+                                          off_j, md, useed_cw);
     }
     __syncthreads();   // payload strings complete
 
@@ -715,9 +838,10 @@ __global__ void __launch_bounds__(NR_NT, 1) cim_read_one4n_narrow_kernel(
       uint32_t mv[4] = {mw.x, mw.y, mw.z, mw.w};
       if (DYN && thr_man && col < j_pad) {
         const uint32_t e = ((uint32_t)gk + off_k) * store_j + (uint32_t)col + off_j;
+        mm.row((uint32_t)gk + off_k, i == 0);
 #pragma unroll
         for (int q = 0; q < NR_COLS; ++q) {
-          const uint32_t f = flip_mask<0x3FFu>(e + q, seed_man, thr_man);
+          const uint32_t f = flip_mask<0x3FFu>(e + q, seed_man, mm.thr(q, thr_man));
           mv[q >> 1] ^= (q & 1) ? f << 16 : f;
         }
       }
@@ -748,12 +872,12 @@ __global__ void __launch_bounds__(NR_NT, 1) cim_read_one4n_narrow_kernel(
   narrow_reduce_store<MP>(smem, acc, out, M, c0, n_out);
 }
 
-template <int MP, bool DYN>
+template <int MP, bool DYN, int KIND>
 int launch_narrow_kernel(const void* x, const void* man, const void* cw, void* out, int M,
                   int K_log, int k_pad, int j_pad, int n_out, const NarrowGeo& geo,
-                  const Scalars& sc, uint32_t store_g, uint32_t store_j, int smem,
-                  cudaStream_t stream) {
-  auto kern = cim_read_one4n_narrow_kernel<MP, DYN>;
+                  const Scalars& sc, uint32_t store_g, uint32_t store_j,
+                  const ReadModel& md, int smem, cudaStream_t stream) {
+  auto kern = cim_read_one4n_narrow_kernel<MP, DYN, KIND>;
   const cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -761,21 +885,35 @@ int launch_narrow_kernel(const void* x, const void* man, const void* cw, void* o
   kern<<<grid, NR_NT, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const uint16_t*>(man),
       static_cast<const uint32_t*>(cw), static_cast<float*>(out), M, K_log, k_pad,
-      j_pad, n_out, geo, sc, store_g, store_j);
+      j_pad, n_out, geo, sc, store_g, store_j, md);
   return (int)cudaGetLastError();
 }
 
+// The instantiation of a read: static reads take the i.i.d. code (they draw
+// nothing); a dynamic read takes its process's kind.
 template <int MP>
 int launch_narrow(const void* x, const void* man, const void* cw, void* out, int M,
                   int K_log, int k_pad, int j_pad, int n_out, const NarrowGeo& geo,
-                  const Scalars& sc, uint32_t store_g, uint32_t store_j, int smem,
-                  bool dynamic, cudaStream_t stream) {
-  return dynamic ? launch_narrow_kernel<MP, true>(x, man, cw, out, M, K_log, k_pad,
-                                                  j_pad, n_out, geo, sc, store_g,
-                                                  store_j, smem, stream)
-                 : launch_narrow_kernel<MP, false>(x, man, cw, out, M, K_log, k_pad,
-                                                   j_pad, n_out, geo, sc, store_g,
-                                                   store_j, smem, stream);
+                  const Scalars& sc, uint32_t store_g, uint32_t store_j,
+                  const ReadModel& md, int smem, bool dynamic, cudaStream_t stream) {
+  if (!dynamic)
+    return launch_narrow_kernel<MP, false, MODEL_IID>(x, man, cw, out, M, K_log, k_pad,
+                                                      j_pad, n_out, geo, sc, store_g,
+                                                      store_j, md, smem, stream);
+  switch (md.kind) {
+    case MODEL_BURST:
+      return launch_narrow_kernel<MP, true, MODEL_BURST>(x, man, cw, out, M, K_log, k_pad,
+                                                         j_pad, n_out, geo, sc, store_g,
+                                                         store_j, md, smem, stream);
+    case MODEL_CORRELATED:
+      return launch_narrow_kernel<MP, true, MODEL_CORRELATED>(
+          x, man, cw, out, M, K_log, k_pad, j_pad, n_out, geo, sc, store_g, store_j, md,
+          smem, stream);
+    default:
+      return launch_narrow_kernel<MP, true, MODEL_IID>(x, man, cw, out, M, K_log, k_pad,
+                                                       j_pad, n_out, geo, sc, store_g,
+                                                       store_j, md, smem, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -793,6 +931,7 @@ struct RawNarrow {
   int M, K_log, k_pad, j_pad, n_out, sw_rows, log2n, x_slab;
   uint32_t store_k, store_j;
   Scalars sc;
+  ReadModel md;
 };
 
 // Dynamic shared memory of K2's narrow kernel, in bytes (`exp_stage`: the
@@ -806,21 +945,32 @@ int raw_narrow_smem_bytes(int exp_stage, int x_slab, int mp) {
 // word drawn by exactly one thread, at the global store indices the tile
 // kernel draws: exponent byte (gb + off_k/n) * store_j + gc + off_j, sign
 // word (gw + off_k/32) * store_j + gc + off_j, its lanes at or past the
-// store's K rows masked out (they are not cells).
+// store's K rows masked out (they are not cells). Under a fault process each
+// exponent byte and each sign word takes its own threshold: the exponent
+// plane's row is the block row, the sign plane's the sign-word row.
+template <int KIND>
 __device__ __forceinline__ void raw_narrow_flip_meta(uint8_t* es, uint32_t* ss, int k0, int c0,
                                                      const RawNarrow& p, int n_blocks,
                                                      uint32_t seed_meta, uint32_t seed_sign,
-                                                     uint32_t thr_meta) {
+                                                     uint32_t thr_meta, uint32_t useed_meta,
+                                                     uint32_t useed_sign) {
   const uint32_t off_k = p.sc.v[OFF_K], off_j = p.sc.v[OFF_J];
   const int cb = NR_CK >> p.log2n;
   uint32_t* ew = reinterpret_cast<uint32_t*>(es);   // 4 exponent bytes a word
   for (int i = threadIdx.x; i < cb * (NR_BN / 4); i += NR_NT) {
     const int gb = (k0 >> p.log2n) + i / (NR_BN / 4), gc = c0 + (i % (NR_BN / 4)) * 4;
     if (gb < n_blocks && gc < p.j_pad) {
-      const uint32_t e = ((uint32_t)gb + (off_k >> p.log2n)) * p.store_j + (uint32_t)gc + off_j;
+      const uint32_t erow = (uint32_t)gb + (off_k >> p.log2n), ecol = (uint32_t)gc + off_j;
+      const uint32_t e = erow * p.store_j + ecol;
       uint32_t f = 0u;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) f |= flip_mask<0x1Fu>(e + q, seed_meta, thr_meta) << (8 * q);
+      for (int q = 0; q < 4; ++q) {
+        uint32_t t = thr_meta;
+        if constexpr (KIND != MODEL_IID)
+          t = model_threshold(KIND, p.md.axis, erow, ecol + q, useed_meta, p.md.m_thr,
+                              p.md.m_len, thr_meta);
+        f |= flip_mask<0x1Fu>(e + q, seed_meta, t) << (8 * q);
+      }
       ew[i] ^= f;
     }
   }
@@ -831,13 +981,17 @@ __device__ __forceinline__ void raw_narrow_flip_meta(uint8_t* es, uint32_t* ss, 
       const uint64_t first = (uint64_t)grow * 32u;
       const uint64_t valid = first >= p.store_k ? 0u : p.store_k - first;
       const uint32_t lanes = (uint32_t)((1ull << (valid < 32u ? valid : 32u)) - 1ull);
-      ss[i] ^= flip_mask<0xFFFFFFFFu>(grow * p.store_j + (uint32_t)gc + off_j, seed_sign,
-                                      thr_meta) & lanes;
+      const uint32_t scol = (uint32_t)gc + off_j;
+      uint32_t t = thr_meta;
+      if constexpr (KIND != MODEL_IID)
+        t = model_threshold(KIND, p.md.axis, grow, scol, useed_sign, p.md.m_thr, p.md.m_len,
+                            thr_meta);
+      ss[i] ^= flip_mask<0xFFFFFFFFu>(grow * p.store_j + scol, seed_sign, t) & lanes;
     }
   }
 }
 
-template <int MP, bool DYN>
+template <int MP, bool DYN, int KIND>
 __global__ void __launch_bounds__(NR_NT, 1) cim_read_raw_narrow_kernel(const __grid_constant__ RawNarrow p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int cb = NR_CK >> p.log2n;                   // block rows a stage
@@ -855,6 +1009,13 @@ __global__ void __launch_bounds__(NR_NT, 1) cim_read_raw_narrow_kernel(const __g
   const uint32_t seed_man = p.sc.v[SEED_MAN] * GOLD, seed_meta = p.sc.v[SEED_META] * GOLD;
   const uint32_t seed_sign = p.sc.v[SEED_CW] * GOLD;
   const uint32_t off_k = p.sc.v[OFF_K], off_j = p.sc.v[OFF_J];
+  uint32_t useed_meta = 0u, useed_sign = 0u;
+  NarrowManModel<KIND> mm;
+  if constexpr (KIND != MODEL_IID) {
+    useed_meta = unit_seed_mul(p.sc.v[SEED_META]);
+    useed_sign = unit_seed_mul(p.sc.v[SEED_CW]);
+    mm.init(p.sc, p.md.axis, (uint32_t)col + off_j, thr_man);
+  }
 
   auto load_stage = [&](int c) {
     if (c < n_chunks) {
@@ -902,7 +1063,8 @@ __global__ void __launch_bounds__(NR_NT, 1) cim_read_raw_narrow_kernel(const __g
       sync = true;
     }
     if (DYN && thr_meta) {
-      raw_narrow_flip_meta(es, ss, k0, c0, p, n_blocks, seed_meta, seed_sign, thr_meta);
+      raw_narrow_flip_meta<KIND>(es, ss, k0, c0, p, n_blocks, seed_meta, seed_sign, thr_meta,
+                                 useed_meta, useed_sign);
       sync = true;
     }
     if (sync) __syncthreads();   // x and the flipped meta words seen by all
@@ -935,9 +1097,10 @@ __global__ void __launch_bounds__(NR_NT, 1) cim_read_raw_narrow_kernel(const __g
       uint32_t mv[4] = {mw.x, mw.y, mw.z, mw.w};
       if (DYN && thr_man && col < p.j_pad) {
         const uint32_t elem = ((uint32_t)gk + off_k) * p.store_j + (uint32_t)col + off_j;
+        mm.row((uint32_t)gk + off_k, i == 0);
 #pragma unroll
         for (int q = 0; q < NR_COLS; ++q) {
-          const uint32_t fm = flip_mask<0x3FFu>(elem + q, seed_man, thr_man);
+          const uint32_t fm = flip_mask<0x3FFu>(elem + q, seed_man, mm.thr(q, thr_man));
           mv[q >> 1] ^= (q & 1) ? fm << 16 : fm;
         }
       }
@@ -969,8 +1132,11 @@ __global__ void __launch_bounds__(NR_NT, 1) cim_read_raw_narrow_kernel(const __g
 
 template <int MP>
 int launch_raw_narrow(const RawNarrow& p, bool dynamic, int smem, cudaStream_t stream) {
-  auto kern = dynamic ? cim_read_raw_narrow_kernel<MP, true>
-                      : cim_read_raw_narrow_kernel<MP, false>;
+  auto kern = !dynamic ? cim_read_raw_narrow_kernel<MP, false, MODEL_IID>
+            : p.md.kind == MODEL_BURST ? cim_read_raw_narrow_kernel<MP, true, MODEL_BURST>
+            : p.md.kind == MODEL_CORRELATED
+                ? cim_read_raw_narrow_kernel<MP, true, MODEL_CORRELATED>
+                : cim_read_raw_narrow_kernel<MP, true, MODEL_IID>;
   const cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -986,10 +1152,22 @@ Scalars read_scalars(const uint32_t* s) {
   return sc;
 }
 
+// The fault process of a read, or false when the host passed one the
+// kernels do not take (a kind or axis out of range, a burst or correlated
+// process with no run length).
+bool read_model(int kind, int axis, const Scalars& sc, ReadModel* md) {
+  *md = ReadModel{kind, axis, sc.v[M_THR], sc.v[M_LEN]};
+  return kind >= MODEL_IID && kind <= MODEL_CORRELATED && axis >= AXIS_ROW &&
+         axis <= AXIS_BANK && (kind == MODEL_IID || sc.v[M_LEN] >= 1u);
+}
+
 }  // namespace
 
 // C interface (ctypes). Returns 0 on success, a cudaError_t after a refused
 // launch, or -1 when the arguments fall outside what the kernels tile.
+// `model_kind` (0 i.i.d. or drift, 1 burst, 2 correlated) and `model_axis`
+// (0 row, 1 col, 2 bank) name the fault process of a dynamic read; its
+// parameters are the scalars' M_THR and M_LEN.
 extern "C" int cim_read_one4n(const void* x, const void* man, const void* cw,
                               void* out, int M, int K_log, int k_pad, int j_pad,
                               int n_out, int n_group, int rw, int S, int W,
@@ -998,7 +1176,7 @@ extern "C" int cim_read_one4n(const void* x, const void* man, const void* cw,
                               unsigned int store_g, unsigned int store_j,
                               const unsigned int* masks,
                               const unsigned int* scalars, int dynamic,
-                              void* stream) {
+                              int model_kind, int model_axis, void* stream) {
   if (M <= 0 || k_pad <= 0 || j_pad <= 0 || BK % n_group != 0 || BN % rw != 0 ||
       j_pad % 16 != 0 || k_pad % n_group != 0 || W > MAX_W || r > MAX_R ||
       payload_bits > MAX_PAYLOAD_BITS || (BK / n_group) * (BN / rw) * S * W > MAX_CW_WORDS ||
@@ -1010,11 +1188,14 @@ extern "C" int cim_read_one4n(const void* x, const void* man, const void* cw,
     geo.code_mask[w] = w < W ? masks[MAX_W + w] : 0u;
   }
   const Fmt fmt{man_bits, exp_bits, bias};
+  const Scalars sc = read_scalars(scalars);
+  ReadModel md;
+  if (!read_model(dynamic ? model_kind : MODEL_IID, model_axis, sc, &md)) return -1;
   const dim3 grid((j_pad + BN - 1) / BN, (M + BM - 1) / BM);
   cim_read_one4n_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const uint16_t*>(man),
       static_cast<const uint32_t*>(cw), static_cast<float*>(out), M, K_log, k_pad,
-      j_pad, n_out, geo, fmt, read_scalars(scalars), dynamic, store_g, store_j);
+      j_pad, n_out, geo, fmt, sc, dynamic, store_g, store_j, md);
   return (int)cudaGetLastError();
 }
 
@@ -1029,7 +1210,7 @@ extern "C" int cim_read_one4n_narrow(const void* x, const void* man, const void*
                                      int smem_bytes, unsigned int store_g,
                                      unsigned int store_j, const unsigned int* tables,
                                      const unsigned int* scalars, int dynamic,
-                                     void* stream) {
+                                     int model_kind, int model_axis, void* stream) {
   int log2n = -1;
   for (int b = 0; b < 8; ++b)
     if (n_group == 1 << b) log2n = b;
@@ -1060,21 +1241,23 @@ extern "C" int cim_read_one4n_narrow(const void* x, const void* man, const void*
   const int smem = narrow_smem_bytes(geo.cw_stage, geo.pay_buf, x_slab, mp);
   if (smem != smem_bytes || smem > SMEM_LIMIT) return -1;
   const Scalars sc = read_scalars(scalars);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool dyn = dynamic != 0;
+  ReadModel md;
+  if (!read_model(dyn ? model_kind : MODEL_IID, model_axis, sc, &md)) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mp) {
     case 1:
       return launch_narrow<1>(x, man, cw, out, M, K_log, k_pad, j_pad, n_out, geo, sc,
-                              store_g, store_j, smem, dyn, st);
+                              store_g, store_j, md, smem, dyn, st);
     case 2:
       return launch_narrow<2>(x, man, cw, out, M, K_log, k_pad, j_pad, n_out, geo, sc,
-                              store_g, store_j, smem, dyn, st);
+                              store_g, store_j, md, smem, dyn, st);
     case 4:
       return launch_narrow<4>(x, man, cw, out, M, K_log, k_pad, j_pad, n_out, geo, sc,
-                              store_g, store_j, smem, dyn, st);
+                              store_g, store_j, md, smem, dyn, st);
     default:
       return launch_narrow<8>(x, man, cw, out, M, K_log, k_pad, j_pad, n_out, geo, sc,
-                              store_g, store_j, smem, dyn, st);
+                              store_g, store_j, md, smem, dyn, st);
   }
 }
 
@@ -1084,18 +1267,21 @@ extern "C" int cim_read_raw(const void* x, const void* man, const void* expw,
                             int n_group, int man_bits, int exp_bits, int bias,
                             unsigned int store_k, unsigned int store_j,
                             const unsigned int* scalars, int dynamic,
-                            void* stream) {
+                            int model_kind, int model_axis, void* stream) {
   if (M <= 0 || k_pad <= 0 || j_pad <= 0 || BK % n_group != 0 || j_pad % 16 != 0 ||
       k_pad % n_group != 0 || sw_rows != (k_pad + 31) / 32 || !aligned16(man) ||
       K_log > k_pad || n_out > j_pad)
     return -1;
   const Fmt fmt{man_bits, exp_bits, bias};
+  const Scalars sc = read_scalars(scalars);
+  ReadModel md;
+  if (!read_model(dynamic ? model_kind : MODEL_IID, model_axis, sc, &md)) return -1;
   const dim3 grid((j_pad + BN - 1) / BN, (M + BM - 1) / BM);
   cim_read_raw_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const uint16_t*>(man),
       static_cast<const uint8_t*>(expw), static_cast<const uint32_t*>(signw),
       static_cast<float*>(out), M, K_log, k_pad, j_pad, n_out, sw_rows, n_group, fmt,
-      read_scalars(scalars), dynamic, store_k, store_j);
+      sc, dynamic, store_k, store_j, md);
   return (int)cudaGetLastError();
 }
 
@@ -1108,7 +1294,8 @@ extern "C" int cim_read_raw_narrow(const void* x, const void* man, const void* e
                                    int n_group, int man_bits, int exp_bits, int bias,
                                    int x_slab, int smem_bytes, unsigned int store_k,
                                    unsigned int store_j, const unsigned int* scalars,
-                                   int dynamic, void* stream) {
+                                   int dynamic, int model_kind, int model_axis,
+                                   void* stream) {
   int log2n = -1;
   for (int b = 0; b < 8; ++b)
     if (n_group == 1 << b) log2n = b;
@@ -1121,10 +1308,13 @@ extern "C" int cim_read_raw_narrow(const void* x, const void* man, const void* e
   const int mp = M <= 1 ? 1 : M <= 2 ? 2 : M <= 4 ? 4 : 8;
   const int smem = raw_narrow_smem_bytes((NR_CK / n_group) * NR_BN, x_slab, mp);
   if (smem != smem_bytes || smem > SMEM_LIMIT) return -1;
+  const Scalars sc = read_scalars(scalars);
+  ReadModel md;
+  if (!read_model(dynamic ? model_kind : MODEL_IID, model_axis, sc, &md)) return -1;
   const RawNarrow p{static_cast<const float*>(x), static_cast<const uint16_t*>(man),
                     static_cast<const uint8_t*>(expw), static_cast<const uint32_t*>(signw),
                     static_cast<float*>(out), M, K_log, k_pad, j_pad, n_out, sw_rows, log2n,
-                    x_slab, store_k, store_j, read_scalars(scalars)};
+                    x_slab, store_k, store_j, sc, md};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool dyn = dynamic != 0;
   switch (mp) {

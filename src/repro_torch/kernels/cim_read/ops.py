@@ -59,9 +59,10 @@ def make_scalars(seeds=None, thr_man=0, thr_meta=0, off_k=0, off_j=0,
                  model=None) -> np.ndarray:
     """uint32[9] scalar vector of the fused kernels (``ref.SCALAR_*``):
     thresholds, the three plane seeds, shard offsets and the fault-model
-    slots. Zero thresholds mean static serving."""
+    slots (``model``'s parameters; its kind and axis travel as launch
+    arguments). Zero thresholds mean static serving."""
     seeds = seeds or {}
-    m_thr, m_len = fm_lib.model_scalars(model)
+    m_thr, m_len = fm_lib.model_scalars(fm_lib.parse_fault_model(model))
     vals = [thr_man, thr_meta, seeds.get("man", 0), seeds.get("meta", 0),
             seeds.get("cw", 0), off_k, off_j, m_thr, m_len]
     return np.asarray([int(v) & 0xFFFFFFFF for v in vals], np.uint32)
@@ -199,16 +200,20 @@ def _one4n_args(cfg) -> dict:
 _STATIC = make_scalars()
 
 
-def _kernel_call(x2: torch.Tensor, store, scalars, tiles: dict) -> torch.Tensor:
+def _kernel_call(x2: torch.Tensor, store, scalars, tiles: dict,
+                 model=None) -> torch.Tensor:
     cfg = store.cfg
     k_log, j_log = store.shape
     k_pad, j_pad = store.man.shape
     dynamic = scalars is not None
     sc = scalars if dynamic else _STATIC
     fmt = cfg.fmt
+    kind = model.kind if dynamic and model is not None else "iid"
+    axis = model.axis if dynamic and model is not None else "row"
     common = dict(k_log=k_log, n_out=j_log, n_group=cfg.n_group,
                   man_bits=fmt.man_bits, exp_bits=fmt.exp_bits, bias=fmt.bias,
-                  store_j=j_pad, dynamic=dynamic)
+                  store_j=j_pad, dynamic=dynamic, model_kind=kind,
+                  model_axis=axis)
     if cfg.protect == "one4n":
         one4n = dict(_one4n_args(cfg), store_g=j_pad // cfg.row_weights)
         tables, payload_bits = one4n.pop("tables"), one4n.pop("payload_bits")
@@ -242,6 +247,21 @@ def _check_planes(store, dev: torch.device) -> None:
                              f"contiguous")
 
 
+def model_scalars_of(scalars, model):
+    """The dynamic ``scalars`` of a read under ``model``: its parameters in
+    the ``SCALAR_M_*`` slots and, for drift, the field thresholds scaled by
+    its static tick (element-independent, so once on the host). A copy;
+    ``None`` leaves the vector as it is."""
+    if model is None:
+        return scalars
+    sc = np.array(scalars, dtype=np.uint32)
+    sc[ref.SCALAR_M_THR], sc[ref.SCALAR_M_LEN] = fm_lib.model_scalars(model)
+    if model.kind == "drift":
+        for slot in (ref.SCALAR_THR_MAN, ref.SCALAR_THR_META):
+            sc[slot] = fm_lib.compiled_threshold(model, int(sc[slot]))
+    return sc
+
+
 def cim_linear_store(x: torch.Tensor, store, *, scalars=None, model=None,
                      with_info: bool = False, device=None):
     """Fused linear layer on a packed CIM store: ``x [..., K] -> [..., J]``.
@@ -249,14 +269,20 @@ def cim_linear_store(x: torch.Tensor, store, *, scalars=None, model=None,
     ``scalars=None`` serves the image as stored. Per-read dynamic injection
     passes ``make_scalars(seeds, thr_man, thr_meta)``: the kernel then draws
     the :func:`repro_torch.core.cim.inject_with_seeds` flip streams on the
-    words it loads, before decoding. ``device`` (default ``cuda``) names
-    where ``x`` and the store must lie; a ``cuda`` request with no card
-    raises. Returns the output, or ``(out, info)`` with ``with_info``."""
+    words it loads, before decoding. ``model`` (a fault process or its
+    grammar string) shapes a dynamic read's flips: burst and correlated
+    thresholds are computed per element in the kernel (kind and axis as
+    launch arguments, parameters in the ``SCALAR_M_*`` slots); a drift
+    model's static tick scales the field thresholds here. The streams equal
+    ``cim.inject_with_seeds(..., model=model)`` at the same seeds.
+    ``device`` (default ``cuda``) names where ``x`` and the store must lie;
+    a ``cuda`` request with no card raises. Returns the output, or ``(out,
+    info)`` with ``with_info``."""
     dev = resolve_device(device)
     if x.device != dev:
         raise ValueError(f"cim_linear_store: x is on {x.device}, expected {dev}")
     _check_planes(store, dev)
-    fm_lib.check_iid(model)
+    model = fm_lib.parse_fault_model(model)
     cfg = store.cfg
     k_log, j_log = store.shape
     b_shape = x.shape[:-1]
@@ -268,11 +294,13 @@ def cim_linear_store(x: torch.Tensor, store, *, scalars=None, model=None,
                                 or int(scalars[ref.SCALAR_OFF_J])):
         raise NotImplementedError("shard offsets wait for the sharded twin "
                                   "(ROADMAP Queue 1 item 14)")
+    if scalars is not None:
+        scalars = model_scalars_of(scalars, model)
 
     kernel_route = cfg.protect in ("one4n", "none") and cfg.fmt.name == "fp16"
     if kernel_route and dev.type == "cuda":
         tiles = resolve_tiles(store, x2.shape[0])
-        out = _kernel_call(x2, store, scalars, tiles)
+        out = _kernel_call(x2, store, scalars, tiles, model)
         info = {"used_kernel": True, "route": "kernel", "tiles": tiles}
     else:
         out, _ = cim_read_ref(x2, store, scalars, model=model)

@@ -9,6 +9,8 @@ one fp32 matmul. The CPU tests run it in place of the kernels, and
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core import cim as cim_lib
@@ -33,8 +35,15 @@ def scalar_seeds(scalars) -> dict:
 
 
 def cim_read_ref(x2: torch.Tensor, store, scalars=None, model=None):
-    """x [M, K] @ decode(store [K, J]) -> ([M, J] f32, decode stats)."""
+    """x [M, K] @ decode(store [K, J]) -> ([M, J] f32, decode stats).
+
+    ``model`` shapes the dynamic flips into a fault process. A drift
+    model's time scaling is already folded into the ``scalars`` thresholds
+    (``ops.cim_linear_store`` does it, as the reference's caller does), so
+    its tick is zeroed here rather than applied twice."""
     if scalars is not None:
+        if model is not None and model.kind == "drift" and model.tick:
+            model = dataclasses.replace(model, tick=0)
         store = cim_lib.inject_with_seeds(
             store, scalar_seeds(scalars), int(scalars[SCALAR_THR_MAN]),
             int(scalars[SCALAR_THR_META]), model=model)

@@ -32,6 +32,10 @@ K4 = "fault_inject"
 launch_counts = {K3: 0, K4: 0}
 
 PLANE_DTYPES = (torch.uint8, torch.uint16, torch.int32)
+# The kernel's fault-process codes: drift runs the i.i.d. code on a
+# threshold the caller pre-scaled (ops.fault_inject_bits_batched).
+MODEL_KINDS = {"iid": 0, "drift": 0, "burst": 1, "correlated": 2}
+MODEL_AXES = {"row": 0, "col": 1, "bank": 2}
 
 
 # The counter is a uint32 striding 32 per element, so streams repeat after
@@ -84,7 +88,7 @@ def reset_launch_counts() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.fault_inject_batched.argtypes = [vp, vp, vp] + [i] * 4 + [u] * 4 \
-        + [i, i, vp]
+        + [i, i, i, vp]
     lib.fault_inject_batched.restype = i
 
 
@@ -94,13 +98,19 @@ timed_build = LIBRARY.timed_build
 
 
 def _launch(name: str, bits: torch.Tensor, seeds, threshold: int,
-            positions: Sequence[int], m_thr: int, m_len: int) -> torch.Tensor:
+            positions: Sequence[int], m_thr: int, m_len: int,
+            model_kind: str = "iid", model_axis: str = "row",
+            col_div: int = 1) -> torch.Tensor:
     if bits.device.type != "cuda":
         raise ValueError(f"{name}: bits lie on {bits.device}; the kernel "
                          f"takes CUDA tensors (ops routes the CPU)")
     if bits.ndim != 2 or bits.dtype not in PLANE_DTYPES:
         raise ValueError(f"{name}: expected a 2-D uint8/uint16/int32 plane, "
                          f"got {bits.dtype} {tuple(bits.shape)}")
+    if model_kind not in MODEL_KINDS or model_axis not in MODEL_AXES \
+            or int(col_div) < 1:
+        raise ValueError(f"{name}: fault process {model_kind!r} / "
+                         f"{model_axis!r} / col_div {col_div} not taken")
     r, c = bits.shape
     check_counter_space(r, c)
     bits = bits.contiguous()
@@ -112,13 +122,12 @@ def _launch(name: str, bits: torch.Tensor, seeds, threshold: int,
     t = seeds_dev.numel()
     out = torch.empty((t, r, c), dtype=bits.dtype, device=bits.device)
     lanes = lanes_of(positions, bits.element_size() * 8)
-    # model_kind 0 (i.i.d.) and col_div 1: the kernel's fault-process slots
-    # beside m_thr/m_len; only the i.i.d. process is ported
     rc = load().fault_inject_batched(
         bits.data_ptr(), out.data_ptr(), seeds_dev.data_ptr(), t, r, c,
         bits.element_size(), lanes, int(threshold) & 0xFFFFFFFF,
         int(m_thr) & 0xFFFFFFFF, int(m_len) & 0xFFFFFFFF,
-        0, 1, stream_of(bits))
+        MODEL_KINDS[model_kind], MODEL_AXES[model_axis], int(col_div),
+        stream_of(bits))
     check_rc(rc, name)
     launch_counts[name] += 1
     return out
@@ -126,20 +135,26 @@ def _launch(name: str, bits: torch.Tensor, seeds, threshold: int,
 
 def fault_inject_batched(bits: torch.Tensor, seeds, threshold: int, *,
                          positions: Sequence[int], m_thr: int = 0,
-                         m_len: int = 0) -> torch.Tensor:
+                         m_len: int = 0, model_kind: str = "iid",
+                         model_axis: str = "row",
+                         col_div: int = 1) -> torch.Tensor:
     """K3: bits [R, C] on the card, seeds uint32 [T] -> [T, R, C] faulted
     copies (bit p of element e flips in trial t iff
-    ``hash_u32((e*32 + p) ^ seeds[t]*0x9E3779B9) < threshold``).
-    ``m_thr``/``m_len`` are the fault-process slots; only the i.i.d.
-    process (zeros) runs."""
-    return _launch(K3, bits, seeds, threshold, positions, m_thr, m_len)
+    ``hash_u32((e*32 + p) ^ seeds[t]*0x9E3779B9) < thr(e, t)``). ``thr`` is
+    ``threshold`` for ``model_kind`` iid or drift (drift comes pre-scaled);
+    burst and correlated compute it per element in the kernel from the
+    ``m_thr``/``m_len`` payload, the plane width C, ``col_div`` and the
+    trial seed (``faultmodels.scale_elem_thresholds``)."""
+    return _launch(K3, bits, seeds, threshold, positions, m_thr, m_len,
+                   model_kind, model_axis, col_div)
 
 
 def fault_inject(bits: torch.Tensor, *, seed: int, ber: float,
                  positions: Sequence[int]) -> torch.Tensor:
     """K4: uint16 bits [R, C] on the card -> bits with ``positions`` flipped
     at rate ``ber`` from one seed, threshold
-    ``min(round(ber * 2^32), 2^32 - 1)`` in double precision."""
+    ``min(round(ber * 2^32), 2^32 - 1)`` in double precision. K4 has no
+    fault-process slots (nor has the reference's)."""
     if bits.dtype != torch.uint16:
         raise ValueError(f"{K4}: expected a uint16 plane, got {bits.dtype}")
     return _launch(K4, bits, [int(seed)], static_threshold(ber), positions,

@@ -49,25 +49,31 @@ def fault_inject_bits(bits: torch.Tensor, *, seed: int, ber: float,
 
 
 def fault_inject_bits_batched(bits: torch.Tensor, seeds, threshold, *,
-                              positions: Sequence[int],
-                              model=None) -> torch.Tensor:
+                              positions: Sequence[int], model=None,
+                              col_div: int = 1) -> torch.Tensor:
     """Trial-batched injection: bits [R, C] -> [T, R, C] (K3 on the card).
 
     ``seeds`` is uint32 [T], ``threshold`` the uint32 of
-    :func:`ber_to_threshold`. ``model`` is a fault process: i.i.d. (and
-    ``None``) keep the threshold; the others raise ``NotImplementedError``
-    (ROADMAP Queue 1 item 2). Their ``m_thr``/``m_len`` slots stay in the
-    kernel's arguments."""
+    :func:`ber_to_threshold`. ``model`` is a fault process (or its grammar
+    string): burst and correlated scale the threshold per element inside the
+    kernel, from its ``m_thr``/``m_len`` payload and the trial's seed;
+    drift pre-scales ``threshold`` by its static tick here; i.i.d. (and
+    ``None``) keep it. ``col_div`` is the plane's macro-column unit in words
+    (``S*W`` for a flattened codeword plane ``[B, G*S*W]``)."""
+    model = fm.parse_fault_model(model)
     threshold = fm.compiled_threshold(model, threshold)
     m_thr, m_len = fm.model_scalars(model)
+    kind = model.kind if model is not None else "iid"
+    axis = model.axis if model is not None else "row"
     r, c = bits.shape
     kernel_lib.check_counter_space(r, c)
     if bits.device.type == "cuda":
         return kernel_lib.fault_inject_batched(
             bits, seeds, threshold, positions=tuple(positions), m_thr=m_thr,
-            m_len=m_len)
-    return ref.fault_inject_batched_ref(bits, seeds, threshold,
-                                        positions=tuple(positions))
+            m_len=m_len, model_kind=kind, model_axis=axis, col_div=col_div)
+    return ref.fault_inject_batched_ref(
+        bits, seeds, threshold, positions=tuple(positions), m_thr=m_thr,
+        m_len=m_len, model_kind=kind, model_axis=axis, col_div=col_div)
 
 
 def fault_inject_fp16(w: torch.Tensor, *, seed: int, ber: float,

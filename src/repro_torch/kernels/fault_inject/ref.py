@@ -59,18 +59,28 @@ def fault_inject_ref(bits: torch.Tensor, *, seed: int, ber: float,
 
 
 def fault_inject_batched_ref(bits: torch.Tensor, seeds, threshold, *,
-                             positions: Sequence[int]) -> torch.Tensor:
+                             positions: Sequence[int], m_thr=0, m_len=0,
+                             model_kind: str = "iid", model_axis: str = "row",
+                             col_div: int = 1) -> torch.Tensor:
     """K3's function: ``[R, C]`` x seeds ``[T]`` -> ``[T, R, C]``; trial t
     equals :func:`fault_inject_ref` at ``seed=seeds[t]`` for a matching
-    threshold."""
+    threshold. ``model_kind``/``model_axis`` with the ``m_thr``/``m_len``
+    payload scale the threshold per element (burst, correlated), from the
+    element's global index in the plane of width C (``col_div`` words a
+    macro-column unit) and the trial's seed; ``iid``/``drift`` keep it."""
+    # lazy import: faultmodels imports hash_u32 from here
+    from repro_torch.core.faultmodels import scale_elem_thresholds
     r, c = bits.shape
     threshold = int(threshold) & M32
     elem = _elem(r, c, bits.device)[None]                        # [1, R, C]
     seeds = torch.from_numpy(seed_words(seeds).astype("int64")).to(bits.device)
     seed_mul = ((seeds * GOLD) & M32)[:, None, None]              # [T, 1, 1]
+    thr = scale_elem_thresholds(elem, threshold, seeds[:, None, None],
+                                kind=model_kind, axis=model_axis, m_thr=m_thr,
+                                m_len=m_len, width=c, col_div=col_div)
     mask = torch.zeros((seeds.numel(), r, c), dtype=torch.int64,
                        device=bits.device)
     for p in positions:
         z = ((elem * 32 + int(p)) & M32) ^ seed_mul
-        mask |= (hash_u32(z) < threshold).to(torch.int64) << int(p)
+        mask |= (hash_u32(z) < thr).to(torch.int64) << int(p)
     return _flip(bits[None], mask)

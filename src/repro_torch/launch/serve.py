@@ -22,8 +22,13 @@ launcher's: its weights and seeds come from ``jax.random`` (threefry), which
 the port does not reimplement. :func:`serve` takes explicit seed dicts, which
 is how the parity tests replay the reference's streams.
 
+``--fault-model SPEC`` (the reference's grammar, e.g.
+``burst:rate=0.25,length=4,axis=col`` or ``drift:drift_rate=0.02``) shapes
+the faults: the static injection of either serve path, and the per-read
+runtime of ``--inject dynamic`` (drift keyed on the read position).
+
 ``--engine``, ``--fleet``, ``--mesh``, ``--expert-cim``, ``--scrub`` and
-``--fault-model`` wait (ROADMAP Queue 1 items 9-14).
+``--age-ber`` wait (ROADMAP Queue 1 items 9-14).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core import cim as cim_lib
 from repro_torch.core import deployment as dep_lib
+from repro_torch.core import faultmodels as fm_lib
 from repro_torch.data.synthetic import MarkovLM
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cim_read import kernel as kernel_lib
@@ -75,35 +81,36 @@ def default_seeds(seed: int):
 
 
 def deploy(leaves, *, ber: float, protect: str, n_group: int, index: int,
-           seeds: dict):
+           seeds: dict, fault_model: str = ""):
     """HBM path: align -> pack -> (inject) -> read. Returns the decoded
     leaves and the ECC stats of the read."""
     policy = serving_policy(protect=protect, n_group=n_group, index=index,
                             serve_path="hbm")
     dep = dep_lib.CIMDeployment.deploy(leaves, policy)
     if ber > 0:
-        dep = dep.inject(seeds, ber, field="full")
+        dep = dep.inject(seeds, ber, field="full", model=fault_model or None)
     return dep.read()
 
 
 def make_deployment(leaves, *, ber: float, protect: str, n_group: int,
-                    index: int, seeds: dict, inject_mode: str, field: str
-                    ) -> dep_lib.CIMDeployment:
+                    index: int, seeds: dict, inject_mode: str, field: str,
+                    fault_model: str = "") -> dep_lib.CIMDeployment:
     """Fused path: align -> pack; static faults go into the image."""
     policy = serving_policy(protect=protect, n_group=n_group, index=index,
                             field=field, serve_path="fused")
     dep = dep_lib.CIMDeployment.deploy(leaves, policy)
     if ber > 0 and inject_mode == "static":
-        dep = dep.inject(seeds, ber, field=field)
+        dep = dep.inject(seeds, ber, field=field, model=fault_model or None)
     return dep
 
 
 def serving_kw(*, ber: float, dynamic_seeds: dict, inject_mode: str,
-               field: str) -> dict:
+               field: str, fault_model: str = "") -> dict:
     """The ``serving_params`` kwargs of this launch."""
     dynamic = ber > 0 and inject_mode == "dynamic"
     return dict(dynamic_seeds=dynamic_seeds if dynamic else None,
-                ber=ber if dynamic else 0.0, field=field)
+                ber=ber if dynamic else 0.0, field=field,
+                model=(fault_model or None) if dynamic else None)
 
 
 def fused_report(params: dict) -> dict:
@@ -132,13 +139,15 @@ def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
           protect: str = "one4n", n_group: int = 8, index: int = 2,
           serve_path: str = "fused", inject: str = "static",
           field: str = "full", static_seeds=None, dynamic_seeds=None,
-          verbose: bool = True) -> dict:
+          fault_model: str = "", verbose: bool = True) -> dict:
     """Lock-step serve of one MarkovLM batch. Returns the generated tokens
     [B, gen], the prefill logits, ECC counts, timings and the kernel launches
-    of the run."""
+    of the run. ``fault_model`` (grammar string) shapes the static
+    injection and the dynamic runtime."""
     dep_lib.check_enum("serve_path", serve_path, dep_lib.VALID_SERVE_PATHS,
                        "serve")
     dep_lib.check_enum("inject", inject, dep_lib.VALID_INJECTS, "serve")
+    fm_lib.parse_fault_model(fault_model)      # validate the grammar eagerly
     cfg = model.cfg
     device = model.embed.device
     d_static, d_dynamic = default_seeds(seed)
@@ -152,10 +161,10 @@ def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
             dep = make_deployment(leaves, ber=ber, protect=protect,
                                   n_group=n_group, index=index,
                                   seeds=static_seeds, inject_mode=inject,
-                                  field=field)
+                                  field=field, fault_model=fault_model)
             params = dep.serving_params(**serving_kw(
                 ber=ber, dynamic_seeds=dynamic_seeds, inject_mode=inject,
-                field=field))
+                field=field, fault_model=fault_model))
             report = fused_report(params)
             ecc = {k: report[k] for k in ecc}
             if verbose:
@@ -168,7 +177,7 @@ def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
         else:
             params, ecc = deploy(leaves, ber=ber, protect=protect,
                                  n_group=n_group, index=index,
-                                 seeds=static_seeds)
+                                 seeds=static_seeds, fault_model=fault_model)
             if verbose:
                 print(f"CIM deploy (hbm): protect={protect} ber={ber:.1e} "
                       f"corrected={ecc['corrected']} "
@@ -226,6 +235,11 @@ def main(argv=None):
     ap.add_argument("--inject", default="static", choices=["static", "dynamic"])
     ap.add_argument("--field", default="full",
                     choices=["full", "mantissa", "exponent_sign"])
+    ap.add_argument("--fault-model", default="", metavar="SPEC",
+                    help="fault process of the injected errors (default "
+                         "i.i.d.): burst[:rate=,length=,axis=row|col|bank], "
+                         "correlated[:strength=,period=], "
+                         "drift[:drift_rate=,tick=]")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
@@ -239,7 +253,7 @@ def main(argv=None):
                  gen=args.gen, seed=args.seed, cim=args.cim, ber=args.ber,
                  protect=args.protect, n_group=args.n_group, index=args.index,
                  serve_path=args.serve_path, inject=args.inject,
-                 field=args.field)
+                 field=args.field, fault_model=args.fault_model)
 
 
 if __name__ == "__main__":

@@ -65,16 +65,18 @@ class Block(nn.Module):
 
 
 def _cim_read_state(params, pos: int, leaf: str):
-    """(per-plane seeds, thr_man, thr_meta) of one CIM read, or
-    (None, 0, 0) when no ``_cim`` runtime rides in ``params`` (static
+    """(per-plane seeds, thr_man, thr_meta, model) of one CIM read, or
+    (None, 0, 0, None) when no ``_cim`` runtime rides in ``params`` (static
     reads). Seeds fold per leaf and read index ``pos`` (the per-request
-    salt of the engine waits with the engine)."""
+    salt of the engine waits with the engine). A fault model in the runtime
+    shapes the streams: drift keys its tick on ``pos``, folded into the
+    thresholds returned here, so the model handed on carries tick 0."""
     rt = params.get("_cim")
     if rt is None:
-        return None, 0, 0
+        return None, 0, 0, None
     seeds = dep_lib.request_read_seeds(rt["seeds"], dep_lib.leaf_salt(leaf),
                                        None, pos)
-    return seeds, rt["thr_man"], rt["thr_meta"]
+    return (seeds,) + dep_lib.read_thresholds(rt, pos)
 
 
 def _embed_lookup(params, cfg, tokens, pos: int = 0):
@@ -82,9 +84,9 @@ def _embed_lookup(params, cfg, tokens, pos: int = 0):
     (:func:`dispatch_read_rows`)."""
     emb = params["embed"]
     if isinstance(emb, cim_lib.CIMStore):
-        seeds, tm, tt = _cim_read_state(params, pos, "embed")
+        seeds, tm, tt, model = _cim_read_state(params, pos, "embed")
         rows = dep_lib.dispatch_read_rows(emb, tokens, seeds=seeds,
-                                          thr_man=tm, thr_meta=tt)
+                                          thr_man=tm, thr_meta=tt, model=model)
         return rows.to(cfg.cdtype())
     return emb.to(cfg.cdtype())[tokens]
 
@@ -94,10 +96,10 @@ def _unembed_logits(params, x, pos: int = 0):
     :func:`dispatch_linear` (the fused decode-on-read kernel on the card)."""
     w_un = params["unembed"]
     if isinstance(w_un, cim_lib.CIMStore):
-        seeds, tm, tt = _cim_read_state(params, pos, "unembed")
-        scalars = cr_ops.make_scalars(seeds, tm, tt) \
+        seeds, tm, tt, model = _cim_read_state(params, pos, "unembed")
+        scalars = cr_ops.make_scalars(seeds, tm, tt, model=model) \
             if seeds is not None else None
-        return dep_lib.dispatch_linear(x, w_un, scalars=scalars)
+        return dep_lib.dispatch_linear(x, w_un, scalars=scalars, model=model)
     return x @ w_un.to(x.dtype)
 
 

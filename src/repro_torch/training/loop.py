@@ -40,7 +40,7 @@ def make_fault_schedule(run: RunConfig):
     raise NotImplementedError(
         "dynamic fault injection during training (paper Fig. 7) waits for "
         "the Fig. 7 slice (ROADMAP Queue 1 item 13): the reference draws its "
-        "faults from jax.random, so the port's parity there is statistical")
+        "faults with jax.random, so the port's parity there is statistical")
 
 
 @dataclasses.dataclass

@@ -6,10 +6,13 @@ per case, with dynamic injection: the identity probe rows compare the
 decoded faulted weights bit for bit, the dense rows agree within fp32
 summation-order tolerance. ``resolve_tiles`` picks K1's and K2's kernel by
 M alone (the narrow one for M <= 8, the tile above) and is checked here
-without a card. The ``gpu`` cases run the CUDA kernels against their plain version on
+without a card. Reads under a fault process (burst, correlated, drift) hold
+the injected image bitwise against the reference's. The ``gpu`` cases run
+the CUDA kernels against their plain version on
 a card and skip without one; they need no jax, so they run on the card's
 machine.
 """
+import dataclasses
 import types
 
 import pytest
@@ -98,6 +101,75 @@ def test_cim_linear_store_matches_reference(protect, m, k, j):
     assert np.array_equal(t_dyn.numpy().view(np.uint32),
                           t_stat.numpy().view(np.uint32))
     _assert_close(j_out[k:], t_dyn)
+
+
+# (protect, fault process, shape): each kind and axis once on each image
+MODEL_CASES = [
+    ("one4n", "burst:rate=0.5,length=4,axis=row", (5, 72, 48)),
+    ("one4n", "burst:rate=0.5,length=2,axis=col", (3, 264, 130)),
+    ("one4n", "correlated:strength=0.8,period=4", (5, 72, 48)),
+    ("none", "burst:rate=0.5,length=8,axis=bank", (3, 264, 130)),
+    ("none", "correlated:strength=0.8,period=4", (5, 72, 48)),
+    ("none", "drift:drift_rate=0.5,tick=3", (5, 72, 48)),
+]
+
+
+@pytest.mark.parametrize("protect,spec,shape", MODEL_CASES)
+def test_cim_linear_store_model_matches_reference(protect, spec, shape):
+    """A dynamic read under a fault process: the port's plain route against
+    the reference kernel in interpret mode (``make_scalars`` with the model,
+    then ``cim_linear_store(..., model=)``, which pre-scales drift): the
+    injected image bitwise against the reference's, the identity rows equal
+    to its decoded weights, dense rows within 1e-5, and dynamic equal to the
+    static read of ``inject_with_seeds(..., model=)``."""
+    from repro.core import faultmodels as j_fm
+    from repro_torch.core import faultmodels as t_fm
+    m, k, j = shape
+    js, ts, rng = _stores(protect, k, j, seed=m * k + j + len(spec))
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    jseeds = j_cim.plane_seeds(jax.random.PRNGKey(k + len(spec)))
+    seeds = {n: int(v) for n, v in jseeds.items()}
+    thr = int(ber_to_threshold(2e-2))
+    jp, tp = j_fm.parse_fault_model(spec), t_fm.parse_fault_model(spec)
+    j_sc = j_ops.make_scalars(jseeds, thr, thr, model=jp)
+    t_sc = t_ops.make_scalars(seeds, thr, thr, model=tp)
+    assert np.array_equal(np.asarray(j_sc), t_sc)
+    probe = np.concatenate([np.eye(k, dtype=np.float32), x])
+    j_out = np.asarray(j_ops.cim_linear_store(jnp.asarray(probe), js,
+                                              scalars=j_sc, model=jp))
+    t_out, info = t_ops.cim_linear_store(torch.from_numpy(probe), ts,
+                                         scalars=t_sc, model=tp,
+                                         with_info=True, device="cpu")
+    assert not info["used_kernel"]
+    t_out = t_out.numpy()
+    _assert_close(j_out, t_out)
+    # the image a read under the model sees: drift's tick scales the
+    # thresholds, the other kinds scale per element
+    t_thr = t_fm.compiled_threshold(tp, thr)
+    j_img = j_cim.inject_with_seeds(js, jseeds, jnp.uint32(thr),
+                                    jnp.uint32(thr), model=jp)
+    t_img = t_cim.inject_with_seeds(ts, seeds, thr, thr, model=tp)
+    for name in ("man", "sign", "exp", "codewords"):
+        a, b = getattr(j_img, name), getattr(t_img, name)
+        if a is not None:
+            a = np.asarray(a)
+            assert np.array_equal(a.view(np.uint32) if a.dtype == np.int32
+                                  else a, b.numpy().view(a.dtype)), name
+    clean = t_cim.inject_with_seeds(ts, seeds, thr, thr)
+    assert not torch.equal(t_img.man, clean.man)        # the model acted
+    t_w = t_cim.read(t_img)[0].numpy()
+    fin = np.isfinite(t_w).all(0)
+    assert np.array_equal(j_out[:k, fin].view(np.uint32),
+                          t_out[:k, fin].view(np.uint32))
+    assert np.array_equal(t_out[:k, fin], t_w[:, fin])
+    t_dyn = t_ops.cim_linear_store(torch.from_numpy(x), ts, scalars=t_sc,
+                                   model=tp, device="cpu")
+    t_stat = t_ops.cim_linear_store(torch.from_numpy(x), t_img, device="cpu")
+    assert np.array_equal(t_dyn.numpy().view(np.uint32),
+                          t_stat.numpy().view(np.uint32))
+    if tp.kind == "drift":    # the read scaled both field thresholds
+        sc = t_ops.model_scalars_of(t_sc, tp)
+        assert int(sc[0]) == int(sc[1]) == t_thr > thr
 
 
 def test_per_weight_routes_to_plain_version():
@@ -255,6 +327,57 @@ def test_cuda_kernels_match_plain_version(protect, m):
         fin = torch.isfinite(w_ref).all(0)
         assert torch.equal(probe[:, fin], w_ref[:, fin])
         assert not bool(torch.isfinite(probe[:, ~fin]).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 16])
+@pytest.mark.parametrize("spec", [
+    "burst:rate=0.5,length=4,axis=row", "burst:rate=0.5,length=4,axis=col",
+    "burst:rate=0.5,length=8,axis=bank", "correlated:strength=0.8,period=4",
+    "drift:drift_rate=0.5,tick=3"])
+@pytest.mark.parametrize("protect", ["one4n", "none"])
+def test_cuda_kernels_model_match_plain_version(protect, spec, m):
+    """K1/K2 (narrow at M = 4, tile at 16) reading under a fault process:
+    dynamic equals the static read of ``inject_with_seeds(..., model=)``
+    bitwise, the dynamic identity probe in slices of m rows gives that
+    image's weights exactly, and dense outputs agree with the plain
+    version."""
+    from repro_torch.core import faultmodels as t_fm
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(3)
+    w = torch.randn((261, 130), generator=gen) * 0.05
+    w_al, _ = t_align.align_matrix(w, t_align.AlignmentConfig())
+    store = t_cim.pack(w_al.to(dev), t_cim.CIMConfig(protect=protect))
+    x = torch.randn((m, 261), generator=gen).to(dev)
+    seeds = {"man": 11, "meta": 12, "cw": 13}
+    thr = ber_to_threshold(2e-2)
+    model = t_fm.parse_fault_model(spec)
+    sc = t_ops.make_scalars(seeds, thr, thr, model=model)
+    dyn, info = t_ops.cim_linear_store(x, store, scalars=sc, model=model,
+                                       with_info=True)
+    assert info["tiles"]["kernel"] == ("narrow" if m <= 8 else "tile")
+    thr_m = t_fm.compiled_threshold(model, thr)
+    injected = t_cim.inject_with_seeds(store, seeds, thr_m, thr_m,
+                                       model=dataclasses.replace(model, tick=0))
+    stat = t_ops.cim_linear_store(x, injected)
+    assert torch.equal(dyn.view(torch.int32), stat.view(torch.int32))
+    # faulted weights reach 2^15: the dense outputs are held to 1e-4 of
+    # |x| @ |W| (the bound of their summation-order error), NaN for NaN
+    w_ref, _ = t_cim.read(injected)
+    plain = cim_read_ref(x, store, t_ops.model_scalars_of(sc, model),
+                         model)[0]
+    assert torch.equal(plain.isnan(), dyn.isnan())
+    fin = torch.isfinite(plain)
+    scale = x.abs() @ w_ref.nan_to_num(0.0, 0.0, 0.0).abs()
+    assert bool(((dyn - plain).abs()[fin] <= 1e-4 * scale[fin] + 1e-4).all())
+    k = store.shape[0]
+    eye = torch.eye(k, device=dev)
+    probe = torch.cat([t_ops.cim_linear_store(eye[i:i + m], store,
+                                              scalars=sc, model=model)
+                       for i in range(0, k, m)])
+    fin = torch.isfinite(w_ref).all(0)
+    assert torch.equal(probe[:, fin], w_ref[:, fin])
+    assert not bool(torch.isfinite(probe[:, ~fin]).any())
 
 
 @pytest.mark.gpu

@@ -84,8 +84,21 @@ def test_rule_matching_and_validation():
             j_dep.PolicyRule(**bad)
         with pytest.raises(ValueError):
             t_dep.PolicyRule(**bad)
-    with pytest.raises(NotImplementedError):
-        t_dep.PolicyRule(fault_model="burst")
+    # a rule's fault process: the grammar as the reference parses it, and
+    # the same ValueError for a bad spec
+    for spec in ("burst", "burst:rate=0.4,length=8,axis=bank",
+                 "correlated:strength=0.6", "drift:drift_rate=0.05"):
+        a = j_dep.PolicyRule(fault_model=spec).fault_process
+        b = t_dep.PolicyRule(fault_model=spec).fault_process
+        assert (a.kind, a.rate, a.length, a.axis, a.strength, a.period,
+                a.drift_rate, a.tick) == (b.kind, b.rate, b.length, b.axis,
+                                          b.strength, b.period, b.drift_rate,
+                                          b.tick)
+    for bad in ("nope:x=1", "burst:axis=diag"):
+        with pytest.raises(ValueError):
+            j_dep.PolicyRule(fault_model=bad)
+        with pytest.raises(ValueError):
+            t_dep.PolicyRule(fault_model=bad)
 
 
 @pytest.mark.parametrize("serve_path", ["fused", "hbm"])

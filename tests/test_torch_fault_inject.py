@@ -6,7 +6,9 @@ kernels are held to on the card — must equal the reference's Pallas kernels
 (interpret mode) bit for bit: uint8, uint16 and uint32 planes, ragged
 shapes, thresholds 0 / small / saturating, seeds drawn by the live
 ``jax.random``. K4 keeps the reference's double-precision threshold, which
-differs from the sweep's float32 one at BER 1e-3. The ``gpu`` cases run the
+differs from the sweep's float32 one at BER 1e-3. Under a fault process
+(burst, correlated, drift) K3's plain version equals the reference's
+batched kernel bit for bit at col_div 1 and S*W. The ``gpu`` cases run the
 CUDA kernels against the plain versions and skip without a card; they need
 no jax, so they run on the card's machine.
 """
@@ -41,6 +43,11 @@ PLANES = {
 THRESHOLDS = {"zero": 0, "small": 4294967, "ber_3e-2": 128849019,
               "saturating": 0xFFFFFFFF}
 FIELDS = ("sign", "exponent", "mantissa", "full", "exponent_sign")
+MODEL_SPECS = ("burst:rate=0.5,length=4,axis=row",
+               "burst:rate=0.5,length=4,axis=col",
+               "burst:rate=0.5,length=8,axis=bank",
+               "correlated:strength=0.8,period=4",
+               "drift:drift_rate=0.5,tick=3")
 _COMPILED = {}
 
 
@@ -97,6 +104,45 @@ def test_plain_batched_matches_reference_kernel(plane, thr):
     one = t_ref.fault_inject_batched_ref(t_bits, seeds[1:2], THRESHOLDS[thr],
                                          positions=positions)
     assert np.array_equal(one[0].numpy().view(bits.dtype), got[1])
+
+
+# (plane, col_div): 2-D planes address columns directly; the flattened
+# codeword plane [B, G*S*W] has S*W = 8 words a column group
+MODEL_PLANES = (("u8", 1), ("u16", 1), ("u32", 1), ("u32", 8))
+
+
+@pytest.mark.parametrize("spec", MODEL_SPECS)
+def test_plain_batched_model_matches_reference_kernel(spec):
+    """K3's plain version under a fault process against the reference's
+    batched kernel in interpret mode, bit for bit, on uint8, uint16 and
+    uint32 planes, with col_div 1 and S*W; every process's flips are a
+    subset of the i.i.d. flips at the same seeds (drift's a superset), and
+    each kind thins (or, drift, thickens) them strictly."""
+    _need_jax()
+    from repro.core import faultmodels as j_fm
+    from repro_torch.core import faultmodels as t_fm
+    thr = THRESHOLDS["ber_3e-2"]
+    for plane, col_div in MODEL_PLANES:
+        bits, t_bits, positions = _plane(plane, seed=len(spec))
+        seeds = _seeds(3, salt=len(spec) + col_div)
+        want = np.asarray(j_ops.fault_inject_bits_batched(
+            jnp.asarray(bits), jnp.asarray(seeds), jnp.uint32(thr),
+            positions=positions, interpret=True,
+            model=j_fm.parse_fault_model(spec), col_div=col_div))
+        got = t_ops.fault_inject_bits_batched(
+            t_bits, seeds, thr, positions=positions,
+            model=t_fm.parse_fault_model(spec), col_div=col_div)
+        got = got.numpy().view(bits.dtype)
+        assert np.array_equal(got, want), (plane, col_div)
+        iid = t_ops.fault_inject_bits_batched(t_bits, seeds, thr,
+                                              positions=positions)
+        f_model = (got ^ bits[None]).astype(np.uint64)
+        f_iid = (iid.numpy().view(bits.dtype) ^ bits[None]).astype(np.uint64)
+        small, big = (f_iid, f_model) if spec.startswith("drift") \
+            else (f_model, f_iid)
+        assert not (small & ~big).any(), (plane, col_div)
+        assert np.unpackbits(small.view(np.uint8)).sum() < \
+            np.unpackbits(big.view(np.uint8)).sum(), (plane, col_div)
 
 
 def test_single_seed_keeps_the_double_threshold():
@@ -168,9 +214,13 @@ def test_cpu_route_launches_no_kernel():
     assert t_kernel.launch_counts == {t_kernel.K3: 0, t_kernel.K4: 0}
     with pytest.raises(ValueError, match="CUDA"):
         t_kernel.fault_inject_batched(t_bits, [1], 99, positions=positions)
-    with pytest.raises(NotImplementedError):
-        t_ops.fault_inject_bits_batched(t_bits, [1], 99, positions=positions,
-                                        model="burst:rate=0.1,length=4")
+    # a fault process runs on the plain route too, and launches nothing
+    t_ops.fault_inject_bits_batched(t_bits, [1], 99, positions=positions,
+                                    model="burst:rate=0.1,length=4")
+    assert t_kernel.launch_counts == {t_kernel.K3: 0, t_kernel.K4: 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        t_kernel.fault_inject_batched(t_bits, [1], 99, positions=positions,
+                                      m_thr=5, m_len=4, model_kind="burst")
 
 
 def _cuda():
@@ -236,6 +286,29 @@ def test_cuda_k3_matches_plain_version(plane):
         want = t_ref.fault_inject_batched_ref(t_bits, seeds, thr,
                                               positions=positions)
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", MODEL_SPECS)
+@pytest.mark.parametrize("plane", list(PLANES))
+def test_cuda_k3_model_matches_plain_version(plane, spec):
+    """K3 under a fault process: bitwise equal to the plain version at
+    col_div 1 and 8 (a 16-byte chunk of the uint8 plane then spans two
+    column units), and at a ragged plane whose chunks cross rows."""
+    dev = _cuda()
+    _, t_bits, positions = _plane(plane, seed=12)
+    seeds = np.asarray([1, 0xDEADBEEF, 77, 2 ** 31], np.uint32)
+    for col_div in (1, 8):
+        for thr in (THRESHOLDS["ber_3e-2"], THRESHOLDS["saturating"]):
+            before = t_kernel.launch_counts[t_kernel.K3]
+            got = t_ops.fault_inject_bits_batched(
+                t_bits.to(dev), seeds, thr, positions=positions, model=spec,
+                col_div=col_div)
+            assert t_kernel.launch_counts[t_kernel.K3] == before + 1
+            want = t_ops.fault_inject_bits_batched(
+                t_bits, seeds, thr, positions=positions, model=spec,
+                col_div=col_div)
+            assert torch.equal(got.cpu(), want), (col_div, thr)
 
 
 @pytest.mark.gpu

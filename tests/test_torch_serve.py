@@ -1,7 +1,8 @@
 """End-to-end: the port's lock-step launcher serves reduced olmo-1b exactly
 as the JAX launcher does, from the same weights and the same fault seeds.
 
-Arms: fused {one4n, none} x {static, dynamic} at BER 1e-3, and hbm. Greedy
+Arms: fused {one4n, none} x {static, dynamic} at BER 1e-3, and hbm, and
+dynamic serving under a burst and a drift fault process. Greedy
 tokens must be equal; prefill logits agree within allclose(rtol=1e-4,
 atol=1e-5) — f32 attention and MLP sums run in another order across
 frameworks.
@@ -45,16 +46,19 @@ def olmo():
     return jcfg, params, model, jax.random.fold_in(key, 1)
 
 
-def _jax_serve(jcfg, params, dkey, serve_path, protect, inject):
+def _jax_serve(jcfg, params, dkey, serve_path, protect, inject,
+               fault_model=""):
     """The reference launcher's lock-step loop (``repro.launch.serve._serve``)
     returning prefill logits and greedy tokens."""
     def serving_params(params, dkey):   # compiled once, not op by op
         if serve_path == "fused":
             dep = j_serve.make_deployment(params, ber=BER, protect=protect,
                                           n_group=8, index=2, key=dkey,
-                                          inject_mode=inject, field="full")
+                                          inject_mode=inject, field="full",
+                                          fault_model=fault_model)
             return dep.serving_params(**j_serve.serving_kw(
-                ber=BER, key=dkey, inject_mode=inject, field="full"))
+                ber=BER, key=dkey, inject_mode=inject, field="full",
+                fault_model=fault_model))
         return j_serve.deploy(params, ber=BER, protect=protect, n_group=8,
                               index=2, key=dkey)[0]
     sp = jax.jit(serving_params)(params, dkey)
@@ -121,3 +125,37 @@ def test_serve_matches_reference(olmo, serve_path, protect, inject):
     if inject == "static":
         assert res["ecc"]["corrected"] + res["ecc"]["uncorrectable"] > 0 \
             or protect == "none"
+
+
+@pytest.mark.parametrize("protect,fault_model", [
+    ("one4n", "burst:rate=0.25,length=4,axis=col"),
+    ("none", "burst:rate=0.25,length=4,axis=col"),
+    ("one4n", "drift:drift_rate=0.02")])
+def test_serve_fault_model_matches_reference(olmo, protect, fault_model):
+    """``--inject dynamic --fault-model``: the runtime carries the process,
+    every read (the embed gather and the unembed) compiles it per element,
+    drift keyed on the read position; greedy tokens equal the reference's.
+    The drift reads' thresholds use the correctly rounded scale; the
+    reference's float32 pow is off by an ulp at a few ticks (ROADMAP Queue
+    3), which moves a threshold by a few units out of millions."""
+    jcfg, params, model, dkey = olmo
+    j_logits, j_tokens = _jax_serve(jcfg, params, dkey, "fused", protect,
+                                    "dynamic", fault_model)
+    static, dynamic = _reference_seeds(params, dkey, "fused", protect)
+    res = t_serve.serve(model, batch=BATCH, prompt_len=PLEN, gen=GEN,
+                        seed=SEED, cim=True, ber=BER, protect=protect,
+                        serve_path="fused", inject="dynamic",
+                        static_seeds=static, dynamic_seeds=dynamic,
+                        fault_model=fault_model, verbose=False)
+    assert np.array_equal(res["tokens"], j_tokens)
+    t_logits = res["prefill_logits"].numpy()
+    assert np.array_equal(np.isnan(t_logits), np.isnan(j_logits))
+    np.testing.assert_allclose(t_logits, j_logits, rtol=1e-4, atol=1e-5)
+    # the process changed the reads: i.i.d. serving gives other logits
+    iid = t_serve.serve(model, batch=BATCH, prompt_len=PLEN, gen=GEN,
+                        seed=SEED, cim=True, ber=BER, protect=protect,
+                        serve_path="fused", inject="dynamic",
+                        static_seeds=static, dynamic_seeds=dynamic,
+                        verbose=False)
+    assert not torch.equal(iid["prefill_logits"], res["prefill_logits"]) \
+        or fault_model.startswith("drift")     # drift's prefill is tick 0

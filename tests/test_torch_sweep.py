@@ -291,8 +291,10 @@ def test_engine_refusals():
                             device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         t_sweep.SweepPlan(bers=(1e-3,), backend="tpu")
-    with pytest.raises(NotImplementedError):
-        t_sweep.SweepPlan(bers=(1e-3,), fault_models=("burst:rate=0.1",))
+    with pytest.raises(ValueError, match="unknown fault model"):
+        t_sweep.SweepPlan(bers=(1e-3,), fault_models=("gamma:rate=0.1",))
+    assert t_sweep.SweepPlan(bers=(1e-3,), fault_models=(
+        "burst:rate=0.1",)).n_arms("fields") == 4
     eng = t_sweep.SweepEngine(plan, device="cpu")
     with pytest.raises(ValueError, match="n_trials"):
         t_res.characterize_fields(0, {}, None, (1e-3,), n_trials=3,

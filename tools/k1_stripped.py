@@ -44,8 +44,16 @@ MATH_END = "        for (int m = 0; m < MP; ++m) acc[m][q] = fmaf(xv[m], wv, acc
            "      }\n"
 FOLD = "      acc[0][0] += __uint_as_float(mv[0] ^ mv[1] ^ mv[2] ^ mv[3] ^ sb ^ ef[0]) " \
        "* xv[0];\n"
-CW_FLIP = "w[q] ^= flip_mask(celem + q, seed_cw, thr_meta, geo.code_mask[q]);"
-MAN_FLIP = "const uint32_t f = flip_mask<0x3FFu>(e + q, seed_man, thr_man);"
+CW_FLIP = "w[q] ^= flip_mask(celem + q, seed_cw, t, geo.code_mask[q]);"
+MAN_FLIP = "const uint32_t f = flip_mask<0x3FFu>(e + q, seed_man, mm.thr(q, thr_man));"
+KINDS = {"0": "", "1": " burst", "2": " correlated"}
+
+
+def _variant(m) -> str:
+    """'M4 dynamic' (i.i.d.), 'M4 dynamic burst', ... of a narrow kernel's
+    template arguments (M rows, dynamic, fault-process kind)."""
+    return (f"M{m.group(1)} {'dynamic' if m.group(2) == '1' else 'static'}"
+            f"{KINDS[m.group(3)]}")
 
 
 def _cut_math(src: str) -> str:
@@ -96,9 +104,8 @@ def _sass_census(lib_path: Path, family: str = "one4n") -> None:
     name, counts = None, {}
     for ln in sass.splitlines():
         if "Function :" in ln:
-            m = re.search(rf"{family}_narrow_kernelILi(\d)ELb(\d)", ln)
-            name = f"M{m.group(1)} {'dynamic' if m.group(2) == '1' else 'static'}" \
-                if m else None
+            m = re.search(rf"{family}_narrow_kernelILi(\d)ELb(\d)ELi(\d)E", ln)
+            name = _variant(m) if m else None
             if name:
                 counts[name] = [0, 0, 0]
             continue
@@ -134,11 +141,10 @@ def main() -> int:
                                         srcs.items())))
     for ln in built["full"][1].splitlines():
         m = re.search(r"\d(cim_read_(?:one4n_narrow|raw_narrow|one4n|raw)"
-                      r"_kernel)(?:ILi(\d)ELb(\d)E)?", ln)
+                      r"_kernel)(?:ILi(\d)ELb(\d)ELi(\d)E)?", ln)
         if "Compiling entry" in ln and m:
-            print(f"ptxas: {m.group(1)}" + (
-                f" M{m.group(2)} {'dynamic' if m.group(3) == '1' else 'static'}"
-                if m.group(2) else ""))
+            v = re.search(r"ILi(\d)ELb(\d)ELi(\d)E", ln)
+            print(f"ptxas: {m.group(1)}" + (f" {_variant(v)}" if v else ""))
         elif "registers" in ln or "spill" in ln:
             print(f"ptxas:   {ln.split(':', 1)[-1].strip()}")
     _sass_census(out_dir / "full.so")

@@ -48,9 +48,10 @@ MATH_END = "        for (int m = 0; m < MP; ++m) acc[m][q] = fmaf(xv[m], wv, acc
            "      }\n"
 FOLD = "      acc[0][0] += __uint_as_float(mv[0] ^ mv[1] ^ mv[2] ^ mv[3] ^ sg[0] ^ sg[7] " \
        "^ ef[0] ^ ef[7]) * xv[0];\n"
-META_FLIP = "      raw_narrow_flip_meta(es, ss, k0, c0, p, n_blocks, seed_meta, seed_sign, " \
-            "thr_meta);\n"
-MAN_FLIP = "const uint32_t fm = flip_mask<0x3FFu>(elem + q, seed_man, thr_man);"
+META_FLIP = "      raw_narrow_flip_meta<KIND>(es, ss, k0, c0, p, n_blocks, seed_meta, " \
+            "seed_sign, thr_meta,\n                                 useed_meta, useed_sign);\n"
+KINDS = {"0": "", "1": " burst", "2": " correlated"}
+MAN_FLIP = "const uint32_t fm = flip_mask<0x3FFu>(elem + q, seed_man, mm.thr(q, thr_man));"
 
 
 def _cut(src: str, what: str, by: str) -> str:
@@ -84,9 +85,10 @@ def _ptxas_lines(log: str) -> None:
     current = None
     for ln in log.splitlines():
         if "Compiling entry" in ln:
-            m = re.search(r"cim_read_raw_narrow_kernelILi(\d)ELb(\d)E", ln)
-            current = f"M{m.group(1)} {'dynamic' if m.group(2) == '1' else 'static'}" \
-                if m else None
+            m = re.search(r"cim_read_raw_narrow_kernelILi(\d)ELb(\d)ELi(\d)E", ln)
+            current = (f"M{m.group(1)} "
+                       f"{'dynamic' if m.group(2) == '1' else 'static'}"
+                       f"{KINDS[m.group(3)]}") if m else None
             if current:
                 print(f"ptxas: cim_read_raw_narrow_kernel {current}")
         elif current and ("registers" in ln or "spill" in ln):
