@@ -111,9 +111,27 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    and with its plain version within 1e-5; the identity probe must give the
    trained unembed bitwise; ragged shapes, n_group 4 and 16 and bf16 x
    against the plain version; a plane holding all 256 exponent bytes
-   bitwise equal to the plain version, +-inf from byte 143, no NaN.
+   bitwise equal to the plain version, +-inf from byte 143, no NaN;
+10. serve full-width olmo-1b through the continuous-batching engine
+   (LoadGen of 12 requests, prompts 8-32, generations 4-16, all at t = 0;
+   4 slots, chunk 16) in four arms at BER 1e-4 without ECC accounting:
+   (a) fused one4n dynamic, (b) fused none dynamic, (c) fused one4n
+   static, (d) hbm; the counts are zeroed just before each arm and read
+   just after: (a) and (b) must launch K1 / K2 once per prefill chunk plus
+   n_slots times per decode step (every slot reads at M = 1, inactive ones
+   too), each launch through the narrow kernel, and (c) and (d) neither;
+   per arm the decode tok/s, TTFT mean and p95, slot occupancy and decode
+   steps. With ECC accounting (its time printed), on arms (a) and (c) and
+   a 4-request load: rids 0 and 2 re-served through a fresh engine of the
+   same n_slots, and the load in reversed arrival order (other slots),
+   equal the co-batched run bitwise (tokens, every logit vector, ECC
+   charges); arm (a) over a shared 32-token prefix with a prefix cache
+   hits, and a hit equals a cold engine bitwise; reduced olmo-1b served by
+   the engine on the card equals the CPU's plain path (tokens and ECC
+   equal, logits within allclose(1e-4, 1e-4)) for the dynamic one4n and
+   none arms. Phase 7 also times K1's and K2's narrow kernels at M = 1.
 
-Phases run in the order 1-6, 8, 9, 7. Prints the card's name and power
+Phases run in the order 1-3, 10, 4-6, 8, 9, 7. Prints the card's name and power
 limit, then one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -746,6 +764,262 @@ def phase_reduced_reference(dev) -> None:
               f"(tokens equal, logits max err {err:.3e})")
 
 
+ENGINE_SLOTS, ENGINE_CHUNK, ENGINE_BER = 4, 16, 1e-4
+ENGINE_LOAD = dict(n_requests=12, prompt_lens=(8, 32), gen_lens=(4, 16),
+                   seed=0)
+ENGINE_ARMS = (  # (label, serve_path, protect, inject, kernel it must launch)
+    ("a fused one4n dynamic", "fused", "one4n", "dynamic",
+     "cim_read_matmul_one4n"),
+    ("b fused none dynamic", "fused", "none", "dynamic",
+     "cim_read_matmul_raw"),
+    ("c fused one4n static", "fused", "one4n", "static", None),
+    ("d hbm one4n", "hbm", "one4n", "static", None),
+)
+
+
+def _engine_params(model, arm):
+    from repro_torch.launch import serve as serve_lib
+    _, path, protect, inject, _ = arm
+    return serve_lib.build_params(model, cim=True, ber=ENGINE_BER,
+                                  protect=protect, serve_path=path,
+                                  inject=inject, verbose=False)[0]
+
+
+def _engine_run(model, params, reqs, max_len, **kw):
+    """One engine over ``reqs`` -> (results by rid, aggregate)."""
+    import torch
+    from repro_torch.launch import engine as engine_lib
+    eng = engine_lib.Engine(model, params, n_slots=ENGINE_SLOTS,
+                            max_len=max_len, chunk=ENGINE_CHUNK, **kw)
+    with torch.inference_mode():
+        res, agg = eng.run(reqs)
+    _check(sorted(res) == sorted(r.rid for r in reqs),
+           f"engine: served {sorted(res)} of {[r.rid for r in reqs]}")
+    return res, agg
+
+
+def _same_request(a, b) -> bool:
+    """Tokens, every logit vector (bitwise) and the ECC charges equal."""
+    import numpy as np
+    return (a.tokens == b.tokens and a.ecc == b.ecc
+            and a.ecc_window == b.ecc_window
+            and a.logits.shape == b.logits.shape
+            and np.array_equal(a.logits.view(np.uint32),
+                               b.logits.view(np.uint32)))
+
+
+def phase_engine(model, kernel_lib) -> dict:
+    """Phase 10: the continuous-batching engine on full-width olmo-1b.
+
+    Arms (a)-(d) serve LoadGen(12 requests) through 4 slots, chunk 16,
+    without ECC accounting; the counts are zeroed just before each arm and
+    read just after: (a)/(b) launch K1/K2 once per cold prefill chunk plus
+    n_slots per decode step (every slot, inactive ones too, reads at
+    M = 1, through the narrow kernel), (c)/(d) launch neither. Then, with
+    ECC accounting: solo equals co-batched bitwise on arms (a) and (c)
+    (rids 0 and 2, and every request after the arrival order is reversed),
+    a prefix-cache hit equals a cold prefill bitwise (arm a), and reduced
+    olmo-1b served by the engine on the card equals the CPU's plain path.
+    Returns each kernel's launches in its arm."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import engine as engine_lib
+    vocab = model.cfg.vocab_size
+    t0 = time.perf_counter()
+    load = engine_lib.LoadGen(vocab_size=vocab, **ENGINE_LOAD)
+    reqs, max_len = load.requests(), load.max_len()
+    chunks = sum(-(-r.tokens.size // ENGINE_CHUNK) for r in reqs)
+    launches = {}
+    for arm in ENGINE_ARMS:
+        label, name = arm[0], arm[4]
+        params = _engine_params(model, arm)
+        kernel_lib.reset_launch_counts()
+        (res, agg), kernels = _kernels_of(lambda: _engine_run(
+            model, params, reqs, max_len, ecc_accounting=False))
+        counts = dict(kernel_lib.launch_counts)
+        want = chunks + agg["decode_steps"] * ENGINE_SLOTS if name else 0
+        _check(all(v == (want if k == name else 0)
+                   for k, v in counts.items()),
+               f"engine arm {label}: launches {counts}, expected {want} of "
+               f"{name} ({chunks} prefill chunks + {agg['decode_steps']} "
+               f"steps x {ENGINE_SLOTS} slots)")
+        _check(kernels == ["narrow"] * want, f"engine arm {label}: reads "
+               f"went through {sorted(set(kernels))} ({len(kernels)})")
+        for r in reqs:
+            got = res[r.rid]
+            _check(len(got.tokens) == r.max_new and got.finite and
+                   all(0 <= t < vocab for t in got.tokens),
+                   f"engine arm {label}: request {r.rid} gave {got.tokens}")
+        if name:
+            launches[name] = counts[name]
+        print(f"phase 10: engine arm {label}: decode "
+              f"{agg['decode_tok_s']:.1f} tok/s aggregate ("
+              f"{agg['decode_wall_s'] / agg['decode_steps'] * 1e3:.1f} ms a "
+              f"step), TTFT mean "
+              f"{agg['ttft_s_mean'] * 1e3:.1f} ms p95 "
+              f"{agg['ttft_s_p95'] * 1e3:.1f} ms, occupancy "
+              f"{agg['slot_occupancy']:.3f}, {agg['decode_steps']} decode "
+              f"steps, {agg['total_tokens']} tokens, launches {counts}")
+        del params
+    _embed_read_ms(model)
+    _engine_invariance(model, vocab)
+    _engine_prefix(model, vocab)
+    _engine_reduced(model.embed.device, kernel_lib)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _embed_read_ms(model) -> None:
+    """Host time of one dynamic one-row embed read (plain torch: the
+    flips and the One4N decode of the gathered row), the read a dynamic
+    decode step makes once per slot beside its K1 launch."""
+    import torch
+    from repro_torch.core import cim
+    from repro_torch.core import deployment as dep_lib
+    params = _engine_params(model, ENGINE_ARMS[0])
+    store, rt = params["embed"], params["_cim"]
+    idx = torch.tensor([[5]], device=store.device)
+    seeds = dep_lib.request_read_seeds(rt["seeds"], dep_lib.leaf_salt("embed"),
+                                       dep_lib.request_salt(0), 40)
+    thr_man, thr_meta, fm = dep_lib.read_thresholds(rt, 40)
+
+    def read():
+        return cim.read_rows(store, idx, seeds=seeds, thr_man=thr_man,
+                             thr_meta=thr_meta, model=fm)
+    read()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        read()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"phase 10: one dynamic embed row read (plain torch, host clock "
+          f"over 20 synchronized reads): {ms:.2f} ms")
+
+
+def _timed_charges(eng):
+    """Wrap ``eng``'s per-read ECC charge to total its wall time."""
+    real, spent = eng._charge_reads, [0.0]
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        real(*args)
+        spent[0] += time.perf_counter() - t0
+    eng._charge_reads = timed
+    return spent
+
+
+def _engine_invariance(model, vocab) -> None:
+    """Arms (a) and (c) with ECC accounting: rids 0 and 2 re-served through
+    a fresh engine of the same n_slots, and the load again in reversed
+    arrival order, equal the co-batched run bitwise."""
+    import torch
+    from repro_torch.launch import engine as engine_lib
+    load = engine_lib.LoadGen(n_requests=4, prompt_lens=(8, 32),
+                              gen_lens=(3, 6), vocab_size=vocab, seed=0)
+    reqs, max_len = load.requests(), load.max_len()
+    rev = [engine_lib.Request(rid=r.rid, tokens=r.tokens, max_new=r.max_new,
+                              arrival=float(len(reqs) - r.rid)) for r in reqs]
+    for arm in (ENGINE_ARMS[0], ENGINE_ARMS[2]):
+        params = _engine_params(model, arm)
+        eng = engine_lib.Engine(model, params, n_slots=ENGINE_SLOTS,
+                                max_len=max_len, chunk=ENGINE_CHUNK,
+                                collect_logits=True)
+        spent = _timed_charges(eng)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            co, agg = eng.run(reqs)
+        wall = time.perf_counter() - t0
+        for rid in (0, 2):
+            solo, _ = _engine_run(model, params, [reqs[rid]], max_len,
+                                  collect_logits=True)
+            _check(_same_request(co[rid], solo[rid]), f"engine arm "
+                   f"{arm[0]}: request {rid} solo != co-batched")
+        back, _ = _engine_run(model, params, rev, max_len,
+                              collect_logits=True)
+        moved = [r.rid for r in reqs if back[r.rid].slot != co[r.rid].slot]
+        _check(bool(moved), f"engine arm {arm[0]}: reversal moved no slot")
+        for r in reqs:
+            _check(_same_request(co[r.rid], back[r.rid]), f"engine arm "
+                   f"{arm[0]}: request {r.rid} changed with its slot")
+        print(f"phase 10: engine arm {arm[0]} with ECC accounting: solo == "
+              f"co-batched bitwise (rids 0, 2: tokens, logits, ECC), reversal "
+              f"moved rids {moved} to other slots and changed nothing; "
+              f"{agg['ecc']['reads']} charged reads, ECC corrected="
+              f"{agg['ecc']['corrected']} uncorrectable="
+              f"{agg['ecc']['uncorrectable']}; the accounting took "
+              f"{spent[0]:.2f} s of the co-batched run's {wall:.2f} s")
+        del params
+
+
+def _engine_prefix(model, vocab) -> None:
+    """Arm (a) over a shared 32-token prefix through a prefix cache: a hit
+    equals a cold engine without the cache, bitwise."""
+    from repro_torch.launch import engine as engine_lib
+    load = engine_lib.LoadGen(n_requests=3, prompt_lens=(8, 32),
+                              gen_lens=(3, 4), vocab_size=vocab, seed=1,
+                              prefix_len=32)
+    reqs, max_len = load.requests(), load.max_len()
+    params = _engine_params(model, ENGINE_ARMS[0])
+    warm, agg = _engine_run(model, params, reqs, max_len,
+                            collect_logits=True, prefix_cache=True)
+    hits = [r for r in warm.values() if r.prefix_tokens > 0]
+    _check(agg["prefix_hits"] >= 1 and bool(hits),
+           f"engine prefix: no hit ({agg['prefix_cache']})")
+    rid = hits[0].rid
+    cold, _ = _engine_run(model, params, [reqs[rid]], max_len,
+                          collect_logits=True)
+    _check(cold[rid].prefix_tokens == 0 and
+           _same_request(warm[rid], cold[rid]),
+           f"engine prefix: request {rid} from the cache != cold prefill")
+    print(f"phase 10: engine prefix cache (arm a, 32 shared tokens): "
+          f"{agg['prefix_hits']} hits, {agg['prefix_tokens']} tokens reused; "
+          f"request {rid} ({hits[0].prefix_tokens} cached tokens) == a cold "
+          f"engine bitwise (tokens, logits, ECC)")
+
+
+def _engine_reduced(dev, kernel_lib) -> None:
+    """Reduced olmo-1b served by the engine on the card (K1/K2 at M = 1)
+    and on the CPU (plain versions), same weights and seeds: tokens and ECC
+    equal, logits within phase 3's allclose."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import engine as engine_lib
+    from repro_torch.models.lm import LM
+    cfg = get_config("olmo-1b").reduced()
+    cpu = LM(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    gpu = LM(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    load = engine_lib.LoadGen(n_requests=6, prompt_lens=(3, 24),
+                              gen_lens=(2, 6), vocab_size=cfg.vocab_size,
+                              seed=2)
+    reqs, max_len = load.requests(), load.max_len()
+    chunks = sum(-(-r.tokens.size // ENGINE_CHUNK) for r in reqs)
+    for arm in (ENGINE_ARMS[0], ENGINE_ARMS[1]):
+        a, _ = _engine_run(cpu, _engine_params(cpu, arm), reqs, max_len,
+                           collect_logits=True)
+        kernel_lib.reset_launch_counts()
+        b, agg = _engine_run(gpu, _engine_params(gpu, arm), reqs, max_len,
+                             collect_logits=True)
+        want = chunks + agg["decode_steps"] * ENGINE_SLOTS
+        _check(kernel_lib.launch_counts[arm[4]] == want,
+               f"engine reduced {arm[0]}: {kernel_lib.launch_counts}, "
+               f"expected {want}")
+        worst = 0.0
+        for r in reqs:
+            _check(a[r.rid].tokens == b[r.rid].tokens and
+                   a[r.rid].ecc == b[r.rid].ecc,
+                   f"engine reduced {arm[0]}: request {r.rid} card != CPU")
+            ok, err = _close(torch.from_numpy(a[r.rid].logits),
+                             torch.from_numpy(b[r.rid].logits))
+            _check(ok, f"engine reduced {arm[0]}: request {r.rid} logits "
+                   f"max err {err:.3e}")
+            worst = max(worst, err)
+        print(f"phase 10: engine reduced olmo-1b {arm[0]}: card == CPU plain "
+              f"(tokens and ECC equal, logits max err {worst:.3e}), {want} "
+              f"kernel launches")
+
+
 def _cw2d(store):
     cw = store.codewords
     return cw.reshape(cw.shape[0], -1)
@@ -1256,11 +1530,14 @@ def _draws(store, seeds=None, thr=None, model=None) -> int:
     return draws + exp_draws + sign_draws
 
 
-def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
+def phase_times(dev, checks: dict, launches: dict, engine_launches: dict,
+                card: str) -> list:
     """K1/K2 at the serving shape (M = BATCH). Each one's narrow kernel is
     the one the main path launches; its tile kernel is timed beside it
     through its binding. The static read is bound by bytes; the dynamic read by the
-    larger of the bytes and the ALU pipe's draws (``_draws``)."""
+    larger of the bytes and the ALU pipe's draws (``_draws``). Each narrow
+    kernel again at M = 1, the shape every read of the engine has (phase
+    10), beside torch.matmul at M = 1."""
     import torch
     from repro_torch.core import cim
     from repro_torch.core import faultmodels as fm
@@ -1297,6 +1574,27 @@ def phase_times(dev, checks: dict, launches: dict, card: str) -> list:
                "dynamic_bound_by": "bytes" if bytes_ms >= hash_ms
                else "operations", "draws": draws, "bytes": nbytes,
                "variant": info["tiles"]["kernel"]}
+        x1 = x[:1].contiguous()
+        m1 = {"ms": _time_ms(lambda: ops.cim_linear_store(
+                  x1, store, scalars=scalars)),
+              "static_ms": _time_ms(lambda: ops.cim_linear_store(x1, store)),
+              "library_ms": _time_ms(lambda: torch.matmul(x1, w)),
+              "plain_ms": _time_ms(lambda: ref.cim_read_ref(x1, store,
+                                                            scalars),
+                                   reps=3, inner=1),
+              "engine_launches": engine_launches[name]}
+        m1_bytes = nbytes - (BATCH - 1) * (K + J) * 4
+        m1["bound_ms"] = m1_bytes / HBM_BYTES_PER_S * 1e3
+        m1["dynamic_bound_ms"] = max(m1["bound_ms"], hash_ms)
+        row["m1"] = m1
+        print(f"phase 7: {name} narrow at M = 1 (the engine's reads): "
+              f"{m1['ms']:.4f} ms dynamic, {m1['static_ms']:.4f} ms static "
+              f"(M = {BATCH}: {ms:.4f} / {ms_static:.4f}); plain "
+              f"{m1['plain_ms']:.3f} ms, torch.matmul at M = 1 "
+              f"{m1['library_ms']:.4f} ms; bound {m1['bound_ms']:.4f} "
+              f"ms static (bytes), {m1['dynamic_bound_ms']:.4f} ms dynamic; "
+              f"{m1['engine_launches']} launches in its engine arm, on "
+              f"{card}")
         row["tile_ms"] = _time_ms(lambda: _tile(x, store, scalars))
         row["tile_static_ms"] = _time_ms(lambda: _tile(x, store))
         tile = (f"; tile kernel at M = {BATCH}: {row['tile_ms']:.4f} ms "
@@ -1678,6 +1976,7 @@ def main() -> int:
                generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     launches = phase_serve(model, kernel_lib)
     phase_reduced_reference(dev)
+    engine_launches = phase_engine(model, kernel_lib)
     checks["unembed_weights"] = model.unembed.detach()
     fi = phase_fault_inject(dev, checks, fi_kernel)
     fig6 = phase_fig6(dev, model, fi_kernel)
@@ -1691,7 +1990,7 @@ def main() -> int:
     bfp = phase_bfp(dev, trained, bfp_kernel)
     del trained
     torch.cuda.empty_cache()
-    rows = phase_times(dev, checks, launches, card)
+    rows = phase_times(dev, checks, launches, engine_launches, card)
     rows += phase_fi_times(dev, checks, fig6["launches"], fi, card)
     rows.append(phase_bfp_times(dev, bfp, card))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build start")

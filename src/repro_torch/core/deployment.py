@@ -338,11 +338,15 @@ class CIMDeployment:
 # ---------------------------------------------------------------------------
 # Per-request counter-PRNG seed derivation:
 #   plane seed --fold leaf_salt--> --fold request_salt--> --fold pos--> seed
-# (every link cim.fold_seed; no request salt skips that link).
+# (every link cim.fold_seed; no request salt skips that link). The serving
+# engine salts decode reads with ``request_salt(rid)`` and prompt-prefill
+# reads with ``prefix_salt`` of the prompt tokens up through the chunk, so two
+# requests that share a prompt prefix draw the same streams over it.
 # ---------------------------------------------------------------------------
 
 CIM_LEAF_SALTS = {"embed": 0x1001, "unembed": 0x2002}
 _REQUEST_SALT_CONST = 0x7FEED5A1
+_PREFIX_SALT_CONST = 0x5EEDC0DE
 
 
 def leaf_salt(path: str) -> int:
@@ -359,6 +363,17 @@ def leaf_salt(path: str) -> int:
 def request_salt(request_id: int) -> int:
     """uint32 counter-PRNG salt of a serving request id."""
     return cim_lib.fold_seed(_REQUEST_SALT_CONST, request_id)
+
+
+def prefix_salt(tokens) -> int:
+    """uint32 content salt of a prompt prefix: FNV-1a over the token ids as
+    little-endian uint32 words, seeded off its own constant so prefix
+    streams never alias the ``request_salt`` family. A pure function of the
+    tokens: independent of request id, slot and arrival order."""
+    h = (0x811C9DC5 ^ _PREFIX_SALT_CONST) & 0xFFFFFFFF
+    for b in np.asarray(tokens).astype("<u4").tobytes():
+        h = ((h ^ b) * 0x01000193) & 0xFFFFFFFF
+    return h
 
 
 def read_thresholds(runtime: dict, pos: int):

@@ -27,13 +27,27 @@ is how the parity tests replay the reference's streams.
 the faults: the static injection of either serve path, and the per-read
 runtime of ``--inject dynamic`` (drift keyed on the read position).
 
-``--engine``, ``--fleet``, ``--mesh``, ``--expert-cim``, ``--scrub`` and
-``--age-ber`` wait (ROADMAP Queue 1 items 9-14).
+``--engine`` swaps the lock-step batch for the continuous-batching engine
+(:mod:`repro_torch.launch.engine`): a synthetic load of ``--requests``
+requests (Poisson at ``--rate`` req/s, or all at once) with ragged prompt
+and generation lengths is scheduled through ``--slots`` decode slots
+(chunked prefill, per-request fault streams, per-request ECC and TTFT
+accounting; ``--engine-json`` writes the per-request artifact; ``--probe
+RID`` re-serves one request through a fresh engine and fails unless its
+tokens and ECC match).
+
+  python -m repro_torch.launch.serve --engine --cim --ber 1e-4 \\
+      --inject dynamic --slots 4 --chunk 16 --requests 12 --probe 0
+
+``--fleet``, ``--mesh``, ``--expert-cim``, ``--scrub`` and ``--age-ber``
+wait (ROADMAP Queue 1 items 10-14).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import time
 
 import numpy as np
@@ -46,6 +60,7 @@ from repro_torch.core import faultmodels as fm_lib
 from repro_torch.data.synthetic import MarkovLM
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cim_read import kernel as kernel_lib
+from repro_torch.launch import engine as engine_lib
 from repro_torch.models.lm import LM
 
 _SEED_SALT = 0x5EED
@@ -134,26 +149,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
-          seed: int = 0, cim: bool = False, ber: float = 0.0,
-          protect: str = "one4n", n_group: int = 8, index: int = 2,
-          serve_path: str = "fused", inject: str = "static",
-          field: str = "full", static_seeds=None, dynamic_seeds=None,
-          fault_model: str = "", verbose: bool = True) -> dict:
-    """Lock-step serve of one MarkovLM batch. Returns the generated tokens
-    [B, gen], the prefill logits, ECC counts, timings and the kernel launches
-    of the run. ``fault_model`` (grammar string) shapes the static
-    injection and the dynamic runtime."""
+def build_params(model: LM, *, seed: int = 0, cim: bool = False,
+                 ber: float = 0.0, protect: str = "one4n", n_group: int = 8,
+                 index: int = 2, serve_path: str = "fused",
+                 inject: str = "static", field: str = "full",
+                 static_seeds=None, dynamic_seeds=None, fault_model: str = "",
+                 verbose: bool = True):
+    """The serving params of a launch -> (params or None for the model's own
+    weights, ECC counts of the deployed image, fused report or None)."""
     dep_lib.check_enum("serve_path", serve_path, dep_lib.VALID_SERVE_PATHS,
                        "serve")
     dep_lib.check_enum("inject", inject, dep_lib.VALID_INJECTS, "serve")
     fm_lib.parse_fault_model(fault_model)      # validate the grammar eagerly
-    cfg = model.cfg
-    device = model.embed.device
     d_static, d_dynamic = default_seeds(seed)
     static_seeds = static_seeds or d_static
     dynamic_seeds = dynamic_seeds or d_dynamic
-
     params, ecc, report = None, {"corrected": 0, "uncorrectable": 0}, None
     if cim or ber > 0:
         leaves = model.cim_leaves()
@@ -182,6 +192,26 @@ def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
                 print(f"CIM deploy (hbm): protect={protect} ber={ber:.1e} "
                       f"corrected={ecc['corrected']} "
                       f"uncorrectable={ecc['uncorrectable']}")
+    return params, ecc, report
+
+
+def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
+          seed: int = 0, cim: bool = False, ber: float = 0.0,
+          protect: str = "one4n", n_group: int = 8, index: int = 2,
+          serve_path: str = "fused", inject: str = "static",
+          field: str = "full", static_seeds=None, dynamic_seeds=None,
+          fault_model: str = "", verbose: bool = True) -> dict:
+    """Lock-step serve of one MarkovLM batch. Returns the generated tokens
+    [B, gen], the prefill logits, ECC counts, timings and the kernel launches
+    of the run. ``fault_model`` (grammar string) shapes the static
+    injection and the dynamic runtime."""
+    cfg = model.cfg
+    device = model.embed.device
+    params, ecc, report = build_params(
+        model, seed=seed, cim=cim, ber=ber, protect=protect, n_group=n_group,
+        index=index, serve_path=serve_path, inject=inject, field=field,
+        static_seeds=static_seeds, dynamic_seeds=dynamic_seeds,
+        fault_model=fault_model, verbose=verbose)
 
     data = MarkovLM(cfg.vocab_size, prompt_len, batch, seed=seed)
     prompts = torch.as_tensor(data.batch(0)["tokens"], dtype=torch.int64,
@@ -217,6 +247,72 @@ def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
     return res
 
 
+def _parse_range(spec: str) -> tuple:
+    lo, hi = (int(v) for v in spec.split(","))
+    if not 1 <= lo <= hi:
+        raise ValueError(f"bad length range {spec!r}")
+    return lo, hi
+
+
+def serve_engine(model: LM, params, *, slots: int = 4, chunk: int = 16,
+                 max_len: int = 0, requests: int = 16, rate: float = 0.0,
+                 prompt_range=(8, 32), gen_range=(4, 16), seed: int = 0,
+                 shared_prefix: int = 0, ecc_accounting: bool = True,
+                 probe: int = -1, verbose: bool = True):
+    """Serve a synthetic load through the continuous-batching engine ->
+    (results by rid, aggregate, probe record or None). ``rate`` 0 means all
+    requests arrive at once; ``shared_prefix`` > 0 prepends one shared
+    prefix to every prompt and attaches a prefix cache. ``probe`` >= 0
+    re-serves that request through a fresh engine of the same shape and
+    raises unless its tokens and ECC charges match the co-batched run."""
+    load = engine_lib.LoadGen(
+        n_requests=requests, rate=rate if rate > 0 else float("inf"),
+        prompt_lens=tuple(prompt_range), gen_lens=tuple(gen_range),
+        vocab_size=model.cfg.vocab_size, seed=seed, prefix_len=shared_prefix)
+    max_len = max_len or load.max_len()
+    kw = dict(n_slots=slots, max_len=max_len, chunk=chunk,
+              ecc_accounting=ecc_accounting,
+              prefix_cache=True if shared_prefix > 0 else None)
+    eng = engine_lib.Engine(model, params, **kw)
+    reqs = load.requests()
+    with torch.inference_mode():
+        results, agg = eng.run(reqs, open_loop=rate > 0)
+    missing = [r.rid for r in reqs if r.rid not in results]
+    if missing:
+        raise engine_lib.EngineError(f"engine dropped requests: {missing}")
+    if verbose:
+        print(f"engine: {agg['n_requests']} requests over {slots} slots "
+              f"(chunk {eng.chunk}, max_len {max_len}); "
+              f"{agg['total_tokens']} tokens in {agg['decode_steps']} decode "
+              f"steps, occupancy {agg['slot_occupancy']:.2f}; prefix hits "
+              f"{agg['prefix_hits']}")
+        print(f"decode: {agg['decode_tok_s']:.1f} tok/s aggregate; TTFT mean "
+              f"{agg['ttft_s_mean'] * 1e3:.0f} ms p95 "
+              f"{agg['ttft_s_p95'] * 1e3:.0f} ms; ECC reads="
+              f"{agg['ecc']['reads']} corrected={agg['ecc']['corrected']} "
+              f"uncorrectable={agg['ecc']['uncorrectable']}")
+    record = None
+    if probe >= 0:
+        preq = [r for r in reqs if r.rid == probe]
+        if not preq:
+            raise ValueError(f"--probe {probe}: no such rid in the load")
+        solo_eng = engine_lib.Engine(model, params, **kw)
+        with torch.inference_mode():
+            solo = solo_eng.run(preq)[0][probe]
+        routed = results[probe]
+        record = {"rid": probe, "tokens_equal": routed.tokens == solo.tokens,
+                  "ecc_equal": routed.ecc == solo.ecc}
+        record["ok"] = record["tokens_equal"] and record["ecc_equal"]
+        if verbose:
+            print(f"probe rid={probe}: solo replay "
+                  f"{'MATCHES' if record['ok'] else 'DIVERGES'} (tokens "
+                  f"{record['tokens_equal']}, ecc {record['ecc_equal']})")
+        if not record["ok"]:
+            raise engine_lib.EngineError(
+                f"solo-vs-co-batched probe failed: {record}")
+    return results, agg, record
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b")
@@ -242,6 +338,38 @@ def main(argv=None):
                          "drift[:drift_rate=,tick=]")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    # continuous-batching engine mode (repro_torch.launch.engine)
+    ap.add_argument("--engine", action="store_true",
+                    help="serve a synthetic request stream through the "
+                         "continuous-batching engine instead of one "
+                         "lock-step batch")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="engine decode slots (the fixed co-batch width)")
+    ap.add_argument("--chunk", type=int, default=16,
+                    help="engine prefill chunk length (ragged prompts)")
+    ap.add_argument("--max-len", type=int, default=0,
+                    help="engine per-slot K/V rows (0: fit the load)")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="engine load: number of requests")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="engine load: Poisson arrival rate in req/s "
+                         "(0: all arrive at t=0)")
+    ap.add_argument("--prompt-range", default="8,32", metavar="LO,HI",
+                    help="engine load: uniform prompt-length range")
+    ap.add_argument("--gen-range", default="4,16", metavar="LO,HI",
+                    help="engine load: uniform generation-length range")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="L",
+                    help="engine load: prepend one shared L-token prefix to "
+                         "every prompt and serve it through a prefix cache")
+    ap.add_argument("--engine-json", default=None, metavar="PATH",
+                    help="write the engine's per-request ECC/latency JSON")
+    ap.add_argument("--no-ecc-accounting", action="store_true",
+                    help="skip per-read ECC accounting (a dynamic charge "
+                         "re-decodes the codeword planes on every read)")
+    ap.add_argument("--probe", type=int, default=-1, metavar="RID",
+                    help="engine: re-serve request RID through a fresh "
+                         "engine and fail unless its tokens and ECC match "
+                         "the co-batched run")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -249,11 +377,43 @@ def main(argv=None):
         cfg = cfg.reduced()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = LM(cfg, generator=gen, device=device)
+    if args.engine:
+        return _main_engine(args, model)
     return serve(model, batch=args.batch, prompt_len=args.prompt_len,
                  gen=args.gen, seed=args.seed, cim=args.cim, ber=args.ber,
                  protect=args.protect, n_group=args.n_group, index=args.index,
                  serve_path=args.serve_path, inject=args.inject,
                  field=args.field, fault_model=args.fault_model)
+
+
+
+def _main_engine(args, model: LM):
+    """``--engine``: deploy as the lock-step launch does, then serve the
+    load through the engine (and write ``--engine-json``)."""
+    params, _, _ = build_params(
+        model, seed=args.seed, cim=args.cim, ber=args.ber,
+        protect=args.protect, n_group=args.n_group, index=args.index,
+        serve_path=args.serve_path, inject=args.inject, field=args.field,
+        fault_model=args.fault_model)
+    results, agg, probe = serve_engine(
+        model, params, slots=args.slots, chunk=args.chunk,
+        max_len=args.max_len, requests=args.requests, rate=args.rate,
+        prompt_range=_parse_range(args.prompt_range),
+        gen_range=_parse_range(args.gen_range), seed=args.seed,
+        shared_prefix=args.shared_prefix,
+        ecc_accounting=not args.no_ecc_accounting, probe=args.probe)
+    if args.engine_json:
+        os.makedirs(os.path.dirname(args.engine_json) or ".", exist_ok=True)
+        config = {k: getattr(args, k) for k in (
+            "arch", "reduced", "slots", "chunk", "max_len", "requests",
+            "rate", "ber", "protect", "inject", "serve_path", "seed",
+            "fault_model", "shared_prefix", "device")}
+        payload = {"config": config, "aggregate": agg, "probe": probe,
+                   "requests": [results[r].to_json() for r in sorted(results)]}
+        with open(args.engine_json, "w") as f:
+            json.dump(payload, f, indent=2)
+        print(f"wrote {args.engine_json}")
+    return results, agg
 
 
 if __name__ == "__main__":

@@ -75,18 +75,29 @@ class Attention(nn.Module):
         out = _attend(q, k, v, mask).reshape(b, s, h * hd)
         return out @ self.wo.to(x.dtype), k, v
 
-    def decode(self, x, cache, pos: int):
-        """Cache-append decode at scalar ``pos``: x [B,S,D] written to cache
-        rows [pos, pos+S) in place -> (out [B,S,D], cache)."""
+    def decode(self, x, cache, pos):
+        """Cache-append decode: x [B,S,D] -> (out [B,S,D], cache), the cache
+        updated in place (a view's base included). ``pos`` is the number of
+        tokens already cached: a [B] int64 tensor (continuous batching:
+        batch row b writes rows [pos[b], pos[b]+S)) or an int, every row's.
+        Rows past a row's position hold stale values; the causal mask
+        (``k_pos <= q_pos``, per row) hides each until the step that
+        overwrites it. The caller keeps every write below the cache length:
+        an index past it raises here on the CPU and is a device-side assert
+        on the card (the engine pads a ragged chunk only as far as
+        ``max_len``)."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-        positions = (pos + torch.arange(s, dtype=torch.int64, device=x.device)
-                     )[None].expand(b, s)
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((b,), pos, dtype=torch.int64, device=x.device)
+        positions = pos[:, None] + torch.arange(s, dtype=torch.int64,
+                                                device=x.device)
         q, k_new, v_new = self.project_qkv(x, positions)
         q = q.reshape(b, s, kh, h // kh, hd)
-        cache["k"][:, pos:pos + s] = k_new.to(cache["k"].dtype)
-        cache["v"][:, pos:pos + s] = v_new.to(cache["v"].dtype)
+        rows = torch.arange(b, device=x.device)[:, None]
+        cache["k"][rows, positions] = k_new.to(cache["k"].dtype)
+        cache["v"][rows, positions] = v_new.to(cache["v"].dtype)
         t = cache["k"].shape[1]
         k_pos = torch.arange(t, dtype=torch.int64, device=x.device)[None]
         mask = _causal_mask(positions, k_pos)[:, None, None]

@@ -18,12 +18,18 @@ card. Without ``params`` the module's own weights serve.
 reference's layout, as the sweep engine hands one to an ``eval_fn`` and as
 the training step differentiates it (through a weightless :func:`shell`).
 
-The continuous-batching slot-state API waits (ROADMAP Queue 1 item 9).
+The continuous-batching engine (:mod:`repro_torch.launch.engine`) speaks the
+slot-state protocol: :class:`SlotStateSpec` per block kind,
+:func:`init_slot_states`, :meth:`LM.prefill_chunk`, :meth:`LM.decode_slots`,
+:func:`extract_state_chunk` and :func:`inject_state_chunk`. Only the ``attn``
+kind is ported; the others wait (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+import dataclasses
+from typing import Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -32,7 +38,7 @@ from repro_torch.core import cim as cim_lib
 from repro_torch.core import deployment as dep_lib
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cim_read import ops as cr_ops
-from repro_torch.models.attention import Attention
+from repro_torch.models.attention import Attention, init_kv_cache
 from repro_torch.models.common import apply_norm, embed_init
 from repro_torch.models.mlp import MLP
 
@@ -58,45 +64,49 @@ class Block(nn.Module):
         x = x + out
         return x + self.mlp(self.norm(x)), k, v
 
-    def decode(self, x, cache, pos: int):
+    def decode(self, x, cache, pos):
+        """Cache-append decode at ``pos`` (an int, or a [B] tensor of
+        per-row positions)."""
         out, cache = self.attn.decode(self.norm(x), cache, pos)
         x = x + out
         return x + self.mlp(self.norm(x)), cache
 
 
-def _cim_read_state(params, pos: int, leaf: str):
+def _cim_read_state(params, pos: int, leaf: str, req_salt=None):
     """(per-plane seeds, thr_man, thr_meta, model) of one CIM read, or
     (None, 0, 0, None) when no ``_cim`` runtime rides in ``params`` (static
-    reads). Seeds fold per leaf and read index ``pos`` (the per-request
-    salt of the engine waits with the engine). A fault model in the runtime
-    shapes the streams: drift keys its tick on ``pos``, folded into the
-    thresholds returned here, so the model handed on carries tick 0."""
+    reads). Seeds fold per leaf, per request (``req_salt``, the serving
+    engine's; None skips that link) and per read index ``pos``. A fault
+    model in the runtime shapes the streams: drift keys its tick on ``pos``,
+    folded into the thresholds returned here, so the model handed on
+    carries tick 0."""
     rt = params.get("_cim")
     if rt is None:
         return None, 0, 0, None
     seeds = dep_lib.request_read_seeds(rt["seeds"], dep_lib.leaf_salt(leaf),
-                                       None, pos)
+                                       req_salt, pos)
     return (seeds,) + dep_lib.read_thresholds(rt, pos)
 
 
-def _embed_lookup(params, cfg, tokens, pos: int = 0):
+def _embed_lookup(params, cfg, tokens, pos: int = 0, req_salt=None):
     """Token embedding gather; a CIMStore leaf decodes only the gathered rows
     (:func:`dispatch_read_rows`)."""
     emb = params["embed"]
     if isinstance(emb, cim_lib.CIMStore):
-        seeds, tm, tt, model = _cim_read_state(params, pos, "embed")
+        seeds, tm, tt, model = _cim_read_state(params, pos, "embed", req_salt)
         rows = dep_lib.dispatch_read_rows(emb, tokens, seeds=seeds,
                                           thr_man=tm, thr_meta=tt, model=model)
         return rows.to(cfg.cdtype())
     return emb.to(cfg.cdtype())[tokens]
 
 
-def _unembed_logits(params, x, pos: int = 0):
+def _unembed_logits(params, x, pos: int = 0, req_salt=None):
     """Final projection; a CIMStore leaf routes through
     :func:`dispatch_linear` (the fused decode-on-read kernel on the card)."""
     w_un = params["unembed"]
     if isinstance(w_un, cim_lib.CIMStore):
-        seeds, tm, tt, model = _cim_read_state(params, pos, "unembed")
+        seeds, tm, tt, model = _cim_read_state(params, pos, "unembed",
+                                               req_salt)
         scalars = cr_ops.make_scalars(seeds, tm, tt, model=model) \
             if seeds is not None else None
         return dep_lib.dispatch_linear(x, w_un, scalars=scalars, model=model)
@@ -195,6 +205,221 @@ class LM(nn.Module):
         x = self._final(x)
         logits = _unembed_logits(params, x, pos=pos)[:, 0]
         return logits, {"layers": caches["layers"], "pos": pos + 1}
+
+    # ---------------------------------------------- continuous batching
+
+    def prefill_chunk(self, caches, tokens: torch.Tensor, slot: int,
+                      pos: int, length: Optional[int] = None,
+                      req_salt: Optional[int] = None, params=None):
+        """Chunked prefill of ONE slot of the engine's slot states
+        (:func:`init_slot_states`): ``tokens`` [C] is one prompt chunk whose
+        first ``length`` entries are valid (the ragged tail is padding whose
+        K/V rows the causal mask hides until later writes overwrite them),
+        appended to slot ``slot`` at rows [pos, pos + C). The chunk reads the
+        CIM image once, at read index ``pos`` with the request salt
+        ``req_salt``. Returns the last valid token's logits [V]; the slot's
+        position becomes ``pos + length``."""
+        cfg = self.cfg
+        check_engine_kinds(cfg)
+        c = tokens.shape[0]
+        length = c if length is None else int(length)
+        max_len = caches["layers"][0]["k"].shape[1]
+        if not 1 <= length <= c or pos < 0 or pos + c > max_len:
+            raise ValueError(f"prefill_chunk: rows [{pos}, {pos + c}) with "
+                             f"{length} valid do not fit the {max_len}-row "
+                             f"slot state")
+        params = self._params(params)
+        x = _embed_lookup(params, cfg, tokens[None], pos=pos,
+                          req_salt=req_salt)
+        for blk, cache in zip(self.blocks, caches["layers"]):
+            view = {"k": cache["k"][slot:slot + 1],
+                    "v": cache["v"][slot:slot + 1]}
+            x, _ = blk.decode(x, view, pos)
+        h = self._final(x)[:, length - 1:length]
+        logits = _unembed_logits(params, h, pos=pos, req_salt=req_salt)
+        caches["pos_host"][slot] = pos + length
+        caches["pos"][slot] = pos + length
+        return logits[0, 0], caches
+
+    def decode_slots(self, caches, tokens: torch.Tensor, active,
+                     req_salts=None, params=None):
+        """One continuous-batching decode step across the slot batch.
+
+        ``tokens`` [S, 1] holds each slot's last token, ``active`` [S] bools
+        which slots decode; each slot decodes at its own position (the
+        slot states' ``pos``, read on the host from ``pos_host``, so the
+        step never waits on the card for them). ``req_salts`` [S] (see
+        :func:`deployment.request_salt`) key each slot's dynamic CIM reads
+        by (request, position), never by slot index or engine step: under
+        a ``_cim`` runtime the embed gather and the unembed are read one
+        slot at a time, every slot including the inactive ones, each with
+        its own seeds, so a request's logits and fault streams are the same
+        served alone or co-batched. Static images are read batched.
+        Inactive slots' positions do not advance; their stale K/V writes
+        stay causally masked. Returns (logits [S, V], caches)."""
+        cfg = self.cfg
+        check_engine_kinds(cfg)
+        dynamic = params is not None and params.get("_cim") is not None
+        if dynamic and req_salts is None:
+            raise ValueError(
+                "decode_slots: params carry a dynamic-injection '_cim' "
+                "runtime but no req_salts; per-read seeds would alias across "
+                "requests: pass deployment.request_salt(rid) per slot")
+        params = self._params(params)
+        pos_host = caches["pos_host"]
+        max_len = caches["layers"][0]["k"].shape[1]
+        if (pos_host >= max_len).any():
+            raise ValueError(f"decode_slots: a slot at position "
+                             f"{int(pos_host.max())} has no row left of "
+                             f"{max_len}")
+        s = tokens.shape[0]
+        if dynamic and isinstance(params["embed"], cim_lib.CIMStore):
+            x = torch.cat([_embed_lookup(params, cfg, tokens[i:i + 1],
+                                         pos=int(pos_host[i]),
+                                         req_salt=int(req_salts[i]))
+                           for i in range(s)])
+        else:
+            x = _embed_lookup(params, cfg, tokens)
+        for blk, cache in zip(self.blocks, caches["layers"]):
+            x, _ = blk.decode(x, cache, caches["pos"])
+        x = self._final(x)
+        if dynamic and isinstance(params["unembed"], cim_lib.CIMStore):
+            logits = torch.cat([_unembed_logits(params, x[i:i + 1],
+                                                pos=int(pos_host[i]),
+                                                req_salt=int(req_salts[i]))
+                                for i in range(s)])
+        else:
+            logits = _unembed_logits(params, x)
+        pos_host += np.asarray(active, dtype=np.int64)
+        caches["pos"].copy_(torch.from_numpy(pos_host))
+        return logits[:, 0], caches
+
+
+# ------------------------------------------------- continuous-batching engine
+#
+# Slot-state protocol: the engine/model boundary. Every block kind declares a
+# SlotStateSpec; the engine drives init_slot_states / LM.prefill_chunk /
+# LM.decode_slots / extract_state_chunk / inject_state_chunk against it and
+# never looks inside a block's state.
+
+ENGINE_KINDS = ("attn", "local", "moe", "rwkv", "rec")
+KINDS_WAIT = "waits (ROADMAP Queue 1 item 12); only 'attn' is ported"
+
+_SPEC_VOCAB = {"kind": ENGINE_KINDS,
+               "advance": ("parallel",),
+               "cache_unit": ("rows",)}
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotStateSpec:
+    """Per-block-kind contract of the serving engine's slot-state protocol,
+    reduced to what ``attn`` uses (the other kinds bring their fields with
+    ROADMAP Queue 1 item 12).
+
+    * ``advance``: how a prompt chunk enters the state, ``'parallel'``
+      (position-parallel attention over K/V rows).
+    * ``cache_unit``: the prefix cache's unit of reuse, ``'rows'`` (a chunk
+      extracts and injects the rows it wrote).
+
+    Unknown vocabulary fails at construction."""
+    kind: str
+    advance: str = "parallel"
+    cache_unit: str = "rows"
+
+    def __post_init__(self):
+        for field, allowed in _SPEC_VOCAB.items():
+            got = getattr(self, field)
+            if got not in allowed:
+                raise ValueError(
+                    f"SlotStateSpec.{field}: unknown value {got!r}; allowed: "
+                    f"{', '.join(repr(a) for a in allowed)}")
+
+
+SLOT_STATE_SPECS = {"attn": SlotStateSpec("attn")}
+
+
+def slot_state_spec(kind: str) -> SlotStateSpec:
+    """The :class:`SlotStateSpec` of one block kind: an allowed-vocabulary
+    error for unknown kinds, NotImplementedError for the reference's kinds
+    the port does not serve yet."""
+    if kind not in ENGINE_KINDS:
+        raise ValueError(
+            f"slot_state_spec: unknown block kind {kind!r}; allowed: "
+            f"{', '.join(repr(k) for k in ENGINE_KINDS)}")
+    if kind not in SLOT_STATE_SPECS:
+        raise NotImplementedError(f"slot-state kind {kind!r} {KINDS_WAIT}")
+    return SLOT_STATE_SPECS[kind]
+
+
+def layer_kinds(cfg) -> Tuple[str, ...]:
+    """Each layer's block kind: ``cfg.block_pattern`` cycled over the
+    layers."""
+    pat = tuple(cfg.block_pattern)
+    return tuple(pat[i % len(pat)] for i in range(cfg.n_layers))
+
+
+def slot_state_specs(cfg) -> Tuple[SlotStateSpec, ...]:
+    """The distinct specs of ``cfg``'s layers, each kind validated."""
+    return tuple(slot_state_spec(k) for k in dict.fromkeys(layer_kinds(cfg)))
+
+
+def check_engine_kinds(cfg) -> Tuple[SlotStateSpec, ...]:
+    """Validate every block kind of ``cfg`` against the protocol and return
+    the specs (the engine calls this once at construction)."""
+    return slot_state_specs(cfg)
+
+
+def engine_capacity_coupled(cfg, tokens: int) -> bool:
+    """True when co-batched requests of up to ``tokens`` tokens can couple
+    through capacity-based MoE dispatch, which voids the bitwise
+    solo-vs-co-batched guarantee. Only ``moe`` is capacity-coupled, and it
+    waits with ``moe.drop_free`` (ROADMAP Queue 1 item 12), so every kind
+    that validates here is uncoupled."""
+    del tokens     # the drop-free test of moe's capacity comes with moe
+    slot_state_specs(cfg)
+    return False
+
+
+def init_slot_state(cfg, kind: str, batch: int, max_len: int, *,
+                    device=None) -> dict:
+    """One block's zero slot state: K/V rows ``{"k", "v"}`` [batch,
+    max_len, n_kv_heads, head_dim] for ``attn``."""
+    slot_state_spec(kind)
+    return init_kv_cache(cfg, batch, max_len, device=device)
+
+
+def init_slot_states(cfg, batch: int, max_len: int, *, device=None) -> dict:
+    """Zero slot states of every layer for ``batch`` slots of ``max_len``
+    rows: ``{"layers": [per-layer state], "pos": [batch] int64 tensor,
+    "pos_host": its host copy}``. The engine reads positions on the host
+    (seeds fold them) and the layers on the card, so both are kept."""
+    return {"layers": [init_slot_state(cfg, k, batch, max_len, device=device)
+                       for k in layer_kinds(cfg)],
+            "pos": torch.zeros(batch, dtype=torch.int64, device=device),
+            "pos_host": np.zeros(batch, np.int64)}
+
+
+def extract_state_chunk(cfg, caches, slot: int, pos: int,
+                        length: int) -> dict:
+    """One slot's state contribution of the chunk that prefilled rows
+    [pos, pos + length) (``cache_unit='rows'``): a copy of those K/V rows
+    of every layer, which :func:`inject_state_chunk` writes back."""
+    check_engine_kinds(cfg)
+    return {"layers": [{n: c[n][slot, pos:pos + length].clone()
+                        for n in ("k", "v")} for c in caches["layers"]]}
+
+
+def inject_state_chunk(cfg, caches, slot: int, pos: int, chunk) -> dict:
+    """Write a state chunk of :func:`extract_state_chunk` into ``slot`` at
+    rows [pos, pos + chunk length), in place. Injecting what a request
+    prefilled for the same tokens (the same content-salted streams, the
+    same image) leaves the slot as a cold prefill of the chunk would. The
+    caller owns the slot's position."""
+    check_engine_kinds(cfg)
+    for c, ch in zip(caches["layers"], chunk["layers"]):
+        for n in ("k", "v"):
+            c[n][slot, pos:pos + ch[n].shape[0]] = ch[n]
+    return caches
 
 
 def forward(model: LM, params: Mapping, tokens: torch.Tensor, *,

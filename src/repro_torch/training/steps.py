@@ -1,5 +1,5 @@
-"""The train step with the reliability feature wired in (port of
-``repro/training/steps.py``, the training part).
+"""The train step with the reliability feature wired in, and the serving
+engine's step factories (port of ``repro/training/steps.py``).
 
 A step is: forward -> loss -> gradient -> global-norm clip -> AdamW ->
 frozen-exponent projection (paper §III-C: mantissa-only updates). The
@@ -124,3 +124,41 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
         return TrainState(params, opt, state.exps, state.signs), metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Continuous-batching engine steps (the reference jits these; the port calls
+# them eagerly). ``model`` is the serving :class:`~repro_torch.models.lm.LM`.
+# ---------------------------------------------------------------------------
+
+
+def make_prefill_chunk_step(model: "lm.LM") -> Callable:
+    """One prompt chunk of one slot appended to the engine's slot states."""
+    def prefill_chunk_step(params, caches, tokens, slot, pos, length,
+                           req_salt):
+        return model.prefill_chunk(caches, tokens, slot, pos, length,
+                                   req_salt, params=params)
+    return prefill_chunk_step
+
+
+def make_decode_slots_step(model: "lm.LM") -> Callable:
+    """One decode token across the slot batch, with per-slot positions and
+    per-request fault-stream salts."""
+    def decode_slots_step(params, caches, tokens, active, req_salts):
+        return model.decode_slots(caches, tokens, active, req_salts,
+                                  params=params)
+    return decode_slots_step
+
+
+def make_extract_state_step(cfg: ModelConfig) -> Callable:
+    """Prefix cache: one slot's state chunk after a prefill."""
+    def extract_state_step(caches, slot, pos, length):
+        return lm.extract_state_chunk(cfg, caches, slot, pos, length)
+    return extract_state_step
+
+
+def make_inject_state_step(cfg: ModelConfig) -> Callable:
+    """Prefix cache: write a cached state chunk into a slot."""
+    def inject_state_step(caches, slot, pos, chunk):
+        return lm.inject_state_chunk(cfg, caches, slot, pos, chunk)
+    return inject_state_step
