@@ -129,9 +129,43 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    hits, and a hit equals a cold engine bitwise; reduced olmo-1b served by
    the engine on the card equals the CPU's plain path (tokens and ECC
    equal, logits within allclose(1e-4, 1e-4)) for the dynamic one4n and
-   none arms. Phase 7 also times K1's and K2's narrow kernels at M = 1.
+   none arms. Phase 7 also times K1's and K2's narrow kernels at M = 1;
+11. scrubbing, the fleet and training's resume. (a) A drift-aging soak of
+   full-width olmo-1b (one4n, n_group 8, index 2, static at BER 0, the
+   unembed's row cache on): LoadGen of 8 requests (prompts 8-32,
+   generations 4-16, seed 3) through 4 slots, chunk 16, ECC accounting
+   on, DriftAging(ber=1e-3, the default drift process, an integer seed)
+   every 4 steps; scrub-off (threshold 10^12, check_finite=False) and
+   scrub-on (threshold 8): the arms' aged images equal (plane digests)
+   up to the first scrub, scrub-on logs a scrub and strictly fewer
+   uncorrectable events, every scrubbed store's store_ecc resets, the
+   first scrub's image equals pack(read(image)) bitwise, every request
+   completes and every scrub-on request is finite; per arm the decode
+   tok/s, events, the ms of an aging tick, of one store's scrub and of a
+   charged read, and the hook's share of the wall. (b) The scrub-on soak
+   with the row cache off: the counts are zeroed just before and read
+   just after, and every unembed read (one a prefill chunk, one a decode
+   step) is a narrow K1 launch; after every params swap K1 on the new
+   image equals its plain version within 1e-4 of |x| @ |W| (those
+   launches taken back out of the counts); tokens and ECC equal soak
+   (a)'s scrub-on arm and logits are within 1e-4 of |h| @ |W| (phase 2's
+   bound for faulted images: the image keeps weights up to 2^15). (c) Two
+   engine replicas on the card behind the router (fused one4n dynamic,
+   BER 1e-4, phase 10's load, 4 slots each, no accounting), the params
+   spooled once under build/ and restored per replica: every request
+   completes, both replicas serve, K1's count (zeroed just before, read
+   just after) equals the engines' reads; wall and virtual tok/s,
+   requests by replica, TTFT and the spool's bytes and seconds. (d) With
+   accounting, over 4 requests: a routed rid equals its replay through a
+   one-replica fleet from the same spool bitwise (tokens, logits, ECC),
+   and failing replica0 after two ticks re-routes its requests, each
+   equal to the routed run bitwise, and recover re-admits it. (e) Reduced
+   olmo-1b on the card, 4 aligned steps twice, and interrupted after its
+   step-2 checkpoint and resumed: bitwise equal to the uninterrupted run
+   where the two uninterrupted runs are (else within their gap, printed);
+   one step with int8 gradient compression has a finite loss.
 
-Phases run in the order 1-3, 10, 4-6, 8, 9, 7. Prints the card's name and power
+Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 7. Prints the card's name and power
 limit, then one ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1018,6 +1052,456 @@ def _engine_reduced(dev, kernel_lib) -> None:
         print(f"phase 10: engine reduced olmo-1b {arm[0]}: card == CPU plain "
               f"(tokens and ECC equal, logits max err {worst:.3e}), {want} "
               f"kernel launches")
+
+
+SOAK_LOAD = dict(n_requests=8, prompt_lens=(8, 32), gen_lens=(4, 16), seed=3)
+SOAK_AGE_BER, SOAK_AGE_EVERY, SOAK_AGE_SEED = 1e-3, 4, 11
+SOAK_THRESHOLD = 8      # the reference bench's SCRUB_THRESHOLD
+SOAK_OFF_THRESHOLD = 10 ** 12
+FLEET_REPLICAS = 2
+
+
+def _plane_digest(plane) -> tuple:
+    """Two int64 checksums of a packed plane's words (plain and
+    position-weighted): equal images give equal digests."""
+    import torch
+    w = plane.view(torch.int16) if plane.dtype == torch.uint16 else plane
+    w = w.reshape(-1).to(torch.int64)
+    pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+    return int(w.sum()), int((w * pos).sum())
+
+
+def _image_digest(dep) -> dict:
+    from repro_torch.core import cim
+    return {p: {n: _plane_digest(v) for n, v in cim.plane_dict(s).items()}
+            for p, _, s in dep.store_leaves()}
+
+
+def _same_image(a, b) -> bool:
+    """Two stores' planes bitwise equal."""
+    import torch
+    from repro_torch.core import cim
+    pa, pb = cim.plane_dict(a), cim.plane_dict(b)
+    return pa.keys() == pb.keys() and all(
+        pa[n].dtype == pb[n].dtype and torch.equal(
+            pa[n].view(torch.int16) if pa[n].dtype == torch.uint16 else pa[n],
+            pb[n].view(torch.int16) if pb[n].dtype == torch.uint16 else pb[n])
+        for n in pa)
+
+
+def _soak(model, *, scrub: bool, serving_kw=None, on_swap=None):
+    """One drift-aging soak of full-width olmo-1b (static BER-0 one4n image,
+    row cache unless ``serving_kw`` turns it off) -> (results, aggregate,
+    instrumented record). The hook's parts are timed after a synchronize;
+    ``on_swap(engine)`` runs after every params swap, its kernel launches
+    taken back out of the counts."""
+    import torch
+    from repro_torch.launch import engine as engine_lib
+    from repro_torch.launch import scrub as scrub_lib
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.kernels.cim_read import kernel as kernel_lib
+    dep = serve_lib.make_deployment(
+        model.cim_leaves(), ber=0.0, protect="one4n", n_group=N_GROUP,
+        index=2, seeds={}, inject_mode="static", field="full")
+    kw = dict(serving_kw or {})
+    aging = scrub_lib.DriftAging(seeds=SOAK_AGE_SEED, ber=SOAK_AGE_BER,
+                                 every=SOAK_AGE_EVERY)
+    policy = scrub_lib.ScrubPolicy(
+        threshold=SOAK_THRESHOLD if scrub else SOAK_OFF_THRESHOLD)
+    ctl = scrub_lib.ScrubController(dep, policy, aging=aging, serving_kw=kw)
+    rec = {"age_ms": [], "scrub_ms": [], "digests": {}, "hook_s": 0.0,
+           "image_checked": 0, "resets_checked": 0, "swaps": 0}
+    real_age, real_scrub = aging.age, ctl.scrub
+
+    def age(d, tick):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_age(d, tick)
+        torch.cuda.synchronize()
+        rec["age_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["digests"][tick] = _image_digest(out)
+        return out
+
+    def scrub_(paths):
+        from repro_torch.core import cim
+        old = dict(ctl.dep.stores)
+        torch.cuda.synchronize()
+        ev = real_scrub(paths)
+        torch.cuda.synchronize()
+        rec["scrub_ms"].append(ev["wall_s"] * 1e3 / max(len(ev["paths"]), 1))
+        if not rec["image_checked"]:
+            for p in ev["paths"]:     # the first scrub: pack(read(image))
+                want = cim.pack(cim.read(old[p])[0], old[p].cfg)
+                _check(_same_image(ctl.dep.stores[p], want),
+                       f"phase 11: scrubbed {p} != pack(read(image))")
+                rec["image_checked"] += 1
+                del want
+        return ev
+    aging.age, ctl.scrub = age, scrub_
+    load = engine_lib.LoadGen(vocab_size=model.cfg.vocab_size, **SOAK_LOAD)
+    reqs, max_len = load.requests(), load.max_len()
+    eng = engine_lib.Engine(model, dep.serving_params(**kw),
+                            n_slots=ENGINE_SLOTS, max_len=max_len,
+                            chunk=ENGINE_CHUNK, collect_logits=True,
+                            check_finite=scrub)
+    real_record, real_refresh = eng.record_scrub, eng.refresh_params
+
+    def record(event):
+        real_record(event)
+        for p in event["paths"]:
+            _check(eng.store_ecc[p] == {"reads": 0, "corrected": 0,
+                                        "uncorrectable": 0},
+                   f"phase 11: store_ecc[{p}] not reset by the scrub")
+            rec["resets_checked"] += 1
+
+    def refresh(params, force=False):
+        real_refresh(params, force=force)
+        rec["swaps"] += 1
+        if on_swap is not None:
+            counts = dict(kernel_lib.launch_counts)
+            on_swap(eng)
+            kernel_lib.launch_counts.update(counts)
+    eng.record_scrub, eng.refresh_params = record, refresh
+
+    def hook(engine, ev):
+        t0 = time.perf_counter()
+        ctl(engine, ev)
+        torch.cuda.synchronize()
+        rec["hook_s"] += time.perf_counter() - t0
+    spent = _timed_charges(eng)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        res, agg = eng.run(reqs, on_step=hook)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["charge_s"] = spent[0]
+    rec["reqs"], rec["ctl"] = reqs, ctl
+    _check(sorted(res) == [r.rid for r in reqs] and all(
+        len(res[r.rid].tokens) == r.max_new for r in reqs),
+        f"phase 11: soak (scrub {scrub}) left requests unfinished")
+    return res, agg, rec
+
+
+def _soak_line(label, agg, rec, card) -> str:
+    sc, ecc = agg["scrub"], agg["ecc"]
+    age = rec["age_ms"]
+    return (f"phase 11: soak {label}: decode {agg['decode_tok_s']:.1f} tok/s "
+            f"({agg['decode_steps']} steps), {sc['events']} scrub events "
+            f"({sc['rows_reencoded']} rows re-encoded, corrected cleared "
+            f"{sc['corrected_cleared']}, uncorrectable cleared "
+            f"{sc['uncorrectable_cleared']}), ECC reads={ecc['reads']} "
+            f"corrected={ecc['corrected']} uncorrectable="
+            f"{ecc['uncorrectable']}; {len(age)} aging ticks of "
+            f"{sum(age) / max(len(age), 1):.1f} ms (min "
+            f"{min(age, default=0):.1f}, max {max(age, default=0):.1f}); "
+            f"hook {rec['hook_s']:.2f} s of {rec['wall_s']:.2f} s "
+            f"({100 * rec['hook_s'] / rec['wall_s']:.1f}%); accounting "
+            f"{rec['charge_s'] * 1e3 / max(ecc['reads'], 1):.3f} ms a "
+            f"charged read, on {card}")
+
+
+def _unembed_scales(scales: dict):
+    """Wrap the LM's unembed read to record |h| @ |W| for every logit row
+    it produces, keyed by the row's bytes: the magnitude of each logit's
+    sum before cancellation, which bounds its summation-order error. W is
+    the read image's decoded weights, decoded once per image."""
+    from repro_torch.core import cim
+    from repro_torch.models import lm
+    real, absw = lm._unembed_logits, {}
+
+    def record(params, x, pos=0, req_salt=None):
+        out = real(params, x, pos=pos, req_salt=req_salt)
+        store = params["unembed"]
+        if id(store) not in absw:
+            absw.clear()
+            absw[id(store)] = cim.read(store)[0].abs()
+        v = out.shape[-1]
+        mag = x.reshape(-1, x.shape[-1]).abs() @ absw[id(store)]
+        for row, m in zip(out.reshape(-1, v).cpu().numpy(), mag.cpu()):
+            scales[row.tobytes()] = m
+        return out
+    return mock.patch.object(lm, "_unembed_logits", record)
+
+
+def phase_scrub(model, kernel_lib, card: str) -> None:
+    """Phase 11 (a) and (b): the drift-aging scrub soak on full-width
+    olmo-1b, scrub off and on, then on again with the row cache off so every
+    unembed read goes through K1's narrow kernel."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.cim_read import ops, ref
+    from repro_torch.core import cim
+    kernel_read = ops.cim_linear_store       # unwrapped by _kernels_of below
+    off, agg_off, rec_off = _soak(model, scrub=False)
+    on, agg_on, rec_on = _soak(model, scrub=True)
+    events = rec_on["ctl"].events
+    _check(len(events) >= 1, "phase 11: scrub-on soak logged no scrub")
+    _check(agg_off["scrub"]["events"] == 0, "phase 11: scrub-off scrubbed")
+    first = events[0]["tick"]
+    same = [t for t in rec_on["digests"] if t <= first]
+    _check(bool(same) and all(rec_on["digests"][t] == rec_off["digests"][t]
+                              for t in same),
+           f"phase 11: the arms' aged images differ before the first scrub "
+           f"(ticks {same})")
+    _check(agg_on["ecc"]["uncorrectable"] < agg_off["ecc"]["uncorrectable"],
+           f"phase 11: scrub-on {agg_on['ecc']['uncorrectable']} "
+           f"uncorrectable events, scrub-off {agg_off['ecc']['uncorrectable']}")
+    _check(all(r.finite for r in on.values()),
+           "phase 11: a scrub-on request saw non-finite logits")
+    _check(rec_on["image_checked"] >= 1 and rec_on["resets_checked"] >= 1,
+           "phase 11: no scrubbed image or store_ecc reset was checked")
+    for label, agg, rec in (("off", agg_off, rec_off), ("on", agg_on, rec_on)):
+        print(_soak_line(label, agg, rec, card))
+    print(f"phase 11: scrub-on: {len(events)} scrubs at ticks "
+          f"{[e['tick'] for e in events]}, one store's scrub "
+          f"{np.mean(rec_on['scrub_ms']):.1f} ms (min "
+          f"{min(rec_on['scrub_ms']):.1f}, max {max(rec_on['scrub_ms']):.1f}); "
+          f"the arms' images equal at ticks {same} (first scrub at tick "
+          f"{first}); {rec_on['image_checked']} scrubbed stores == "
+          f"pack(read(image)) bitwise; {rec_on['resets_checked']} store_ecc "
+          f"resets; non-finite requests scrub-off "
+          f"{sum(not r.finite for r in off.values())}, scrub-on 0")
+    del off
+
+    # (b) the row cache off: K1's narrow kernel reads every unembed
+    g = torch.Generator(device=model.embed.device).manual_seed(7)
+    x = torch.randn((BATCH, K), generator=g, device=model.embed.device)
+    swaps = []
+
+    def check_swap(eng):
+        store = eng.params["unembed"]
+        got = kernel_read(x, store, device=store.device)
+        want, _ = ref.cim_read_ref(x, store)
+        w, _ = cim.read(store)
+        ok, err = _close(got, want, x.abs() @ w.abs())
+        _check(ok, f"phase 11 (b): K1 on the swapped image vs plain (max "
+               f"err {err:.3e})")
+        swaps.append(err)
+    scales = {}
+    kernel_lib.reset_launch_counts()
+    with _unembed_scales(scales):
+        (nc, agg_nc, rec_nc), kernels = _kernels_of(lambda: _soak(
+            model, scrub=True, serving_kw={"row_cache": False},
+            on_swap=check_swap))
+    counts = dict(kernel_lib.launch_counts)
+    reqs = rec_nc["reqs"]
+    chunks = sum(-(-r.tokens.size // ENGINE_CHUNK) for r in reqs)
+    want = chunks + agg_nc["decode_steps"]
+    _check(counts == {"cim_read_matmul_one4n": want, "cim_read_matmul_raw": 0}
+           and kernels == ["narrow"] * want,
+           f"phase 11 (b): launches {counts} through {sorted(set(kernels))}, "
+           f"expected {want} narrow K1 reads ({chunks} prefill chunks + "
+           f"{agg_nc['decode_steps']} steps)")
+    _check(len(swaps) == rec_nc["swaps"] >= 1, "phase 11 (b): no swap checked")
+    # The scrub-on image keeps the weights its uncorrectable rows decoded
+    # to (up to 2^15), so a logit can sum to |h| @ |W| ~ 1e5 and cancel:
+    # the row cache's sgemm and K1's fixed-order sums then differ by far
+    # more than allclose(1e-4, 1e-4) of the result. Held, as phase 2 holds
+    # faulted images, within 1e-4 of |h| @ |W| (its summation-order bound).
+    worst, ratio = 0.0, 0.0
+    for r in reqs:
+        a, b = on[r.rid], nc[r.rid]
+        _check(a.tokens == b.tokens and a.ecc == b.ecc,
+               f"phase 11 (b): request {r.rid} tokens/ECC != soak (a) on")
+        for ra, rb in zip(a.logits, b.logits):
+            mag = scales[rb.tobytes()]
+            ta, tb = torch.from_numpy(ra), torch.from_numpy(rb)
+            ok, err = _close(tb, ta, mag)
+            _check(ok, f"phase 11 (b): request {r.rid} logits vs soak (a) "
+                   f"beyond 1e-4 of |h| @ |W| (max err {err:.3e})")
+            fin = torch.isfinite(ta)
+            worst = max(worst, err)
+            ratio = max(ratio, float(((ta - tb).abs()[fin]
+                                      / (mag[fin] + 1e-30)).max()))
+    _check([e["tick"] for e in rec_nc["ctl"].events] == [e["tick"]
+                                                         for e in events],
+           "phase 11 (b): scrubs at other ticks than soak (a)")
+    print(_soak_line("on, row cache off", agg_nc, rec_nc, card))
+    print(f"phase 11 (b): {want} unembed reads, every one a narrow K1 launch "
+          f"(counts {counts}); after each of {len(swaps)} swaps K1 on the new "
+          f"image == plain within 1e-4 of |x| @ |W| (max err "
+          f"{max(swaps):.3e}); tokens and ECC == soak (a) on, logits max err "
+          f"{worst:.3e}, at most {ratio:.2e} of |h| @ |W|")
+
+
+def phase_fleet(model, kernel_lib, card: str) -> None:
+    """Phase 11 (c) and (d): two engine replicas on the card behind the
+    router, then the fleet's invariance with ECC accounting."""
+    import shutil
+    import torch
+    from repro_torch.launch import engine as engine_lib
+    from repro_torch.launch import fleet as fleet_lib
+    spool = ROOT / "build" / "fleet_spool"
+    shutil.rmtree(spool, ignore_errors=True)
+    params = _engine_params(model, ENGINE_ARMS[0])
+    load = engine_lib.LoadGen(vocab_size=model.cfg.vocab_size, **ENGINE_LOAD)
+    reqs, max_len = load.requests(), load.max_len()
+    kw = dict(n_slots=ENGINE_SLOTS, max_len=max_len, chunk=ENGINE_CHUNK)
+    try:
+        fl = fleet_lib.Fleet.from_serving_params(
+            model, params, n_replicas=FLEET_REPLICAS,
+            spool_dir=str(spool / "c"), ecc_accounting=False, **kw)
+        kernel_lib.reset_launch_counts()
+        with torch.inference_mode():
+            res, agg = fl.run(reqs)
+        counts = dict(kernel_lib.launch_counts)
+        reads = sum(rep.engine.steps * ENGINE_SLOTS
+                    for rep in fl.replicas.values())
+        reads += sum(-(-r.prompt_len // ENGINE_CHUNK)
+                     - r.prefix_tokens // ENGINE_CHUNK for r in res.values())
+        by_rep = agg["requests_by_replica"]
+        _check(sorted(res) == [r.rid for r in reqs] and all(
+            len(res[r.rid].tokens) == r.max_new for r in reqs),
+            f"phase 11 (c): fleet served {sorted(res)}")
+        _check(min(by_rep.values()) >= 1, f"phase 11 (c): routing {by_rep}")
+        _check(counts["cim_read_matmul_one4n"] == reads,
+               f"phase 11 (c): K1 launched {counts}, the engines read "
+               f"{reads} times")
+        sp = agg["spool"]
+        print(f"phase 11 (c): fleet of {FLEET_REPLICAS} (fused one4n dynamic, "
+              f"BER {ENGINE_BER:g}, {ENGINE_SLOTS} slots each): "
+              f"{agg['tok_s']:.1f} tok/s wall, {agg['tok_s_virtual']:.1f} "
+              f"tok/s virtual (busiest replica {agg['busy_wall_s']:.2f} s of "
+              f"{agg['wall_s']:.2f} s), routed {by_rep}, TTFT mean "
+              f"{agg['ttft_s_mean'] * 1e3:.1f} ms p95 "
+              f"{agg['ttft_s_p95'] * 1e3:.1f} ms; K1 launched "
+              f"{counts['cim_read_matmul_one4n']} times == the engines' "
+              f"{reads} reads; spool {sp['bytes'] / 1e6:.1f} MB, saved in "
+              f"{sp['save_s']:.2f} s, restored {FLEET_REPLICAS}x in "
+              f"{sp['restore_s']:.2f} s, on {card}")
+        del fl, res
+        _fleet_invariance(model, params, spool / "d")
+    finally:
+        shutil.rmtree(spool, ignore_errors=True)
+
+
+def _fleet_invariance(model, params, spool) -> None:
+    """Phase 11 (d): with ECC accounting, a routed rid re-served through a
+    one-replica fleet from the same spool, and every request of a replica
+    failed after two ticks, equal the routed run bitwise."""
+    import torch
+    from repro_torch.launch import engine as engine_lib
+    from repro_torch.launch import fleet as fleet_lib
+    load = engine_lib.LoadGen(n_requests=4, prompt_lens=(8, 32),
+                              gen_lens=(3, 6), vocab_size=model.cfg.vocab_size,
+                              seed=0)
+    reqs, max_len = load.requests(), load.max_len()
+    kw = dict(n_slots=ENGINE_SLOTS, max_len=max_len, chunk=ENGINE_CHUNK,
+              collect_logits=True, spool_dir=str(spool))
+
+    def fleet(n):
+        return fleet_lib.Fleet.from_serving_params(model, params,
+                                                   n_replicas=n, **kw)
+    with torch.inference_mode():
+        routed, _ = fleet(FLEET_REPLICAS).run(reqs)
+        rid = 1
+        solo, _ = fleet(1).run([reqs[rid]])
+        _check(_same_request(routed[rid], solo[rid]),
+               f"phase 11 (d): probe rid {rid} routed != one-replica replay")
+        fl = fleet(FLEET_REPLICAS)
+        fl.start()
+        for r in reqs:
+            fl.submit(r)
+        fl.tick()
+        fl.tick()
+        fl.fail("replica0")
+        moved = fl.requeued
+        fl.tick()
+        fl.recover("replica0")
+        while fl.busy:
+            fl.tick()
+    _check(moved >= 1 and fl.drains == 1, "phase 11 (d): the drain moved "
+           "no request")
+    _check("replica0" in fl._admitting, "phase 11 (d): replica0 not "
+           "re-admitted")
+    for r in reqs:
+        _check(_same_request(routed[r.rid], fl.results[r.rid]),
+               f"phase 11 (d): request {r.rid} after the drain != routed")
+    print(f"phase 11 (d): with ECC accounting, rid {rid} (routed via "
+          f"{routed[rid].replica}) == its one-replica replay from the same "
+          f"spool bitwise (tokens, {len(routed[rid].logits)} logit vectors, "
+          f"ECC {routed[rid].ecc}); fail('replica0') after two ticks "
+          f"re-routed {moved} requests, all 4 == the routed run bitwise; "
+          f"replica0 re-admitted")
+
+
+def phase_resume(dev, card: str) -> None:
+    """Phase 11 (e): reduced olmo-1b, 4 aligned steps twice uninterrupted,
+    and interrupted after its step-2 checkpoint then resumed; one step with
+    gradient compression."""
+    import math
+    import shutil
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data.synthetic import CheckpointableLoader, MarkovLM
+    from repro_torch.training import loop
+    cfg = get_config("olmo-1b").reduced()
+    ckdir = ROOT / "build" / "resume_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    run = _align_rule_run(4, learning_rate=REDUCED_LR, warmup_steps=1)
+
+    def train(r, **kw):
+        data = CheckpointableLoader(MarkovLM(cfg.vocab_size, TRAIN_SEQ,
+                                             TRAIN_BATCH, seed=0))
+        return loop.run_training(cfg, r, data, device=dev, **kw)
+
+    class Stop(Exception):
+        pass
+
+    def stop(step, metrics):
+        if step == 2:
+            raise Stop
+    try:
+        a, b = train(run), train(run)
+        ck = RunConfig(**{**run.__dict__, "checkpoint_dir": str(ckdir),
+                          "checkpoint_every": 2})
+        try:
+            train(ck, log_fn=stop)
+            raise AssertionError("phase 11 (e): the interruption did not stop "
+                                 "the run")
+        except Stop:
+            pass
+        c = train(ck)
+        _check(c.info["resumed_from"] == 2, f"phase 11 (e): resumed from "
+               f"{c.info['resumed_from']}")
+        comp = train(RunConfig(**{**run.__dict__, "steps": 1,
+                                  "grad_compression": True}))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    def gap(x, y):
+        return max(float((x.state.params[p] - y.state.params[p]).abs().max())
+                   for p in x.state.params)
+    ab = gap(a, b)
+    bitwise = all(torch.equal(a.state.params[p], b.state.params[p])
+                  for p in a.state.params)
+    ac = gap(a, c)
+    losses = [h["loss"] for h in c.history]
+    if bitwise:
+        _check(all(torch.equal(a.state.params[p], c.state.params[p])
+                   for p in a.state.params) and
+               losses == [h["loss"] for h in a.history[2:]],
+               f"phase 11 (e): resumed run != uninterrupted (max gap {ac:.3e})")
+    else:
+        _check(ac <= ab, f"phase 11 (e): resumed run {ac:.3e} from the "
+               f"uninterrupted, more than two uninterrupted runs ({ab:.3e})")
+    _check(math.isfinite(comp.history[0]["loss"]),
+           "phase 11 (e): compressed step loss not finite")
+    print(f"phase 11 (e): reduced olmo-1b, 4 aligned steps: two uninterrupted "
+          f"runs {'bitwise equal' if bitwise else f'max gap {ab:.3e}'}; "
+          f"interrupted after the step-2 checkpoint and resumed: "
+          f"{'bitwise equal' if ac == 0 else f'max gap {ac:.3e}'} to the "
+          f"uninterrupted run (losses {[round(x, 6) for x in losses]}); one "
+          f"step with int8 gradient compression: loss "
+          f"{comp.history[0]['loss']:.6f}, on {card}")
+
+
+def phase_scrub_fleet(model, kernel_lib, card: str) -> None:
+    """Phase 11: scrubbing, the fleet and training's resume."""
+    t0 = time.perf_counter()
+    phase_scrub(model, kernel_lib, card)
+    phase_fleet(model, kernel_lib, card)
+    phase_resume(model.embed.device, card)
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s on {card}")
 
 
 def _cw2d(store):
@@ -1977,6 +2461,7 @@ def main() -> int:
     launches = phase_serve(model, kernel_lib)
     phase_reduced_reference(dev)
     engine_launches = phase_engine(model, kernel_lib)
+    phase_scrub_fleet(model, kernel_lib, card)
     checks["unembed_weights"] = model.unembed.detach()
     fi = phase_fault_inject(dev, checks, fi_kernel)
     fig6 = phase_fig6(dev, model, fi_kernel)

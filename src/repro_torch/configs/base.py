@@ -94,12 +94,15 @@ class RunConfig:
     skips alignment and the frozen (exponent, sign) projection even when the
     policy is on.
 
+    A non-empty ``checkpoint_dir`` saves the training state there every
+    ``checkpoint_every`` steps and at the end, and a later run resumes from
+    its latest step; ``grad_compression`` compresses the gradient to int8
+    with error feedback.
+
     Left out: the reference's deprecated ``reliability=`` surface, the
     descriptive ``arch`` and ``shape`` (the model comes as a ModelConfig),
-    and ``remat``, ``multi_pod``, ``seq_shard`` and ``checkpoint_every``,
-    which come back with the slices that act on them. A non-empty
-    ``checkpoint_dir`` and ``grad_compression`` make ``run_training`` raise
-    (ROADMAP Queue 1 item 11).
+    and ``remat``, ``multi_pod`` and ``seq_shard``, which come back with the
+    slices that act on them.
     """
 
     steps: int = 100
@@ -108,6 +111,7 @@ class RunConfig:
     weight_decay: float = 0.1
     grad_clip: float = 1.0
     seed: int = 0
+    checkpoint_every: int = 50
     checkpoint_dir: str = "checkpoints"
     grad_compression: bool = False
     straggler_factor: float = 3.0
@@ -127,6 +131,9 @@ class RunConfig:
                                 f"{type(self.policy).__name__}")
         if self.ber < 0:
             raise ValueError(f"RunConfig: ber must be >= 0, got {self.ber}")
+        if self.checkpoint_every < 1:
+            raise ValueError(f"RunConfig: checkpoint_every must be >= 1, "
+                             f"got {self.checkpoint_every}")
         if self.inject not in ("static", "dynamic"):
             raise ValueError(f"RunConfig: inject must be 'static' or "
                              f"'dynamic', got {self.inject!r}")

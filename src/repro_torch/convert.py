@@ -98,12 +98,10 @@ def train_state_from_jax(state, device="cpu"):
     """The reference's ``TrainState`` (jax or numpy leaves) -> the port's
     :class:`~repro_torch.training.steps.TrainState`: params, the frozen
     ``exps`` and ``signs`` (``None`` leaves kept, keyed by the params'
-    paths) and the AdamW ``m`` / ``v`` / ``step``, all carried as numpy, so
-    both packages can start from one state."""
+    paths), the AdamW ``m`` / ``v`` / ``step`` and, where the state has
+    them, the gradient-compression residuals ``ef_error``, all carried as
+    numpy, so both packages can start from one state."""
     from repro_torch.training.steps import TrainState
-    if getattr(state, "ef_error", None) is not None:
-        raise NotImplementedError("gradient compression state is not ported "
-                                  "(ROADMAP Queue 1 item 11)")
     params = flat_from_jax(state.params, device)
 
     def keyed(t) -> dict:
@@ -117,5 +115,7 @@ def train_state_from_jax(state, device="cpu"):
     opt = {"m": keyed(state.opt["m"]), "v": keyed(state.opt["v"]),
            "step": torch.tensor(int(np.asarray(state.opt["step"])),
                                 dtype=torch.int32)}
+    ef = getattr(state, "ef_error", None)
     return TrainState(params=params, opt=opt, exps=keyed(state.exps),
-                      signs=keyed(state.signs))
+                      signs=keyed(state.signs),
+                      ef_error=None if ef is None else keyed(ef))

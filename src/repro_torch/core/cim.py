@@ -325,6 +325,21 @@ def build_row_cache(store: CIMStore) -> CIMStore:
     return dataclasses.replace(store, cache=read(store)[0].contiguous())
 
 
+def drop_row_cache(store: CIMStore) -> CIMStore:
+    """``store`` without its decoded-row cache (itself when it has none)."""
+    if store.cache is None:
+        return store
+    return dataclasses.replace(store, cache=None)
+
+
+def plane_dict(store: CIMStore) -> dict:
+    """The store's populated planes by name (``man``, ``sign``, ``exp``,
+    ``cw``), as the reference's ``_plane_dict``."""
+    planes = {"man": store.man, "sign": store.sign, "exp": store.exp,
+              "cw": store.codewords}
+    return {k: v for k, v in planes.items() if v is not None}
+
+
 def store_stats(store: CIMStore) -> dict:
     """ECC status counts without reconstructing weights."""
     if store.codewords is None:

@@ -1,6 +1,6 @@
-"""Deterministic synthetic data (port of ``MarkovLM`` and ``GaussianBlobs``
-in ``repro/data/synthetic.py``; numpy throughout, so batches are
-identical)."""
+"""Deterministic synthetic data (port of ``MarkovLM``,
+``CheckpointableLoader`` and ``GaussianBlobs`` in
+``repro/data/synthetic.py``; numpy throughout, so batches are identical)."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,6 +41,32 @@ class MarkovLM:
         while True:
             yield self.batch(step)
             step += 1
+
+
+@dataclasses.dataclass
+class CheckpointableLoader:
+    """A restartable iterator over any ``batch(step)`` source. Its cursor
+    rides in the training checkpoint, so a resumed run consumes the exact
+    batch the interrupted one would have consumed next: no batch repeated
+    or skipped. ``batch(step)`` is a pure function of (seed, step), so a
+    replayed cursor always yields the same batches."""
+
+    source: object
+    cursor: int = 0
+
+    def __next__(self):
+        b = self.source.batch(self.cursor)
+        self.cursor += 1
+        return b
+
+    def __iter__(self):
+        return self
+
+    def state_dict(self) -> Dict[str, int]:
+        return {"cursor": self.cursor}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        self.cursor = int(state["cursor"])
 
 
 @dataclasses.dataclass

@@ -40,9 +40,18 @@ Positions live on the host beside the slot states (``pos_host``), so a
 decode step folds its seeds without reading the card; each step waits on
 the card once, when its logits come back.
 
-Scrubbing (``refresh_params(force=True)``, ``record_scrub``) waits for ROADMAP
-Queue 1 item 10, the fleet beyond ``drain`` / ``start`` / ``depth`` for item
-11, the other block kinds for item 12 and the mesh for item 14.
+**Finiteness.** Every request records whether all its logits were finite
+(``RequestResult.finite``); with ``check_finite=True`` (the default) a
+non-finite logit raises :class:`EngineError` at once. An unscrubbed image
+under wear is meant to rot into non-finite logits, and is served with
+``check_finite=False``.
+
+**Scrubbing and the fleet.** ``run(on_step=...)`` is the hook the online
+scrubber (:mod:`repro_torch.launch.scrub`) ages and rewrites the image from:
+``refresh_params(force=True)`` swaps the params with requests in flight and
+``record_scrub`` logs a scrub. ``replica``, ``drain``, ``start`` and
+``depth`` serve the fleet router (:mod:`repro_torch.launch.fleet`). The
+other block kinds wait for ROADMAP Queue 1 item 12, the mesh for item 14.
 """
 from __future__ import annotations
 
@@ -63,8 +72,13 @@ from repro_torch.training import steps as steps_lib
 _ECC_ZERO = {"reads": 0, "corrected": 0, "uncorrectable": 0}
 
 
+def _ecc_zero() -> Dict[str, int]:
+    return dict(_ECC_ZERO)
+
+
 class EngineError(RuntimeError):
-    """Non-finite logits or an inconsistent scheduler state."""
+    """Non-finite logits (under ``check_finite``) or an inconsistent
+    scheduler state."""
 
 
 @dataclasses.dataclass
@@ -97,14 +111,14 @@ class RequestResult:
     decode_s: float                    # wall time inside decode steps
     slot: int
     ecc: Dict[str, int]                # reads / corrected / uncorrectable
-    finite: bool = True                # non-finite logits raise instead
+    finite: bool = True                # every logit of the request finite
     logits: Optional[np.ndarray] = None   # [n_tokens, V] when collected
-    replica: str = ""                  # fleet replicas wait (item 11)
+    replica: str = ""                  # the engine's fleet replica name
     prefix_tokens: int = 0             # prompt tokens reused from the trie
     salt: int = 0                      # uint32 request salt (decode streams)
     ecc_window: List[Dict[str, int]] = dataclasses.field(
         default_factory=list)          # per-read ECC time series
-    scrubs: int = 0                    # scrub events while live (item 10)
+    scrubs: int = 0                    # scrub events while it was in flight
 
     def to_json(self) -> dict:
         tok_s = len(self.tokens) / self.decode_s if self.decode_s > 0 else 0.0
@@ -228,13 +242,14 @@ class _Slot:
     req: Optional[Request] = None      # original request (drain hands it back)
     ttft_s: float = 0.0
     decode_s: float = 0.0
+    finite: bool = True
     prefix_tokens: int = 0
     salt: int = 0
     tokens: List[int] = dataclasses.field(default_factory=list)
     logits: List[np.ndarray] = dataclasses.field(default_factory=list)
-    ecc: Dict[str, int] = dataclasses.field(
-        default_factory=lambda: dict(_ECC_ZERO))
+    ecc: Dict[str, int] = dataclasses.field(default_factory=_ecc_zero)
     ecc_window: List[Dict[str, int]] = dataclasses.field(default_factory=list)
+    scrubs: int = 0
 
 
 @dataclasses.dataclass
@@ -290,13 +305,17 @@ class Engine:
     ``prefix_cache`` attaches a :class:`PrefixCache` (pass one, or ``True``
     for a default-sized one). ``ecc_accounting=False`` skips the per-read
     ECC charges (a dynamic charge re-decodes the codeword planes of every
-    store on every read). Non-finite logits raise :class:`EngineError`.
+    store on every read). ``check_finite`` raises :class:`EngineError` on a
+    non-finite logit; either way the request's ``finite`` records it.
+    ``replica`` names the engine in fleet artifacts
+    (``RequestResult.replica``).
     """
 
     def __init__(self, model: "lm.LM", params=None, *, n_slots: int = 4,
                  max_len: int = 64, chunk: int = 16,
                  collect_logits: bool = False, ecc_accounting: bool = True,
-                 prefix_cache=None):
+                 check_finite: bool = True, prefix_cache=None,
+                 replica: str = ""):
         cfg = model.cfg
         lm.check_engine_kinds(cfg)
         if not (n_slots >= 1 and chunk >= 1 and max_len >= 2):
@@ -311,6 +330,8 @@ class Engine:
         self.n_slots, self.max_len = n_slots, max_len
         self.chunk = min(chunk, max_len)
         self.collect_logits = collect_logits
+        self.check_finite = check_finite
+        self.replica = replica
         self._prefill = steps_lib.make_prefill_chunk_step(model)
         self._decode = steps_lib.make_decode_slots_step(model)
         self._extract = steps_lib.make_extract_state_step(cfg)
@@ -331,8 +352,11 @@ class Engine:
         self._decoded_tokens = 0
         self._ecc_accounting = ecc_accounting
         self._runtime = self.params.get("_cim")
-        # per-store cumulative ECC charges (path -> counters)
+        # per-store cumulative ECC charges (path -> counters): what a scrub
+        # policy thresholds on. They survive refresh_params; record_scrub
+        # resets a scrubbed store's.
         self.store_ecc: Dict[str, Dict[str, int]] = {}
+        self.scrub_events: List[dict] = []
         self._ecc_fns = self._build_ecc_fns() if ecc_accounting else []
 
     def _check_devices(self) -> None:
@@ -361,7 +385,7 @@ class Engine:
             store = self.params[path]
             if not isinstance(store, cim_lib.CIMStore):
                 continue
-            self.store_ecc.setdefault(path, dict(_ECC_ZERO))
+            self.store_ecc.setdefault(path, _ecc_zero())
             if rt is None or store.codewords is None:
                 st = cim_lib.store_stats(store)
                 const = (st["corrected"], st["uncorrectable"])
@@ -488,16 +512,20 @@ class Engine:
             rid=slot.rid, prompt_len=slot.prompt_len, tokens=slot.tokens,
             finish=finish, queue_s=slot.admit_t - slot.submit_t,
             ttft_s=slot.ttft_s, decode_s=slot.decode_s, slot=slot_idx,
-            ecc=slot.ecc,
+            ecc=slot.ecc, finite=slot.finite,
             logits=np.stack(slot.logits) if slot.logits else None,
-            prefix_tokens=slot.prefix_tokens, salt=slot.salt,
-            ecc_window=slot.ecc_window)
+            replica=self.replica, prefix_tokens=slot.prefix_tokens,
+            salt=slot.salt, ecc_window=slot.ecc_window, scrubs=slot.scrubs)
         self._reset_slot(slot_idx)
 
     def _check(self, logits: np.ndarray, slot: _Slot) -> None:
-        """Fail on a non-finite logit."""
+        """Record a non-finite logit in the slot's verdict; raise on it
+        under ``check_finite``."""
         if not np.isfinite(logits).all():
-            raise EngineError(f"non-finite logits serving request {slot.rid}")
+            slot.finite = False
+            if self.check_finite:
+                raise EngineError(
+                    f"non-finite logits serving request {slot.rid}")
 
     def _clock(self) -> float:
         return time.perf_counter() - self._t0
@@ -534,11 +562,17 @@ class Engine:
         back.sort(key=lambda r: (r.arrival, r.rid))
         return back
 
-    def refresh_params(self, params) -> None:
-        """Swap in a new deployed image or runtime; the engine must be idle.
-        Cached prefix state holds the faults of the image it was prefilled
-        against, so the trie is dropped."""
-        if self.busy:
+    def refresh_params(self, params, *, force: bool = False) -> None:
+        """Swap in a new deployed image or runtime. Cached prefix state
+        holds the faults of the image it was prefilled against, so the trie
+        is dropped.
+
+        The engine must be idle unless ``force``: the online scrub and aging
+        path swaps with requests in flight. Their slot states stay (earlier
+        reads saw the old cells), positions and salts stay on the host, and
+        every later read, and its ECC charge, sees the new image. The
+        per-store ``store_ecc`` counters carry over."""
+        if self.busy and not force:
             raise EngineError("refresh_params on a busy engine: drain first")
         self.params = dict(params or {})
         self._check_devices()
@@ -546,6 +580,17 @@ class Engine:
         self._ecc_fns = self._build_ecc_fns() if self._ecc_accounting else []
         if self.prefix_cache is not None:
             self.prefix_cache.invalidate()
+
+    def record_scrub(self, event: dict) -> None:
+        """Log one scrub event: every in-flight request lived through it, and
+        the scrubbed stores' cumulative ``store_ecc`` counters reset."""
+        self.scrub_events.append(dict(event))
+        for s in self.slots:
+            if s is not None:
+                s.scrubs += 1
+        for path in event.get("paths", ()):
+            if path in self.store_ecc:
+                self.store_ecc[path] = _ecc_zero()
 
     # ------------------------------------------------------------ stepping
 
@@ -641,6 +686,7 @@ class Engine:
         total_tok = sum(len(r.tokens) for r in res)
         wall = self._clock() if hasattr(self, "_t0") else 0.0
         return {
+            "replica": self.replica,
             "n_requests": len(res),
             "n_slots": self.n_slots,
             "total_tokens": total_tok,
@@ -662,4 +708,17 @@ class Engine:
                              if self.prefix_cache is not None else None),
             "ecc": {k: int(sum(r.ecc[k] for r in res)) for k in _ECC_ZERO},
             "store_ecc": {p: dict(v) for p, v in self.store_ecc.items()},
+            "scrub": self._scrub_summary(),
+        }
+
+    def _scrub_summary(self) -> dict:
+        ev = self.scrub_events
+        return {
+            "events": len(ev),
+            "rows_reencoded": int(sum(e.get("rows", 0) for e in ev)),
+            "corrected_cleared": int(sum(e.get("corrected_cleared", 0)
+                                         for e in ev)),
+            "uncorrectable_cleared": int(sum(e.get("uncorrectable_cleared", 0)
+                                             for e in ev)),
+            "wall_s": float(sum(e.get("wall_s", 0.0) for e in ev)),
         }

@@ -39,8 +39,27 @@ tokens and ECC match).
   python -m repro_torch.launch.serve --engine --cim --ber 1e-4 \\
       --inject dynamic --slots 4 --chunk 16 --requests 12 --probe 0
 
-``--fleet``, ``--mesh``, ``--expert-cim``, ``--scrub`` and ``--age-ber``
-wait (ROADMAP Queue 1 items 10-14).
+``--scrub`` (engine mode, fused path) attaches an online ECC scrubber
+(:mod:`repro_torch.launch.scrub`) as the engine's step hook: a store whose
+cumulative ECC events reach ``--scrub-threshold`` is re-encoded and the
+params swapped mid-flight; ``--age-ber`` adds drift-aging wear under it
+(``--fault-model``, default drift, every ``--age-every`` steps, seeds from
+``--seed``).
+
+  python -m repro_torch.launch.serve --engine --cim --scrub --age-ber 1e-3 \\
+      --scrub-threshold 8 --slots 4 --chunk 16 --requests 8
+
+``--fleet N`` serves the load through N engine replicas behind the SLO
+router (:mod:`repro_torch.launch.fleet`): the params are spooled once and
+restored per replica; ``--probe RID`` re-serves one request through a
+fresh one-replica fleet from the same spool and fails unless its tokens and
+ECC match the routed run.
+
+  python -m repro_torch.launch.serve --fleet 2 --cim --ber 1e-4 \\
+      --inject dynamic --slots 4 --chunk 16 --requests 12 --probe 5
+
+``--mesh``, ``--rounds`` and ``--expert-cim`` wait (ROADMAP Queue 1 items 12
+and 14).
 """
 from __future__ import annotations
 
@@ -61,6 +80,8 @@ from repro_torch.data.synthetic import MarkovLM
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cim_read import kernel as kernel_lib
 from repro_torch.launch import engine as engine_lib
+from repro_torch.launch import fleet as fleet_lib
+from repro_torch.launch import scrub as scrub_lib
 from repro_torch.models.lm import LM
 
 _SEED_SALT = 0x5EED
@@ -254,21 +275,50 @@ def _parse_range(spec: str) -> tuple:
     return lo, hi
 
 
+def _load(model: LM, requests, rate, prompt_range, gen_range, seed,
+          shared_prefix) -> engine_lib.LoadGen:
+    return engine_lib.LoadGen(
+        n_requests=requests, rate=rate if rate > 0 else float("inf"),
+        prompt_lens=tuple(prompt_range), gen_lens=tuple(gen_range),
+        vocab_size=model.cfg.vocab_size, seed=seed, prefix_len=shared_prefix)
+
+
+def _probe_record(rid: int, routed, solo, what: str, verbose: bool) -> dict:
+    """Compare a re-served request with the run's -> the probe record;
+    raises unless tokens and ECC charges match."""
+    record = {"rid": rid, "tokens_equal": routed.tokens == solo.tokens,
+              "ecc_equal": routed.ecc == solo.ecc}
+    record["ok"] = record["tokens_equal"] and record["ecc_equal"]
+    if verbose:
+        print(f"probe rid={rid}: {what} "
+              f"{'MATCHES' if record['ok'] else 'DIVERGES'} (tokens "
+              f"{record['tokens_equal']}, ecc {record['ecc_equal']})")
+    if not record["ok"]:
+        raise engine_lib.EngineError(f"{what} probe failed: {record}")
+    return record
+
+
 def serve_engine(model: LM, params, *, slots: int = 4, chunk: int = 16,
                  max_len: int = 0, requests: int = 16, rate: float = 0.0,
                  prompt_range=(8, 32), gen_range=(4, 16), seed: int = 0,
                  shared_prefix: int = 0, ecc_accounting: bool = True,
-                 probe: int = -1, verbose: bool = True):
+                 probe: int = -1, scrubber=None, verbose: bool = True):
     """Serve a synthetic load through the continuous-batching engine ->
     (results by rid, aggregate, probe record or None). ``rate`` 0 means all
     requests arrive at once; ``shared_prefix`` > 0 prepends one shared
     prefix to every prompt and attaches a prefix cache. ``probe`` >= 0
     re-serves that request through a fresh engine of the same shape and
-    raises unless its tokens and ECC charges match the co-batched run."""
-    load = engine_lib.LoadGen(
-        n_requests=requests, rate=rate if rate > 0 else float("inf"),
-        prompt_lens=tuple(prompt_range), gen_lens=tuple(gen_range),
-        vocab_size=model.cfg.vocab_size, seed=seed, prefix_len=shared_prefix)
+    raises unless its tokens and ECC charges match the co-batched run.
+    ``scrubber`` (a :class:`~repro_torch.launch.scrub.ScrubController`)
+    runs after every engine step."""
+    if scrubber is not None and probe >= 0:
+        raise ValueError("--probe replays against the launch image; "
+                         "--scrub rewrites it")
+    if scrubber is not None and not ecc_accounting:
+        raise ValueError("--scrub thresholds on the per-store ECC "
+                         "accounting; drop --no-ecc-accounting")
+    load = _load(model, requests, rate, prompt_range, gen_range, seed,
+                 shared_prefix)
     max_len = max_len or load.max_len()
     kw = dict(n_slots=slots, max_len=max_len, chunk=chunk,
               ecc_accounting=ecc_accounting,
@@ -276,7 +326,7 @@ def serve_engine(model: LM, params, *, slots: int = 4, chunk: int = 16,
     eng = engine_lib.Engine(model, params, **kw)
     reqs = load.requests()
     with torch.inference_mode():
-        results, agg = eng.run(reqs, open_loop=rate > 0)
+        results, agg = eng.run(reqs, open_loop=rate > 0, on_step=scrubber)
     missing = [r.rid for r in reqs if r.rid not in results]
     if missing:
         raise engine_lib.EngineError(f"engine dropped requests: {missing}")
@@ -291,6 +341,13 @@ def serve_engine(model: LM, params, *, slots: int = 4, chunk: int = 16,
               f"{agg['ttft_s_p95'] * 1e3:.0f} ms; ECC reads="
               f"{agg['ecc']['reads']} corrected={agg['ecc']['corrected']} "
               f"uncorrectable={agg['ecc']['uncorrectable']}")
+        if scrubber is not None:
+            sc = agg["scrub"]
+            print(f"scrub: {sc['events']} events, {sc['rows_reencoded']} "
+                  f"rows re-encoded, corrected cleared "
+                  f"{sc['corrected_cleared']}, uncorrectable cleared "
+                  f"{sc['uncorrectable_cleared']} ({sc['wall_s'] * 1e3:.0f} "
+                  f"ms scrub wall)")
     record = None
     if probe >= 0:
         preq = [r for r in reqs if r.rid == probe]
@@ -299,17 +356,65 @@ def serve_engine(model: LM, params, *, slots: int = 4, chunk: int = 16,
         solo_eng = engine_lib.Engine(model, params, **kw)
         with torch.inference_mode():
             solo = solo_eng.run(preq)[0][probe]
+        record = _probe_record(probe, results[probe], solo, "solo replay",
+                               verbose)
+    return results, agg, record
+
+
+def serve_fleet(model: LM, params, *, fleet: int = 2, slots: int = 4,
+                chunk: int = 16, max_len: int = 0, requests: int = 16,
+                rate: float = 0.0, prompt_range=(8, 32), gen_range=(4, 16),
+                seed: int = 0, shared_prefix: int = 0,
+                prefix_cache: bool = True, ecc_accounting: bool = True,
+                probe: int = -1, spool_dir=None, verbose: bool = True):
+    """Serve a synthetic load through ``fleet`` engine replicas behind the
+    SLO router -> (results by rid, aggregate, probe record or None).
+    ``probe`` >= 0 re-serves that request through a fresh one-replica fleet
+    restored from the same spool and raises unless its tokens and ECC
+    charges match the routed run."""
+    load = _load(model, requests, rate, prompt_range, gen_range, seed,
+                 shared_prefix)
+    max_len = max_len or load.max_len()
+    kw = dict(spool_dir=spool_dir, prefix_cache=prefix_cache, n_slots=slots,
+              max_len=max_len, chunk=chunk, ecc_accounting=ecc_accounting)
+    fl = fleet_lib.Fleet.from_serving_params(model, params, n_replicas=fleet,
+                                             **kw)
+    reqs = load.requests()
+    with torch.inference_mode():
+        results, agg = fl.run(reqs, open_loop=rate > 0)
+    missing = [r.rid for r in reqs if r.rid not in results]
+    if missing:
+        raise fleet_lib.FleetError(f"fleet dropped requests: {missing}")
+    if verbose:
+        by_rep = " ".join(f"{k}={v}" for k, v in
+                          sorted(agg["requests_by_replica"].items()))
+        sp = agg["spool"]
+        print(f"fleet: {agg['n_requests']} requests over "
+              f"{agg['n_replicas']} replicas x {slots} slots (chunk "
+              f"{chunk}, max_len {max_len}); routed {by_rep}; spool "
+              f"{sp['bytes'] / 1e6:.2f} MB, saved in {sp['save_s']:.2f} s, "
+              f"restored {fleet}x in {sp['restore_s']:.2f} s")
+        print(f"fleet: {agg['tok_s']:.1f} tok/s wall, "
+              f"{agg['tok_s_virtual']:.1f} tok/s virtual (busy wall "
+              f"{agg['busy_wall_s']:.2f} s of {agg['wall_s']:.2f} s); TTFT "
+              f"mean {agg['ttft_s_mean'] * 1e3:.0f} ms p95 "
+              f"{agg['ttft_s_p95'] * 1e3:.0f} ms; prefix hits "
+              f"{agg['prefix_hits']} ({agg['prefix_tokens']} tokens reused)")
+    record = None
+    if probe >= 0:
+        preq = [r for r in reqs if r.rid == probe]
+        if not preq:
+            raise ValueError(f"--probe {probe}: no such rid in the load")
+        kw["spool_dir"] = fl.spool_dir
+        pf = fleet_lib.Fleet.from_serving_params(model, params, n_replicas=1,
+                                                 **kw)
+        with torch.inference_mode():
+            solo = pf.run(preq)[0][probe]
         routed = results[probe]
-        record = {"rid": probe, "tokens_equal": routed.tokens == solo.tokens,
-                  "ecc_equal": routed.ecc == solo.ecc}
-        record["ok"] = record["tokens_equal"] and record["ecc_equal"]
-        if verbose:
-            print(f"probe rid={probe}: solo replay "
-                  f"{'MATCHES' if record['ok'] else 'DIVERGES'} (tokens "
-                  f"{record['tokens_equal']}, ecc {record['ecc_equal']})")
-        if not record["ok"]:
-            raise engine_lib.EngineError(
-                f"solo-vs-co-batched probe failed: {record}")
+        record = _probe_record(probe, routed, solo,
+                               f"routed via {routed.replica!r}, solo replay",
+                               verbose)
+        record["replica_routed"] = routed.replica
     return results, agg, record
 
 
@@ -368,8 +473,32 @@ def main(argv=None):
                          "re-decodes the codeword planes on every read)")
     ap.add_argument("--probe", type=int, default=-1, metavar="RID",
                     help="engine: re-serve request RID through a fresh "
-                         "engine and fail unless its tokens and ECC match "
-                         "the co-batched run")
+                         "engine (fleet: a fresh one-replica fleet from the "
+                         "same spool) and fail unless its tokens and ECC "
+                         "match the co-batched (routed) run")
+    # online ECC scrubbing (repro_torch.launch.scrub, engine mode)
+    ap.add_argument("--scrub", action="store_true",
+                    help="engine: when a store's cumulative ECC events reach "
+                         "--scrub-threshold, re-encode its image and swap "
+                         "the params mid-flight (fused CIM path only)")
+    ap.add_argument("--scrub-threshold", type=int, default=16,
+                    help="scrub: per-store cumulative ECC events before a "
+                         "re-encode")
+    ap.add_argument("--scrub-interval", type=int, default=1,
+                    help="scrub: check cadence in engine steps")
+    ap.add_argument("--age-ber", type=float, default=0.0,
+                    help="scrub soak: static wear injected at this BER under "
+                         "--fault-model (default drift) every --age-every "
+                         "engine steps; damage stays until scrubbed")
+    ap.add_argument("--age-every", type=int, default=1,
+                    help="scrub soak: age every N engine steps")
+    # fleet mode (repro_torch.launch.fleet)
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="serve the engine load through N replicas behind "
+                         "the SLO router (one image, spooled once and "
+                         "restored per replica)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="fleet: no per-replica prefix cache")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -377,6 +506,8 @@ def main(argv=None):
         cfg = cfg.reduced()
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = LM(cfg, generator=gen, device=device)
+    if args.fleet > 0:
+        return _main_fleet(args, model)
     if args.engine:
         return _main_engine(args, model)
     return serve(model, batch=args.batch, prompt_len=args.prompt_len,
@@ -387,32 +518,93 @@ def main(argv=None):
 
 
 
+def _scrubber(args, model: LM):
+    """``--scrub``: the fused deployment, its serving params and the
+    controller that ages and scrubs it -> (params, controller)."""
+    if not (args.cim or args.ber > 0) or args.serve_path != "fused":
+        raise ValueError("--scrub needs the fused CIM serve path "
+                         "(--cim --serve-path fused)")
+    static, dynamic = default_seeds(args.seed)
+    dep = make_deployment(model.cim_leaves(), ber=args.ber,
+                          protect=args.protect, n_group=args.n_group,
+                          index=args.index, seeds=static,
+                          inject_mode=args.inject, field=args.field,
+                          fault_model=args.fault_model)
+    kw = serving_kw(ber=args.ber, dynamic_seeds=dynamic,
+                    inject_mode=args.inject, field=args.field,
+                    fault_model=args.fault_model)
+    aging = None
+    if args.age_ber > 0:
+        aging = scrub_lib.DriftAging(seeds=args.seed, ber=args.age_ber,
+                                     model=args.fault_model or "drift",
+                                     every=args.age_every)
+    ctl = scrub_lib.ScrubController(
+        dep, scrub_lib.ScrubPolicy(threshold=args.scrub_threshold,
+                                   interval=args.scrub_interval),
+        aging=aging, serving_kw=kw)
+    return dep.serving_params(**kw), ctl
+
+
+def _write_json(args, keys, agg, probe, results) -> None:
+    os.makedirs(os.path.dirname(args.engine_json) or ".", exist_ok=True)
+    payload = {"config": {k: getattr(args, k) for k in keys},
+               "aggregate": agg, "probe": probe,
+               "requests": [results[r].to_json() for r in sorted(results)]}
+    with open(args.engine_json, "w") as f:
+        json.dump(payload, f, indent=2)
+    print(f"wrote {args.engine_json}")
+
+
+_JSON_KEYS = ("arch", "reduced", "slots", "chunk", "max_len", "requests",
+              "rate", "ber", "protect", "inject", "serve_path", "seed",
+              "fault_model", "shared_prefix", "device")
+
+
 def _main_engine(args, model: LM):
     """``--engine``: deploy as the lock-step launch does, then serve the
     load through the engine (and write ``--engine-json``)."""
-    params, _, _ = build_params(
-        model, seed=args.seed, cim=args.cim, ber=args.ber,
-        protect=args.protect, n_group=args.n_group, index=args.index,
-        serve_path=args.serve_path, inject=args.inject, field=args.field,
-        fault_model=args.fault_model)
+    scrubber = None
+    if args.scrub:
+        params, scrubber = _scrubber(args, model)
+    else:
+        params, _, _ = build_params(
+            model, seed=args.seed, cim=args.cim, ber=args.ber,
+            protect=args.protect, n_group=args.n_group, index=args.index,
+            serve_path=args.serve_path, inject=args.inject, field=args.field,
+            fault_model=args.fault_model)
     results, agg, probe = serve_engine(
         model, params, slots=args.slots, chunk=args.chunk,
         max_len=args.max_len, requests=args.requests, rate=args.rate,
         prompt_range=_parse_range(args.prompt_range),
         gen_range=_parse_range(args.gen_range), seed=args.seed,
         shared_prefix=args.shared_prefix,
+        ecc_accounting=not args.no_ecc_accounting, probe=args.probe,
+        scrubber=scrubber)
+    if args.engine_json:
+        _write_json(args, _JSON_KEYS + ("scrub", "age_ber"), agg, probe,
+                    results)
+    return results, agg
+
+
+def _main_fleet(args, model: LM):
+    """``--fleet N``: deploy as the lock-step launch does, then serve the
+    load through N replicas (and write ``--engine-json``)."""
+    params, _, _ = build_params(
+        model, seed=args.seed, cim=args.cim, ber=args.ber,
+        protect=args.protect, n_group=args.n_group, index=args.index,
+        serve_path=args.serve_path, inject=args.inject, field=args.field,
+        fault_model=args.fault_model)
+    results, agg, probe = serve_fleet(
+        model, params, fleet=args.fleet, slots=args.slots, chunk=args.chunk,
+        max_len=args.max_len, requests=args.requests, rate=args.rate,
+        prompt_range=_parse_range(args.prompt_range),
+        gen_range=_parse_range(args.gen_range), seed=args.seed,
+        shared_prefix=args.shared_prefix,
+        prefix_cache=not args.no_prefix_cache,
         ecc_accounting=not args.no_ecc_accounting, probe=args.probe)
     if args.engine_json:
-        os.makedirs(os.path.dirname(args.engine_json) or ".", exist_ok=True)
-        config = {k: getattr(args, k) for k in (
-            "arch", "reduced", "slots", "chunk", "max_len", "requests",
-            "rate", "ber", "protect", "inject", "serve_path", "seed",
-            "fault_model", "shared_prefix", "device")}
-        payload = {"config": config, "aggregate": agg, "probe": probe,
-                   "requests": [results[r].to_json() for r in sorted(results)]}
-        with open(args.engine_json, "w") as f:
-            json.dump(payload, f, indent=2)
-        print(f"wrote {args.engine_json}")
+        _write_json(args, _JSON_KEYS + ("fleet", "no_prefix_cache"), agg,
+                    probe, results)
     return results, agg
 
 

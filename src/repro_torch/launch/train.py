@@ -3,15 +3,21 @@
   python -m repro_torch.launch.train --arch olmo-1b --rel-mode align \\
       --n-group 8 --index 2               # full width, on the card
   python -m repro_torch.launch.train --reduced --steps 3 --device cpu
+  python -m repro_torch.launch.train --reduced --steps 4 --device cpu \\
+      --checkpoint-dir /tmp/ckpt --checkpoint-every 2   # again: resumes
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
 card. Weights come from ``torch.Generator(device).manual_seed(seed)``; data
 is the reference's ``MarkovLM`` (numpy, so the batches are the reference's).
 ``--rel-mode align`` trains exponent-aligned with frozen (exponent, sign)
 projection at BER 0; ``cim`` adds the fault schedule, of which only the
-static and BER-0 cases are ported (dynamic raises). The reference's
-``--grad-compression`` and its non-text architectures wait (ROADMAP Queue 1
-items 11 and 12).
+static and BER-0 cases are ported (dynamic raises). ``--checkpoint-dir``
+saves the state (and the data cursor) every ``--checkpoint-every`` steps
+and at the end; a run pointed at a directory that holds a checkpoint
+resumes from its latest step and consumes the batches the interrupted run
+would have. ``--grad-compression`` compresses the gradient to int8 with
+error feedback. The reference's non-text architectures wait (ROADMAP
+Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ import json
 
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.core.deployment import PolicyRule, ReliabilityPolicy
-from repro_torch.data.synthetic import MarkovLM
+from repro_torch.data.synthetic import CheckpointableLoader, MarkovLM
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.training.loop import run_training
@@ -40,6 +46,7 @@ def build_argparser():
     ap.add_argument("--d-model", type=int, default=0, help="override width")
     ap.add_argument("--n-layers", type=int, default=0, help="override depth")
     ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--log-jsonl", default="")
     ap.add_argument("--rel-mode", default="off", choices=["off", "align", "cim"])
     ap.add_argument("--n-group", type=int, default=8)
@@ -48,6 +55,8 @@ def build_argparser():
     ap.add_argument("--protect", default="one4n",
                     choices=["one4n", "per_weight", "none"])
     ap.add_argument("--inject", default="dynamic", choices=["static", "dynamic"])
+    ap.add_argument("--grad-compression", action="store_true",
+                    help="int8 error-feedback gradient compression")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu for the plain versions")
     return ap
@@ -79,9 +88,10 @@ def main(argv=None):
             inject=args.inject)
     run = RunConfig(steps=args.steps, learning_rate=args.lr,
                     seed=args.seed, checkpoint_dir=args.checkpoint_dir,
-                    **rel_kw)
-    batches = iter(MarkovLM(cfg.vocab_size, args.seq, args.batch,
-                            seed=args.seed))
+                    checkpoint_every=args.checkpoint_every,
+                    grad_compression=args.grad_compression, **rel_kw)
+    batches = CheckpointableLoader(MarkovLM(cfg.vocab_size, args.seq,
+                                            args.batch, seed=args.seed))
     logf = open(args.log_jsonl, "a") if args.log_jsonl else None
 
     def log(step, metrics):

@@ -3,21 +3,29 @@
 ``run_training`` trains for ``run.steps`` steps with the straggler watchdog
 and returns a :class:`TrainResult`. Modes: ``off`` (plain training) and
 ``align`` / ``cim`` at BER 0 or with static injection (frozen-exponent
-training; the projection lives in the step).
+training; the projection lives in the step). ``run.grad_compression``
+compresses each gradient to int8 with error feedback.
+
+Checkpoints. With a non-empty ``run.checkpoint_dir`` the state is saved
+there asynchronously every ``run.checkpoint_every`` steps and at the end
+(:mod:`repro_torch.distributed.checkpoint`), and a run given no ``state``
+resumes from the latest saved step (``info["resumed_from"]``). A
+:class:`~repro_torch.data.synthetic.CheckpointableLoader` as ``batches``
+has its cursor saved beside the state and restored with it, so the resumed
+run consumes the batches the interrupted one would have.
 
 What waits, and raises rather than being skipped:
 
 * dynamic fault injection during training (``cim``, ber > 0, ``inject=
   'dynamic'``; paper Fig. 7): the reference draws it from ``jax.random``,
   so parity can only be statistical; it comes with the Fig. 7 slice;
-* checkpoints and resume (a non-empty ``checkpoint_dir``) and gradient
-  compression: ROADMAP Queue 1 item 11;
 * a device mesh: ROADMAP Queue 1 item 14.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import time
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -25,7 +33,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.data.synthetic import CheckpointableLoader
 from repro_torch.device import resolve_device
+from repro_torch.distributed import checkpoint as ckpt_lib
 from repro_torch.distributed.elastic import StragglerWatchdog
 from repro_torch.training import steps as steps_lib
 
@@ -87,26 +97,59 @@ def _on_device(batch: Dict, device: torch.device) -> Dict:
             for k, v in batch.items()}
 
 
+_STATE_FIELDS = ("params", "opt", "exps", "signs", "ef_error")
+
+
+def _checkpoint_tree(state: steps_lib.TrainState, loader) -> dict:
+    tree = {f: getattr(state, f) for f in _STATE_FIELDS}
+    if loader is not None:
+        tree["data"] = loader.state_dict()
+    return tree
+
+
 def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
                  log_fn: Optional[Callable[[int, Dict], None]] = None,
                  state: Optional[steps_lib.TrainState] = None,
-                 mesh=None, *, device=None) -> TrainResult:
-    """Train for ``run.steps`` steps. Without ``state``, weights come from
-    ``torch.Generator(device).manual_seed(run.seed)`` on ``device``
-    (default ``cuda``; it raises without a card); with one, the run goes on
-    the device its parameters lie on. ``batches`` yields ``tokens`` /
-    ``labels`` arrays (numpy or tensors). History entries hold ``loss``,
-    ``accuracy``, ``tokens``, ``grad_norm``, ``lr``, ``aux_loss``, ``step``
-    and ``step_time`` (seconds, after a device synchronize)."""
+                 mesh=None, *, device=None,
+                 sleep_injector: Optional[Callable[[int], float]] = None
+                 ) -> TrainResult:
+    """Train for ``run.steps`` steps. Without ``state``, the run resumes
+    from ``run.checkpoint_dir``'s latest step if there is one, else weights
+    come from ``torch.Generator(device).manual_seed(run.seed)``; either way
+    on ``device`` (default ``cuda``; it raises without a card). With a
+    ``state``, the run goes on the device its parameters lie on.
+    ``batches`` yields ``tokens`` / ``labels`` arrays (numpy or tensors).
+    History entries hold ``loss``, ``accuracy``, ``tokens``, ``grad_norm``,
+    ``lr``, ``aux_loss``, ``step`` and ``step_time`` (seconds, after a
+    device synchronize). ``sleep_injector(step)`` seconds are slept inside
+    a step's timing (simulated host slowness, for the watchdog)."""
     if mesh is not None:
         raise NotImplementedError("training on a device mesh waits for "
                                   "ROADMAP Queue 1 item 14")
-    if run.checkpoint_dir:
-        raise NotImplementedError(
-            f"checkpoints and resume (checkpoint_dir={run.checkpoint_dir!r}) "
-            f"wait for ROADMAP Queue 1 item 11; pass checkpoint_dir=''")
     make_fault_schedule(run)          # raises for the schedule not ported
     step_fn = steps_lib.make_train_step(cfg, run)
+    loader = batches if isinstance(batches, CheckpointableLoader) else None
+    start_step, checkpointer = 0, None
+    if run.checkpoint_dir:
+        os.makedirs(run.checkpoint_dir, exist_ok=True)
+        if state is None and \
+                ckpt_lib.latest_step(run.checkpoint_dir) is not None:
+            tree, start_step = ckpt_lib.restore(
+                None, run.checkpoint_dir, device=resolve_device(device))
+            state = steps_lib.TrainState(**{f: tree[f]
+                                            for f in _STATE_FIELDS})
+            # the step count lives on the host, where init_opt_state puts
+            # it: the lr schedule and bias corrections are computed there
+            state.opt["step"] = state.opt["step"].cpu()
+            if run.grad_compression != (state.ef_error is not None):
+                raise ValueError(
+                    f"checkpoint step {start_step} in {run.checkpoint_dir!r} "
+                    f"was saved {'without' if run.grad_compression else 'with'}"
+                    f" gradient compression, which this run "
+                    f"{'asks for' if run.grad_compression else 'turns off'}")
+            if loader is not None and "data" in tree:
+                loader.load_state_dict(tree["data"])
+        checkpointer = ckpt_lib.AsyncCheckpointer(run.checkpoint_dir)
     if state is None:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(run.seed)
@@ -117,22 +160,35 @@ def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
     watchdog = StragglerWatchdog(factor=run.straggler_factor)
     history, stragglers = [], 0
     it = iter(batches)
-    for step in range(run.steps):
-        batch = _on_device(next(it), dev)
-        sync()
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        sync()
-        dt = time.perf_counter() - t0
-        metrics = {k: float(v) for k, v in metrics.items()}
-        # the first step is the warm-up: never fed to the watchdog
-        if step > 0 and watchdog.observe(dt):
-            stragglers += 1
-        metrics.update(step=step, step_time=dt)
-        history.append(metrics)
-        if log_fn:
-            log_fn(step, metrics)
-    info = {"stragglers_flagged": stragglers, "resumed_from": 0,
+    try:
+        for step in range(start_step, run.steps):
+            batch = _on_device(next(it), dev)
+            sync()
+            t0 = time.perf_counter()
+            if sleep_injector is not None:
+                time.sleep(sleep_injector(step))
+            state, metrics = step_fn(state, batch)
+            sync()
+            dt = time.perf_counter() - t0
+            metrics = {k: float(v) for k, v in metrics.items()}
+            # the first step is the warm-up: never fed to the watchdog
+            if step > start_step and watchdog.observe(dt):
+                stragglers += 1
+            metrics.update(step=step, step_time=dt)
+            history.append(metrics)
+            if log_fn:
+                log_fn(step, metrics)
+            if checkpointer and (step + 1) % run.checkpoint_every == 0:
+                checkpointer.save_async(_checkpoint_tree(state, loader),
+                                        step + 1)
+        if checkpointer:
+            checkpointer.save_async(_checkpoint_tree(state, loader),
+                                    run.steps)
+            checkpointer.wait()
+    finally:
+        if checkpointer:
+            checkpointer.close()
+    info = {"stragglers_flagged": stragglers, "resumed_from": start_step,
             "ewma_step_time": watchdog.ewma}
     return TrainResult(state=state, history=history, info=info, cfg=cfg,
                        run=run)

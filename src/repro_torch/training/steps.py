@@ -1,8 +1,9 @@
 """The train step with the reliability feature wired in, and the serving
 engine's step factories (port of ``repro/training/steps.py``).
 
-A step is: forward -> loss -> gradient -> global-norm clip -> AdamW ->
-frozen-exponent projection (paper §III-C: mantissa-only updates). The
+A step is: forward -> loss -> gradient -> global-norm clip -> (optional int8
+error-feedback compression of the gradient) -> AdamW -> frozen-exponent
+projection (paper §III-C: mantissa-only updates). The
 parameters are a ``{path: tensor}`` tree in the reference's layout and
 flatten order, so each gradient, moment, frozen exponent and frozen sign
 matches one leaf of the reference one to one.
@@ -21,14 +22,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import align as align_lib
+from repro_torch.distributed.compression import compress_decompress
 from repro_torch.models import lm
 from repro_torch.models.losses import exponent_compression_penalty, lm_loss
 from repro_torch.optim import adamw
-
-GRAD_COMPRESSION_WAITS = (
-    "gradient compression (int8 error feedback) waits for the port of "
-    "distributed/compression.py (ROADMAP Queue 1 item 11)")
-
 
 @dataclasses.dataclass
 class TrainState:
@@ -36,7 +33,7 @@ class TrainState:
     opt: dict                     # {"m": tree, "v": tree, "step": int32 0-dim}
     exps: Dict[str, Optional[torch.Tensor]]    # frozen block exponents
     signs: Dict[str, Optional[torch.Tensor]]   # frozen signs (int8)
-    ef_error: Optional[dict] = None            # grad compression: not ported
+    ef_error: Optional[dict] = None            # grad compression residuals
 
 
 def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
@@ -44,9 +41,9 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
                      device=None) -> TrainState:
     """A fresh state (new optimizer): weights from ``generator`` (an
     :class:`LM` built on ``device``), or the given ``params`` tree; aligned
-    and frozen when the run's reliability is on and ``freeze_exponents``."""
-    if run.grad_compression:
-        raise NotImplementedError(GRAD_COMPRESSION_WAITS)
+    and frozen when the run's reliability is on and ``freeze_exponents``;
+    with ``grad_compression`` a zero float32 error-feedback residual per
+    leaf."""
     if params is None:
         from repro_torch import convert
         model = lm.LM(cfg, generator=generator, device=device)
@@ -59,8 +56,12 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
         signs = {p: None if exps[p] is None
                  else torch.sign(w).to(torch.int8)
                  for p, w in params.items()}
+    ef = None
+    if run.grad_compression:
+        ef = {p: torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+              for p, w in params.items()}
     return TrainState(params=dict(params), opt=adamw.init_opt_state(params),
-                      exps=exps, signs=signs)
+                      exps=exps, signs=signs, ef_error=ef)
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
@@ -68,9 +69,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
     ``tokens`` and ``labels`` [B, S] tensors on the parameters' device;
     metrics are 0-dim tensors (``loss``, ``accuracy``, ``tokens``,
     ``grad_norm``, ``lr``, ``aux_loss``, and ``exp_penalty`` with the
-    regularizer)."""
-    if run.grad_compression:
-        raise NotImplementedError(GRAD_COMPRESSION_WAITS)
+    regularizer). A state with ``ef_error`` compresses its clipped gradient
+    (int8 with error feedback) before AdamW."""
     rel = run.rel
     project = rel.enabled() and run.freeze_exponents
     reg_policy = rel.policy if run.exp_reg_coef > 0 else None
@@ -102,8 +102,6 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
         return loss + aux, (metrics, aux)
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        if state.ef_error is not None:
-            raise NotImplementedError(GRAD_COMPRESSION_WAITS)
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
         with torch.enable_grad():
@@ -113,6 +111,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
         metrics = {k: v.detach() for k, v in metrics.items()}
         grads = dict(zip(state.params, grads))
         grads, gnorm = adamw.clip_by_global_norm(grads, opt_cfg.grad_clip)
+        ef = state.ef_error
+        if ef is not None:
+            grads, ef = compress_decompress(grads, ef)
         lr = lr_fn(state.opt["step"])
         params, opt = adamw.adamw_update(grads, state.opt, state.params, lr,
                                          opt_cfg)
@@ -121,7 +122,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
             params = align_lib.project_pytree_policy(
                 params, state.exps, state.signs, rel.policy)
         metrics = dict(metrics, grad_norm=gnorm, lr=lr, aux_loss=aux)
-        return TrainState(params, opt, state.exps, state.signs), metrics
+        return TrainState(params, opt, state.exps, state.signs, ef), metrics
 
     return train_step
 

@@ -536,6 +536,61 @@ def test_refresh_params_idle_only_and_invalidates(port):
     assert len(cache) == 0 and cache.invalidations == 1
 
 
+def test_refresh_params_forced_mid_flight(port):
+    """``force=True`` swaps a busy engine's params: in-flight requests run
+    to completion on the new image from the next step on, the trie drops,
+    and the per-store ECC counters carry over. Swapping in the same image
+    changes nothing: tokens, logits and ECC equal an unswapped run."""
+    model, params = port
+    sp = params["fused", "one4n", "dynamic"]
+    reqs = _requests()
+    plain, _ = _run(model, sp, reqs)
+    cache = t_engine.PrefixCache()
+    eng = t_engine.Engine(model, sp, n_slots=SLOTS, max_len=MAX_LEN,
+                          chunk=CHUNK, collect_logits=True, prefix_cache=cache)
+    cache.insert(None, [1, 2], None, 0)
+    swaps = []
+
+    def swap(engine, ev):
+        if engine.busy and len(swaps) < 2:
+            totals = {p: dict(v) for p, v in engine.store_ecc.items()}
+            engine.refresh_params(sp, force=True)
+            assert engine.store_ecc == totals
+            swaps.append(engine.steps)
+    res, _ = eng.run(reqs, on_step=swap)
+    assert len(swaps) == 2 and cache.invalidations == 2
+    assert cache.lookup(None, [1, 2]) is None     # dropped by the first swap
+    for r in reqs:
+        a, b = plain[r.rid], res[r.rid]
+        assert a.tokens == b.tokens and a.ecc == b.ecc and \
+            a.ecc_window == b.ecc_window
+        assert np.array_equal(a.logits, b.logits)
+    eng.submit(t_engine.Request(rid=9, tokens=np.arange(3), max_new=2))
+    with pytest.raises(t_engine.EngineError, match="busy"):
+        eng.refresh_params(sp)
+
+
+def test_check_finite_records_and_raises(port, monkeypatch):
+    """Logits forced non-finite: ``check_finite=False`` serves on and
+    records ``finite=False`` (the JSON artifact too); the default raises."""
+    model, params = port
+    sp = params["fused", "one4n", "dynamic"]     # reads one slot at a time
+    real = t_lm._unembed_logits
+
+    def poisoned(params_, x, pos=0, req_salt=None):
+        out = real(params_, x, pos=pos, req_salt=req_salt)
+        return out * float("nan") if req_salt == t_dep.request_salt(1) \
+            else out
+    monkeypatch.setattr(t_lm, "_unembed_logits", poisoned)
+    reqs = _requests(n=3)
+    res, agg = _run(model, sp, reqs, check_finite=False)
+    assert [res[r.rid].finite for r in reqs] == [True, False, True]
+    assert res[1].to_json()["finite"] is False
+    assert len(res[1].tokens) == reqs[1].max_new
+    with pytest.raises(t_engine.EngineError, match="non-finite"):
+        _run(model, sp, reqs)
+
+
 # ------------------------------------------------------ guards
 
 
