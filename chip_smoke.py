@@ -163,10 +163,38 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    olmo-1b on the card, 4 aligned steps twice, and interrupted after its
    step-2 checkpoint and resumed: bitwise equal to the uninterrupted run
    where the two uninterrupted runs are (else within their gap, printed);
-   one step with int8 gradient compression has a finite loss.
+   one step with int8 gradient compression has a finite loss;
+12. the dense variants on full-width granite-3-8b (40 layers, d_model
+   4096, 32 query heads over 8 KV heads, rmsnorm with its scales drawn
+   nonzero, SwiGLU d_ff 12800, vocab 49155, fp32; 8.37 B parameters from
+   a seeded generator on the card, after the olmo-1b model and the
+   training state are freed). (a) Lock-step serving, batch 4, prompt 64,
+   gen 32, in arms (a) one4n dynamic, (b) none dynamic (BER 1e-4), (c)
+   one4n static (row cache) and (e) hbm, the counts zeroed just before
+   each arm and read just after: GEN narrow K1 launches in (a), GEN
+   narrow K2 launches in (b), none in (c) and (e); tok/s and prefill ms
+   per arm. (b) K1 and K2 at granite's unembed shape (K = 4096,
+   J = 49155, padded to 49168: the last 128-column strip holds 16 columns,
+   3 of them real) on the served weights: the identity probe in 8-row
+   narrow slices exact on the clean and the BER 1e-3 image, the last
+   strip's columns included; the dynamic read equal to the static read of
+   its image bitwise; the final-normed hidden states of a MarkovLM batch
+   at M = 4 and 1 within 1e-4 of |h| @ |W| of the plain version, static
+   and dynamic; each narrow kernel timed static and dynamic (BER 1e-4) at
+   M = 4 and 1 beside torch.matmul and the plain version, with its bytes
+   bound (453.1 MB of planes) and its draws bound. (c) Engine arm (a) on
+   granite: phase 10's load, 4 slots, chunk 16, the count zeroed just
+   before and read just after: one narrow K1 launch a prefill chunk plus
+   one a slot a decode step (145); rids 0 and 2 served solo equal the
+   co-batched run bitwise. The phase's peak max_memory_allocated. (d)
+   Each new family reduced (granite, codeqwen, command-r and tinyvit
+   served dynamic one4n and none; musicgen's audio_stub and internvl2's
+   vision_stub forward), norms drawn nonzero, card against the port's
+   plain CPU path as phase 3's reduced check; the phase's seconds.
 
-Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 7. Prints the card's name and power
-limit, then one ``{"kernels": [...]}`` line, and as its last line
+Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 12, 7. Prints the card's name and power
+limit, then one ``{"kernels": [...]}`` line (each K1/K2 row carries its
+granite figures under ``"granite"``), and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1701,7 +1729,8 @@ def phase_fig6(dev, model, fi_kernel) -> dict:
     _profile_arm(dev, lambda: resilience.characterize_protection(
         seeds[-1:], params, agreement, FIG6_BERS, cim_cfg=cim_cfg,
         n_trials=FIG6_TRIALS, protects=(FIG6_PROTECTS[-1],), device=dev),
-        res[FIG6_PROTECTS[-1]]["seconds"])
+        res[FIG6_PROTECTS[-1]]["seconds"],
+        f"phase 5: fig6 {FIG6_PROTECTS[-1]} profiled")
     _check(all(r.corrected == 0 for r in res["none"]["rows"]),
            "Fig. 6: the none arm corrected codewords")
     _check(res["one4n"]["rows"][-1].corrected > 0,
@@ -1791,12 +1820,13 @@ def phase_fig6(dev, model, fi_kernel) -> dict:
     return {"launches": sum(launches.values()), "res": res}
 
 
-def _profile_arm(dev, run, wall: float) -> None:
-    """Where one Fig. 6 arm's time goes: ``torch.profiler`` over a rerun of
-    the arm; the device kernels by self time, and their sum against the
-    arm's unprofiled ``wall`` seconds (the device-busy share). A measurement
-    only: if the profiler cannot trace the card here, it says so and the run
-    goes on."""
+def _profile_arm(dev, run, wall: float,
+                 label: str = "phase 5: fig6 profile") -> None:
+    """Where a run's time goes: ``torch.profiler`` over a rerun of it (a
+    Fig. 6 arm, a few decode steps); the device kernels by self time, and
+    their sum against the run's unprofiled ``wall`` seconds (the
+    device-busy share). A measurement only: if the profiler cannot trace
+    the card here, it says so and the run goes on."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1808,7 +1838,7 @@ def _profile_arm(dev, run, wall: float) -> None:
         prof = profile(activities=acts)
         prof.start()
     except Exception as err:
-        print(f"phase 5: fig6 profile: not measured ({err!r})")
+        print(f"{label}: not measured ({err!r})")
         return
     stop_err = None
     try:
@@ -1826,15 +1856,14 @@ def _profile_arm(dev, run, wall: float) -> None:
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0]
     except Exception as err:
-        print(f"phase 5: fig6 profile: not measured ({err!r})")
+        print(f"{label}: not measured ({err!r})")
         return
     if not kernels:
-        print("phase 5: fig6 profile: no device time traced (not measured)")
+        print(f"{label}: no device time traced (not measured)")
         return
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    print(f"phase 5: fig6 {FIG6_PROTECTS[-1]} profiled: device kernels "
-          f"{busy:.3f} s against {wall:.3f} s of unprofiled wall "
-          f"({100 * busy / wall:.1f}% busy)")
+    print(f"{label}: device kernels {busy:.3f} s against {wall:.3f} s of "
+          f"unprofiled wall ({100 * busy / wall:.1f}% busy)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
@@ -2040,9 +2069,7 @@ def phase_times(dev, checks: dict, launches: dict, engine_launches: dict,
         ms_static = _time_ms(lambda: ops.cim_linear_store(x, store))
         plain_ms = _time_ms(lambda: ref.cim_read_ref(x, store, scalars), inner=1)
         library_ms = _time_ms(lambda: torch.matmul(x, w))
-        planes = [store.man, store.codewords, store.exp, store.sign]
-        nbytes = sum(p.numel() * p.element_size() for p in planes if p is not None)
-        nbytes += x.numel() * 4 + BATCH * J * 4
+        nbytes = _store_bytes(store) + x.numel() * 4 + BATCH * J * 4
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = 2.0 * BATCH * K * J / FP32_FLOPS * 1e3
         draws = _draws(store)
@@ -2429,6 +2456,388 @@ def phase_bfp_times(dev, bfp: dict, card: str) -> dict:
     return row
 
 
+# ---------------------------------------------------------------- phase 12
+
+GRANITE = "granite-3-8b"
+GRANITE_ARMS = ARMS[:3] + ARMS[4:]           # (a), (b), (c), (e)
+GRANITE_BER = 1e-3                           # the identity probe's faulted image
+REDUCED_FAMILIES = ("granite-3-8b", "codeqwen1.5-7b", "command-r-35b",
+                    "tinyvit-paper", "musicgen-large", "internvl2-76b")
+
+
+def _store_bytes(store) -> int:
+    """Bytes of every plane a read of ``store`` streams."""
+    return sum(p.numel() * p.element_size() for p in
+               (store.man, store.codewords, store.exp, store.sign)
+               if p is not None)
+
+
+def _drawn_norms(model, seed: int) -> None:
+    """Every norm scale and bias of ``model`` redrawn nonzero (they start
+    at zero, which would hide a missing ``1 +`` or a swapped pair)."""
+    import torch
+    g = torch.Generator(device=model.embed.device).manual_seed(seed)
+    for name, w in model.named_parameters():
+        if "norm" in name:
+            s = 0.5 if name.endswith("scale") else 0.1
+            w.data.copy_(s * torch.randn(w.shape, generator=g,
+                                         device=w.device))
+
+
+def _granite_serve(model, kernel_lib) -> dict:
+    """(a) Lock-step serving of full-width granite-3-8b in arms (a), (b),
+    (c) and (e): the counts zeroed just before each arm, read just after;
+    (a) makes GEN narrow K1 launches, (b) GEN narrow K2 launches, (c) and
+    (e) none."""
+    import torch
+    from repro_torch.launch import serve as serve_lib
+    cfg = model.cfg
+    launches = {}
+    for label, path, protect, inject, ber in GRANITE_ARMS:
+        kernel_lib.reset_launch_counts()
+        res, kernels = _kernels_of(lambda: serve_lib.serve(
+            model, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0, cim=True,
+            ber=ber, protect=protect, serve_path=path, inject=inject,
+            verbose=False))
+        counts = dict(kernel_lib.launch_counts)
+        name = {"one4n": "cim_read_matmul_one4n",
+                "none": "cim_read_matmul_raw"}[protect] \
+            if inject == "dynamic" else None
+        want = {k: GEN if k == name else 0 for k in counts}
+        _check(counts == res["launches"] == want,
+               f"phase 12: {GRANITE} arm {label}: launches {counts}, "
+               f"expected {want}")
+        _check(kernels == ["narrow"] * (GEN if name else 0),
+               f"phase 12: {GRANITE} arm {label}: reads went through "
+               f"{kernels}")
+        logits = res["prefill_logits"]
+        _check(tuple(logits.shape) == (BATCH, cfg.vocab_size) and
+               bool(torch.isfinite(logits).all()),
+               f"phase 12: {GRANITE} arm {label}: logits "
+               f"{tuple(logits.shape)}, finite "
+               f"{bool(torch.isfinite(logits).all())}")
+        _check(res["tokens"].shape == (BATCH, GEN) and
+               ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab_size)).all(),
+               f"phase 12: {GRANITE} arm {label}: tokens out of range")
+        if name:
+            launches[name] = counts[name]
+        print(f"phase 12: {GRANITE} arm {label}: {res['tok_per_s']:.1f} "
+              f"tok/s, prefill {res['prefill_s'] * 1e3:.1f} ms, ECC "
+              f"corrected={res['ecc']['corrected']} uncorrectable="
+              f"{res['ecc']['uncorrectable']}, launches {counts}"
+              + (f", all {GEN} narrow" if name else ""))
+    return launches
+
+
+PROFILE_STEPS = 8
+
+
+def _granite_steps(model) -> None:
+    """Where a lock-step decode step of full-width granite goes: arms (a)
+    and (e) prefilled, then PROFILE_STEPS decode steps timed on the host
+    clock (synchronized) and again under ``torch.profiler`` (the device
+    kernels' sum against that wall: the device-busy share)."""
+    import torch
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.launch import serve as serve_lib
+    toks = torch.as_tensor(MarkovLM(model.cfg.vocab_size, PROMPT, BATCH,
+                                    seed=0).batch(0)["tokens"],
+                           dtype=torch.int64, device=model.embed.device)
+    for label, path, protect, inject, ber in (GRANITE_ARMS[0],
+                                              GRANITE_ARMS[3]):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = serve_lib.build_params(model, cim=True, ber=ber,
+                                        protect=protect, serve_path=path,
+                                        inject=inject, verbose=False)[0]
+        torch.cuda.synchronize()
+        print(f"phase 12: {GRANITE} arm {label}: the deployment (align, "
+              f"pack{', read' if path == 'hbm' else ''}) took "
+              f"{time.perf_counter() - t0:.2f} s and peaked "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.2f} "
+              f"GiB above the {base / 2 ** 30:.2f} GiB it started from")
+
+        def prefill():
+            with torch.inference_mode():
+                logits, caches = model.prefill(toks, params,
+                                               max_len=PROMPT + PROFILE_STEPS)
+            return caches, logits.argmax(-1)[:, None]
+
+        def steps(caches, nxt):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                for _ in range(PROFILE_STEPS):
+                    logits, caches = model.decode(caches, nxt, params)
+                    nxt = logits.argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        wall = steps(*prefill())
+        print(f"phase 12: {GRANITE} arm {label}: {PROFILE_STEPS} decode "
+              f"steps in {wall * 1e3:.1f} ms ({wall / PROFILE_STEPS * 1e3:.2f}"
+              f" ms a step, host clock)")
+        state = prefill()
+        _profile_arm(model.embed.device, lambda: steps(*state), wall,
+                     f"phase 12: {GRANITE} arm {label} decode steps "
+                     f"profiled")
+        del params
+
+
+def _granite_kernels(model, card: str) -> dict:
+    """(b) K1 and K2 at granite's unembed shape (K = 4096, J = 49155, the
+    last 128-column strip holding 16 padded columns, 3 of them real) on
+    the served weights: the 8-row identity probe exact on the clean and the
+    BER 1e-3 image, the last strip's columns included; the dynamic read
+    equal to the static read of the image it flips; the final-normed
+    hidden states of a MarkovLM batch (M = 4 and 1) within 1e-4 of
+    |h| @ |W| of the plain version, static and dynamic. Each narrow kernel
+    timed static and dynamic at M = 4 and 1 beside torch.matmul and its
+    plain version, with its bounds."""
+    import torch
+    from repro_torch.core import align, cim
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels.cim_read import ops, ref
+    from repro_torch.kernels.fault_inject.ops import ber_to_threshold
+    cfg = model.cfg
+    k, j = cfg.d_model, cfg.vocab_size
+    seeds = {"man": 0x1234567, "meta": 0x89ABCDE, "cw": 0x2468ACE}
+    thr = ber_to_threshold(GRANITE_BER)
+    scalars = ops.make_scalars(seeds, thr, thr)
+    t_thr = ber_to_threshold(MODEL_BER)
+    t_scalars = ops.make_scalars(seeds, t_thr, t_thr)
+    toks = torch.as_tensor(MarkovLM(j, PROMPT, BATCH, seed=5).batch(0)[
+        "tokens"], dtype=torch.int64, device=model.embed.device)
+    with torch.inference_mode():
+        h = model(toks, unembed=False)[:, -1].contiguous()
+    w_al, _ = align.align_matrix(model.unembed.detach(), align.AlignmentConfig(
+        n_group=N_GROUP, index=2))
+    rows = {}
+    for name, protect in PROTECT_OF.items():
+        store = cim.pack(w_al, cim.CIMConfig(n_group=N_GROUP, protect=protect))
+        j_pad = -(-j // 16) * 16                    # 49168 = 384 x 128 + 16
+        _check(tuple(store.man.shape) == (k, j_pad), f"phase 12: {name}: "
+               f"store {tuple(store.man.shape)}")
+        injected = cim.inject_with_seeds(store, seeds, thr, thr)
+        last = slice((j_pad - 1) // 128 * 128, j)
+        for what, image in (("clean", store), (f"BER {GRANITE_BER:g}",
+                                                injected)):
+            w_ref, _ = cim.read(image)
+            out, bad = _identity_probe(name, image, w_ref, what, rows=8)
+            fin = torch.isfinite(w_ref[:, last]).all(0)
+            _check(torch.equal(out[:, last][:, fin], w_ref[:, last][:, fin]),
+                   f"phase 12: {name}: last strip's columns ({what})")
+            print(f"phase 12: {name} identity probe at ({k}, {j}): exact "
+                  f"on the {what} image in {k // 8} narrow launches, the "
+                  f"last strip's {j - last.start} real columns included "
+                  f"({bad} columns hold a non-finite weight)")
+            del out, w_ref
+        w_inj_abs = cim.read(injected)[0].abs()
+        w_abs = cim.read(store)[0].abs()
+        worst = 0.0
+        for x in (h, h[:1].contiguous()):
+            dyn, info = ops.cim_linear_store(x, store, scalars=scalars,
+                                             with_info=True)
+            _check(info["tiles"]["kernel"] == "narrow",
+                   f"phase 12: {name} at M = {x.shape[0]}: {info['tiles']}")
+            _check(_same_bits(dyn, ops.cim_linear_store(x, injected)),
+                   f"phase 12: {name}: dynamic != static read of its image "
+                   f"(M = {x.shape[0]})")
+            for sc, wabs in ((None, w_abs), (scalars, w_inj_abs)):
+                got = dyn if sc is not None else ops.cim_linear_store(x, store)
+                want, _ = ref.cim_read_ref(x, store, sc)
+                ok, err = _close(got, want, x.abs() @ wabs)
+                _check(ok, f"phase 12: {name} vs plain at M = {x.shape[0]} "
+                       f"({'dynamic' if sc is not None else 'static'}, max "
+                       f"err {err:.3e})")
+                worst = max(worst, err)
+        del injected, w_inj_abs
+        w, _ = cim.read(store)
+        nbytes = _store_bytes(store)
+        draws = _draws(store)
+        hash_ms = draws * ALU_OPS_PER_DRAW / INT32_OPS * 1e3
+        row = {"shape": [k, j], "j_pad": int(store.man.shape[1]),
+               "max_abs_err": worst, "draws": draws, "store_bytes": nbytes}
+        for x in (h, h[:1].contiguous()):
+            m = x.shape[0]
+            bytes_ms = (nbytes + (k + j) * 4 * m) / HBM_BYTES_PER_S * 1e3
+            vals = {
+                "ms": _time_ms(lambda: ops.cim_linear_store(
+                    x, store, scalars=t_scalars)),
+                "static_ms": _time_ms(lambda: ops.cim_linear_store(x, store)),
+                "library_ms": _time_ms(lambda: torch.matmul(x, w)),
+                "plain_ms": _time_ms(lambda: ref.cim_read_ref(
+                    x, store, t_scalars), reps=3, inner=1),
+                "bound_ms": bytes_ms, "bound_by": "bytes",
+                "dynamic_bound_ms": max(bytes_ms, hash_ms),
+                "dynamic_bound_by": "bytes" if bytes_ms >= hash_ms
+                else "operations"}
+            row[f"m{m}"] = vals
+            print(f"phase 12: {name} narrow at ({k}, {j}), M = {m}: "
+                  f"{vals['ms']:.4f} ms dynamic (BER {MODEL_BER:g}), "
+                  f"{vals['static_ms']:.4f} ms static; torch.matmul "
+                  f"{vals['library_ms']:.4f} ms, plain {vals['plain_ms']:.2f}"
+                  f" ms; bound {bytes_ms:.4f} ms static ({nbytes / 1e6:.1f} "
+                  f"MB of planes), {vals['dynamic_bound_ms']:.4f} ms dynamic "
+                  f"({draws / 1e9:.3f} G draws) on {card}")
+        rows[name] = row
+        del store, w
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _granite_engine(model, kernel_lib) -> int:
+    """(c) Engine arm (a) on full-width granite: phase 10's load through 4
+    slots, chunk 16, timed as phase 10 times it (no accounting, no logits
+    kept); the count zeroed just before, read just after: one narrow K1
+    launch a prefill chunk plus one a slot a decode step. The load again
+    with every logit vector kept gives the same tokens, and rids 0 and 2
+    served solo equal it bitwise."""
+    from repro_torch.launch import engine as engine_lib
+    name = "cim_read_matmul_one4n"
+    load = engine_lib.LoadGen(vocab_size=model.cfg.vocab_size, **ENGINE_LOAD)
+    reqs, max_len = load.requests(), load.max_len()
+    chunks = sum(-(-r.tokens.size // ENGINE_CHUNK) for r in reqs)
+    params = _engine_params(model, ENGINE_ARMS[0])
+    kernel_lib.reset_launch_counts()
+    (res, agg), kernels = _kernels_of(lambda: _engine_run(
+        model, params, reqs, max_len, ecc_accounting=False))
+    counts = dict(kernel_lib.launch_counts)
+    want = chunks + agg["decode_steps"] * ENGINE_SLOTS
+    _check(counts == {name: want, "cim_read_matmul_raw": 0},
+           f"phase 12: engine: launches {counts}, expected {want} of {name}")
+    _check(kernels == ["narrow"] * want, f"phase 12: engine reads went "
+           f"through {sorted(set(kernels))}")
+    for r in reqs:
+        got = res[r.rid]
+        _check(len(got.tokens) == r.max_new and got.finite,
+               f"phase 12: engine request {r.rid}: {got.tokens}")
+    co, _ = _engine_run(model, params, reqs, max_len, ecc_accounting=False,
+                        collect_logits=True)
+    _check(all(co[r.rid].tokens == res[r.rid].tokens for r in reqs),
+           "phase 12: engine tokens changed when the logits were kept")
+    for rid in (0, 2):
+        solo, _ = _engine_run(model, params, [reqs[rid]], max_len,
+                              ecc_accounting=False, collect_logits=True)
+        _check(_same_request(co[rid], solo[rid]),
+               f"phase 12: engine request {rid} solo != co-batched")
+    print(f"phase 12: {GRANITE} engine arm {ENGINE_ARMS[0][0]}: decode "
+          f"{agg['decode_tok_s']:.1f} tok/s aggregate ("
+          f"{agg['decode_wall_s'] / agg['decode_steps'] * 1e3:.1f} ms a "
+          f"step), TTFT mean {agg['ttft_s_mean'] * 1e3:.1f} ms p95 "
+          f"{agg['ttft_s_p95'] * 1e3:.1f} ms, occupancy "
+          f"{agg['slot_occupancy']:.3f}, {agg['decode_steps']} decode steps; "
+          f"{counts[name]} K1 launches ({chunks} chunks + "
+          f"{agg['decode_steps']} x {ENGINE_SLOTS}), all narrow at M = 1; "
+          f"rids 0 and 2 solo == co-batched bitwise (tokens, logits)")
+    return counts[name]
+
+
+def _reduced_families(dev, kernel_lib) -> None:
+    """(d) Each new family, reduced, on the card against the port's plain
+    CPU path (weights from one seeded generator, norms drawn nonzero): the
+    text archs served as phase 3's reduced check serves olmo-1b (dynamic
+    one4n and none, BER 1e-3: tokens equal, logits within allclose(1e-4,
+    1e-4), one kernel launch a read); the stub modalities' forward on a
+    ``batches_for`` batch within the same allclose."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import batches_for
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models.lm import LM
+    for arch in REDUCED_FAMILIES:
+        cfg = get_config(arch).reduced()
+        cpu = LM(cfg, generator=torch.Generator().manual_seed(3),
+                 device="cpu")
+        _drawn_norms(cpu, 4)
+        gpu = LM(cfg, device=dev)
+        gpu.load_state_dict(cpu.state_dict())
+        if cfg.modality != "text":
+            batch = batches_for(cfg, 2, 16, seed=1)
+            b = {k: torch.from_numpy(v) for k, v in batch.items()
+                 if k != "labels"}
+            with torch.inference_mode():
+                a = cpu(b)
+                g = gpu({k: v.to(dev) for k, v in b.items()}).cpu()
+            ok, err = _close(a, g)
+            _check(ok, f"phase 12: reduced {arch} {cfg.modality} forward "
+                   f"card vs CPU (max err {err:.3e})")
+            print(f"phase 12: reduced {arch} ({cfg.norm_type}, "
+                  f"{cfg.mlp_type}, {cfg.modality}): forward card == CPU "
+                  f"plain, logits max err {err:.3e}")
+            continue
+        errs = []
+        for protect in ("one4n", "none"):
+            kw = dict(batch=2, prompt_len=8, gen=6, seed=1, cim=True,
+                      ber=1e-3, protect=protect, inject="dynamic",
+                      verbose=False)
+            a = serve_lib.serve(cpu, **kw)
+            kernel_lib.reset_launch_counts()
+            b = serve_lib.serve(gpu, **kw)
+            _check(sum(kernel_lib.launch_counts.values()) == kw["gen"],
+                   f"phase 12: reduced {arch} {protect}: launches "
+                   f"{dict(kernel_lib.launch_counts)}")
+            _check((a["tokens"] == b["tokens"]).all(),
+                   f"phase 12: reduced {arch} {protect}: card tokens != CPU")
+            ok, err = _close(a["prefill_logits"], b["prefill_logits"].cpu())
+            _check(ok, f"phase 12: reduced {arch} {protect}: logits vs CPU "
+                   f"(max err {err:.3e})")
+            errs.append(err)
+        print(f"phase 12: reduced {arch} ({cfg.norm_type}, {cfg.mlp_type}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads}): served dynamic "
+              f"one4n / none, card == CPU plain (tokens equal, logits max err "
+              f"{errs[0]:.3e} / {errs[1]:.3e})")
+
+
+def phase_granite(dev, kernel_lib, card: str) -> dict:
+    """Phase 12: the dense variants. Full-width granite-3-8b (40 layers,
+    d_model 4096, 32 heads over 8 KV heads, rmsnorm with its parameters,
+    SwiGLU d_ff 12800, vocab 49155; weights from a seeded generator on the
+    card, norms drawn nonzero) served lock-step and through the engine
+    over K1/K2's narrow kernels, the kernels held at its unembed shape;
+    then each new family reduced, card against CPU. Returns each kernel's
+    granite figures (the kernels line carries them)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(GRANITE)
+    model = LM(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+               device=dev)
+    _drawn_norms(model, 1)
+    n = sum(p.numel() for p in model.parameters())
+    print(f"phase 12: {GRANITE} full width: {n / 1e9:.3f} B fp32 parameters "
+          f"({n * 4 / 1e9:.1f} GB) built on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    peaks = {}
+
+    def part(what, fn):
+        out = fn()
+        peaks[what] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        return out
+    launches = part("lock-step arms", lambda: _granite_serve(model,
+                                                             kernel_lib))
+    part("decode-step profile", lambda: _granite_steps(model))
+    rows = part("kernels at the unembed shape",
+                lambda: _granite_kernels(model, card))
+    rows["cim_read_matmul_one4n"]["engine_launches"] = part(
+        "engine", lambda: _granite_engine(model, kernel_lib))
+    for name, v in launches.items():
+        rows[name]["launches"] = v
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 12: {GRANITE} peak device memory "
+          f"{max(peaks.values()):.2f} GiB (max_memory_allocated over the "
+          f"phase; by part: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                          peaks.items()) + f") on {card}")
+    _reduced_families(dev, kernel_lib)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "cim_read" / "csrc").is_dir():
@@ -2475,7 +2884,10 @@ def main() -> int:
     bfp = phase_bfp(dev, trained, bfp_kernel)
     del trained
     torch.cuda.empty_cache()
+    granite = phase_granite(dev, kernel_lib, card)
     rows = phase_times(dev, checks, launches, engine_launches, card)
+    for row in rows:
+        row["granite"] = granite[row["name"]]
     rows += phase_fi_times(dev, checks, fig6["launches"], fi, card)
     rows.append(phase_bfp_times(dev, bfp, card))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build start")

@@ -1,3 +1,11 @@
 # Architecture registry: importing this package registers the ported archs.
-from repro_torch.configs import olmo_1b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    codeqwen15_7b,
+    command_r_35b,
+    granite_3_8b,
+    internvl2_76b,
+    musicgen_large,
+    olmo_1b,
+    unicorn_paper,
+)
 from repro_torch.configs.base import ModelConfig, RunConfig, get_config  # noqa: F401

@@ -1,9 +1,9 @@
 """Model configs (port of ``repro/configs/base.py``).
 
 Declared again here because the reference's module imports ``jax.numpy``.
-Only the fields the attention-family LM reads are carried over; the
-architectures beyond olmo-1b wait (ROADMAP Queue 1 item 12). ``RunConfig``
-describes one training run.
+Only the fields the dense ``attn`` family reads are carried over; the MoE,
+recurrent and local-attention fields come with their block kinds (ROADMAP
+Queue 1 item 12.2). ``RunConfig`` describes one training run.
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ class ModelConfig:
     mlp_type: str = "swiglu"
     norm_type: str = "rmsnorm"
     block_pattern: Tuple[str, ...] = ("attn",)
-    modality: str = "text"
+    modality: str = "text"           # text | vision_stub | audio_stub
+    n_prefix_embeds: int = 0         # vision_stub: # of patch embeddings
     rope_theta: float = 1e4
     compute_dtype: str = "float32"
     param_dtype: str = "float32"
@@ -59,6 +60,7 @@ class ModelConfig:
             head_dim=32 if self.n_heads else 0,
             d_ff=256,
             vocab_size=256,
+            n_prefix_embeds=min(self.n_prefix_embeds, 4),
             attn_chunk_threshold=10 ** 9,
         )
 

@@ -17,10 +17,19 @@ import torch
 
 from repro_torch.core import tree
 from repro_torch.core.cim import CIMConfig, CIMStore
+from repro_torch.models.common import NORM_LEAVES
+from repro_torch.models.mlp import MLP_LEAVES
 
 GROUP = "groups/blk0"
-BLOCK_LEAVES = {"attn": ("wk", "wo", "wq", "wv"),
-                "mlp": ("w_gate", "w_in", "w_out")}
+ATTN_LEAVES = ("wk", "wo", "wq", "wv")
+
+
+def block_leaves(cfg) -> dict:
+    """{module: leaf names} of one ``attn`` block: the attention weights,
+    the MLP's by ``mlp_type`` and the two norms' by ``norm_type``."""
+    norm = NORM_LEAVES[cfg.norm_type]
+    return {"attn": ATTN_LEAVES, "mlp": MLP_LEAVES[cfg.mlp_type],
+            "norm1": norm, "norm2": norm}
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -48,20 +57,38 @@ def cnn_params_from_jax(np_params: Mapping, device="cpu") -> dict:
 
 def _check_attn(cfg) -> None:
     if tuple(cfg.block_pattern) != ("attn",):
-        raise NotImplementedError("only the 'attn' block kind is ported")
+        raise NotImplementedError("only the 'attn' block kind is ported "
+                                  "(ROADMAP Queue 1 item 12.2)")
 
 
 def lm_state_from_flat(flat: Mapping, cfg) -> dict:
     """Reference-layout LM params -> a state dict of
     :class:`repro_torch.models.lm.LM`: each ``groups/blk0/...`` leaf unstacks
-    into ``blocks.<i>...`` views (no copies)."""
+    into ``blocks.<i>...`` views (no copies), ``final_norm/<name>`` maps to
+    ``final_norm.<name>``."""
     _check_attn(cfg)
     state = {"embed": flat["embed"], "unembed": flat["unembed"]}
-    for mod, names in BLOCK_LEAVES.items():
+    for mod, names in block_leaves(cfg).items():
         for name in names:
             for i, w in enumerate(flat[f"{GROUP}/{mod}/{name}"].unbind(0)):
                 state[f"blocks.{i}.{mod}.{name}"] = w
+    for name in block_leaves(cfg)["norm1"]:
+        state[f"final_norm.{name}"] = flat[f"final_norm/{name}"]
     return state
+
+
+def _stack(model, mod: str, name: str) -> torch.Tensor:
+    return torch.stack([getattr(getattr(blk, mod), name).detach()
+                        for blk in model.blocks])
+
+
+def stacked_norms(model) -> dict:
+    """An :class:`LM`'s block norm parameters in the reference layout:
+    ``groups/blk0/norm{1,2}/<name>`` [L, D] (a copy; empty for
+    ``nonparametric_ln``)."""
+    return {f"{GROUP}/{mod}/{name}": _stack(model, mod, name)
+            for mod in ("norm1", "norm2")
+            for name in block_leaves(model.cfg)[mod]}
 
 
 def flat_from_lm(model) -> dict:
@@ -69,16 +96,16 @@ def flat_from_lm(model) -> dict:
     are stacked, a copy)."""
     _check_attn(model.cfg)
     flat = {"embed": model.embed.detach(), "unembed": model.unembed.detach()}
-    for mod, names in BLOCK_LEAVES.items():
+    for mod, names in block_leaves(model.cfg).items():
         for name in names:
-            flat[f"{GROUP}/{mod}/{name}"] = torch.stack(
-                [getattr(getattr(blk, mod), name).detach()
-                 for blk in model.blocks])
+            flat[f"{GROUP}/{mod}/{name}"] = _stack(model, mod, name)
+    for name, w in model.final_norm.items():
+        flat[f"final_norm/{name}"] = w.detach()
     return tree.flatten(flat)
 
 
 def params_from_jax(np_params: Mapping, cfg, device="cpu") -> dict:
-    """The reference's olmo params pytree (numpy leaves) -> a state dict of
+    """The reference's LM params pytree (numpy leaves) -> a state dict of
     :class:`repro_torch.models.lm.LM`."""
     return lm_state_from_flat(flat_from_jax(np_params, device), cfg)
 

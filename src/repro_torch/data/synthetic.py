@@ -1,12 +1,18 @@
 """Deterministic synthetic data (port of ``MarkovLM``,
-``CheckpointableLoader`` and ``GaussianBlobs`` in
-``repro/data/synthetic.py``; numpy throughout, so batches are identical)."""
+``CheckpointableLoader``, ``batches_for`` and ``GaussianBlobs`` in
+``repro/data/synthetic.py``). ``MarkovLM`` and ``GaussianBlobs`` draw numpy
+as the reference does, so their batches are identical; ``batches_for``
+draws a ``torch.Generator`` where the reference draws ``jax.random``, so
+its batches have the reference's structure, not its values."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
+
+IGNORE = -100      # the loss's ignored label (models/losses.py)
 
 
 @dataclasses.dataclass
@@ -67,6 +73,52 @@ class CheckpointableLoader:
 
     def load_state_dict(self, state: Dict[str, int]) -> None:
         self.cursor = int(state["cursor"])
+
+
+def batches_for(cfg, batch_size: int, seq_len: int,
+                seed: int = 0) -> Dict[str, np.ndarray]:
+    """One random batch with the exact input structure of the arch (the
+    reference's ``batches_for`` at ``batch_override``/``seq_override``):
+    ``tokens`` and ``labels`` [B, S] for text; for ``vision_stub``,
+    ``tokens`` [B, S - P] after P = ``n_prefix_embeds`` patch embeddings
+    ``vision_embeds`` [B, P, D] (normal * 0.02), ``labels`` IGNORE over the
+    prefix; for ``audio_stub``, frame embeddings ``embeds`` [B, S, D] and
+    ``labels``. Numpy arrays, drawn on the CPU from ``seed``."""
+    g = torch.Generator().manual_seed(int(seed))
+    b, s, v, d = batch_size, seq_len, cfg.vocab_size, cfg.d_model
+
+    def ints(*shape):
+        return torch.randint(0, v, shape, generator=g,
+                             dtype=torch.int32).numpy()
+
+    def normal(*shape):
+        return (torch.randn(shape, generator=g) * 0.02).numpy()
+    if cfg.modality == "vision_stub":
+        p = cfg.n_prefix_embeds
+        toks, vis = ints(b, s - p), normal(b, p, d)
+        labels = np.concatenate([np.full((b, p), IGNORE, np.int32),
+                                 ints(b, s - p)], axis=1)
+        return {"tokens": toks, "vision_embeds": vis, "labels": labels}
+    if cfg.modality == "audio_stub":
+        return {"embeds": normal(b, s, d), "labels": ints(b, s)}
+    toks = ints(b, s)
+    return {"tokens": toks, "labels": ints(b, s)}
+
+
+@dataclasses.dataclass
+class ArchBatches:
+    """``batches_for`` as a ``batch(step)`` source (seed ``seed + step``,
+    as the reference's launcher draws its non-text batches), so a
+    :class:`CheckpointableLoader` can replay it."""
+
+    cfg: object
+    batch_size: int
+    seq_len: int
+    seed: int = 0
+
+    def batch(self, step: int) -> Dict[str, np.ndarray]:
+        return batches_for(self.cfg, self.batch_size, self.seq_len,
+                           seed=self.seed + step)
 
 
 @dataclasses.dataclass

@@ -51,7 +51,7 @@ scrubber (:mod:`repro_torch.launch.scrub`) ages and rewrites the image from:
 ``refresh_params(force=True)`` swaps the params with requests in flight and
 ``record_scrub`` logs a scrub. ``replica``, ``drain``, ``start`` and
 ``depth`` serve the fleet router (:mod:`repro_torch.launch.fleet`). The
-other block kinds wait for ROADMAP Queue 1 item 12, the mesh for item 14.
+other block kinds wait for ROADMAP Queue 1 item 12.2, the mesh for item 14.
 """
 from __future__ import annotations
 
@@ -326,7 +326,7 @@ class Engine:
         self._check_devices()
         self.cfg = cfg
         # a chunk never writes past the cache ceiling (window-bound kinds,
-        # which also clamp it to their ring, wait with item 12)
+        # which also clamp it to their ring, wait with item 12.2)
         self.n_slots, self.max_len = n_slots, max_len
         self.chunk = min(chunk, max_len)
         self.collect_logits = collect_logits

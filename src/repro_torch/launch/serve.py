@@ -15,6 +15,10 @@ served from the packed SRAM image:
       --prompt-len 64 --gen 32 --cim --ber 1e-4 --inject dynamic
 
 Runs on ``cuda`` unless ``--device cpu`` is given; with no card it raises.
+``--arch`` takes the ported text configs: olmo-1b (default), granite-3-8b,
+codeqwen1.5-7b, command-r-35b and tinyvit-paper, lock-step, ``--engine``
+and ``--fleet``. A stub modality (internvl2-76b, musicgen-large) is refused,
+as the reference's launcher refuses it: serving is text-only.
 
 Seeds: weights come from ``torch.Generator(device).manual_seed(seed)``; the
 fault seeds from :func:`default_seeds`. Neither equals the reference
@@ -58,8 +62,8 @@ ECC match the routed run.
   python -m repro_torch.launch.serve --fleet 2 --cim --ber 1e-4 \\
       --inject dynamic --slots 4 --chunk 16 --requests 12 --probe 5
 
-``--mesh``, ``--rounds`` and ``--expert-cim`` wait (ROADMAP Queue 1 items 12
-and 14).
+``--mesh``, ``--rounds`` and ``--expert-cim`` wait (ROADMAP Queue 1 items
+12.2 and 14).
 """
 from __future__ import annotations
 
@@ -103,17 +107,31 @@ def serving_policy(*, protect: str, n_group: int, index: int,
         default=dep_lib.PolicyRule(deploy=False))
 
 
-def default_seeds(seed: int):
+def default_seeds(seed: int, paths=()):
     """(static per-path plane seeds, dynamic base plane seeds) from ``seed``.
 
-    Rule: ``np.random.SeedSequence([seed, 0x5EED]).generate_state(9,
-    np.uint32)`` gives nine words, taken in order as the (man, meta, cw)
-    seeds of the embed image, of the unembed image, and of the per-read
-    dynamic runtime."""
+    Rule: ``np.random.SeedSequence([seed, 0x5EED]).generate_state(9 + 3n,
+    np.uint32)`` gives its words in order as the (man, meta, cw) seeds of
+    the embed image, of the unembed image, of the per-read dynamic runtime,
+    then of each of the n other ``paths`` in their order (the stacked norm
+    leaves the hbm path deploys). The first nine words do not depend on
+    n."""
+    extra = [p for p in paths if p not in ("embed", "unembed")]
     w = [int(v) for v in np.random.SeedSequence(
-        [int(seed), _SEED_SALT]).generate_state(9, np.uint32)]
+        [int(seed), _SEED_SALT]).generate_state(9 + 3 * len(extra),
+                                                np.uint32)]
     planes = lambda a: {"man": a[0], "meta": a[1], "cw": a[2]}   # noqa: E731
-    return {"embed": planes(w[0:3]), "unembed": planes(w[3:6])}, planes(w[6:9])
+    static = {"embed": planes(w[0:3]), "unembed": planes(w[3:6])}
+    for i, p in enumerate(extra):
+        static[p] = planes(w[9 + 3 * i:12 + 3 * i])
+    return static, planes(w[6:9])
+
+
+def check_text(cfg) -> None:
+    """Serving is text-only, as the reference's launcher asserts."""
+    if cfg.modality != "text":
+        raise ValueError(f"{cfg.arch_id}: serving takes text archs; "
+                         f"modality {cfg.modality!r} trains only")
 
 
 def deploy(leaves, *, ber: float, protect: str, n_group: int, index: int,
@@ -182,12 +200,13 @@ def build_params(model: LM, *, seed: int = 0, cim: bool = False,
                        "serve")
     dep_lib.check_enum("inject", inject, dep_lib.VALID_INJECTS, "serve")
     fm_lib.parse_fault_model(fault_model)      # validate the grammar eagerly
-    d_static, d_dynamic = default_seeds(seed)
-    static_seeds = static_seeds or d_static
-    dynamic_seeds = dynamic_seeds or d_dynamic
+    check_text(model.cfg)
     params, ecc, report = None, {"corrected": 0, "uncorrectable": 0}, None
     if cim or ber > 0:
         leaves = model.cim_leaves()
+        d_static, d_dynamic = default_seeds(seed, leaves)
+        static_seeds = static_seeds or d_static
+        dynamic_seeds = dynamic_seeds or d_dynamic
         if serve_path == "fused":
             dep = make_deployment(leaves, ber=ber, protect=protect,
                                   n_group=n_group, index=index,
@@ -504,6 +523,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    check_text(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = LM(cfg, generator=gen, device=device)
     if args.fleet > 0:

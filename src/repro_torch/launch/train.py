@@ -5,10 +5,17 @@
   python -m repro_torch.launch.train --reduced --steps 3 --device cpu
   python -m repro_torch.launch.train --reduced --steps 4 --device cpu \\
       --checkpoint-dir /tmp/ckpt --checkpoint-every 2   # again: resumes
+  python -m repro_torch.launch.train --arch musicgen-large --reduced \\
+      --steps 3 --device cpu
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
-card. Weights come from ``torch.Generator(device).manual_seed(seed)``; data
-is the reference's ``MarkovLM`` (numpy, so the batches are the reference's).
+card. ``--arch`` takes every ported config: olmo-1b, granite-3-8b,
+codeqwen1.5-7b, command-r-35b, internvl2-76b, musicgen-large and
+tinyvit-paper. Weights come from
+``torch.Generator(device).manual_seed(seed)``; a text arch trains on the
+reference's ``MarkovLM`` (numpy, so the batches are the reference's), a
+stub modality (internvl2's ``vision_stub``, musicgen's ``audio_stub``) on
+``batches_for`` with seed ``seed + step``, as the reference's launcher.
 ``--rel-mode align`` trains exponent-aligned with frozen (exponent, sign)
 projection at BER 0; ``cim`` adds the fault schedule, of which only the
 static and BER-0 cases are ported (dynamic raises). ``--checkpoint-dir``
@@ -16,8 +23,7 @@ saves the state (and the data cursor) every ``--checkpoint-every`` steps
 and at the end; a run pointed at a directory that holds a checkpoint
 resumes from its latest step and consumes the batches the interrupted run
 would have. ``--grad-compression`` compresses the gradient to int8 with
-error feedback. The reference's non-text architectures wait (ROADMAP
-Queue 1 item 12).
+error feedback. The other block kinds wait (ROADMAP Queue 1 item 12.2).
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ import json
 
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.core.deployment import PolicyRule, ReliabilityPolicy
-from repro_torch.data.synthetic import CheckpointableLoader, MarkovLM
+from repro_torch.data.synthetic import (ArchBatches, CheckpointableLoader,
+                                        MarkovLM)
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.training.loop import run_training
@@ -90,8 +97,12 @@ def main(argv=None):
                     seed=args.seed, checkpoint_dir=args.checkpoint_dir,
                     checkpoint_every=args.checkpoint_every,
                     grad_compression=args.grad_compression, **rel_kw)
-    batches = CheckpointableLoader(MarkovLM(cfg.vocab_size, args.seq,
-                                            args.batch, seed=args.seed))
+    if cfg.modality == "text":
+        source = MarkovLM(cfg.vocab_size, args.seq, args.batch,
+                          seed=args.seed)
+    else:
+        source = ArchBatches(cfg, args.batch, args.seq, seed=args.seed)
+    batches = CheckpointableLoader(source)
     logf = open(args.log_jsonl, "a") if args.log_jsonl else None
 
     def log(step, metrics):

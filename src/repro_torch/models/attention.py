@@ -4,7 +4,7 @@
 
 Written as plain einsum + softmax rather than a fused attention call, so the
 parity suite compares like with like against the reference. Query-chunked
-prefill and the local-window ring wait (ROADMAP Queue 1 item 12).
+prefill and the local-window ring wait (ROADMAP Queue 1 item 12.2).
 """
 from __future__ import annotations
 
@@ -68,7 +68,7 @@ class Attention(nn.Module):
         h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
         if s > cfg.attn_chunk_threshold:
             raise NotImplementedError(
-                "query-chunked prefill waits (ROADMAP Queue 1 item 12)")
+                "query-chunked prefill waits (ROADMAP Queue 1 item 12.2)")
         q, k, v = self.project_qkv(x, positions)
         q = q.reshape(b, s, kh, h // kh, hd)
         mask = _causal_mask(positions[0], positions[0])[None, None, None]

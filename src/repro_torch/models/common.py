@@ -54,6 +54,22 @@ def apply_norm(norm_type: str, params, x):
     raise ValueError(norm_type)
 
 
+# The parameters each norm_type holds, in flatten order.
+NORM_LEAVES = {"rmsnorm": ("scale",), "layernorm": ("bias", "scale"),
+               "nonparametric_ln": ()}
+
+
+def init_norm(norm_type: str, d: int, *, device=None,
+              dtype=torch.float32) -> dict:
+    """A norm's parameters: rmsnorm ``{"scale"}``, layernorm ``{"scale",
+    "bias"}``, both zeros (the norms apply ``1 + scale``); none for
+    ``nonparametric_ln``."""
+    if norm_type not in NORM_LEAVES:
+        raise ValueError(norm_type)
+    return {n: torch.zeros((d,), dtype=dtype, device=device)
+            for n in NORM_LEAVES[norm_type]}
+
+
 def rope_frequencies(head_dim: int, theta: float, positions: torch.Tensor):
     """positions [..., S] -> (sin, cos) each [..., S, head_dim//2], fp32."""
     half = head_dim // 2

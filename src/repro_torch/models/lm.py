@@ -1,28 +1,37 @@
 """Decoder LM, ``attn`` block kind (port of ``repro/models/lm.py``).
 
-The reference stacks the layers into scan groups ([L, ...] leaves); the port
-holds one :class:`Block` module per layer. Only ``embed`` [V, D] and
-``unembed`` [D, V] are 2-D in the reference's layout, so they are the only
-leaves a deployment packs (:meth:`LM.cim_leaves`).
+The dense variants: rmsnorm, layernorm or OLMo's non-parametric norm; a
+SwiGLU or GeLU MLP; GQA; text, or a ``vision_stub`` / ``audio_stub`` prefix
+of precomputed embeddings.
 
-Serving reads the two CIM leaves from a ``params`` dict (``{"embed",
-"unembed"}`` -> tensor or :class:`~repro_torch.core.cim.CIMStore`, plus an
-optional ``"_cim"`` dynamic-injection runtime) — what
-:meth:`CIMDeployment.serving_params` returns. A CIMStore embed is decoded row
-by row at gather time; a CIMStore unembed goes through
+The reference stacks the layers into scan groups ([L, ...] leaves); the port
+holds one :class:`Block` module per layer. In the reference's layout the 2-D
+leaves are ``embed`` [V, D], ``unembed`` [D, V] and the layer-stacked norm
+parameters ``groups/blk0/norm{1,2}/{scale,bias}`` [L, D] (the block weights
+are 3-D, the final norm 1-D), so those are the leaves a deployment packs
+(:meth:`LM.cim_leaves`), AdamW decays and alignment aligns.
+
+Serving reads the CIM leaves from a ``params`` dict (``{"embed",
+"unembed"}`` -> tensor or :class:`~repro_torch.core.cim.CIMStore`, the
+stacked norm leaves as tensors, plus an optional ``"_cim"``
+dynamic-injection runtime) — what :meth:`CIMDeployment.serving_params`
+returns (the hbm path decodes the norm leaves from their images). A CIMStore
+embed is decoded row by row at gather time; a CIMStore unembed goes through
 :func:`~repro_torch.core.deployment.dispatch_linear`, the fused kernel on the
 card. Without ``params`` the module's own weights serve.
 
 :meth:`LM.forward` returns full-sequence logits (the reference's
-``lm.forward``); :func:`forward` runs it on a parameter tree in the
-reference's layout, as the sweep engine hands one to an ``eval_fn`` and as
-the training step differentiates it (through a weightless :func:`shell`).
+``lm.forward``, on a token tensor or the reference's batch dict);
+:func:`forward` runs it on a parameter tree in the reference's layout, as
+the sweep engine hands one to an ``eval_fn`` and as the training step
+differentiates it (through a weightless :func:`shell`). Serving and the
+engine are text-only, as the reference's.
 
 The continuous-batching engine (:mod:`repro_torch.launch.engine`) speaks the
 slot-state protocol: :class:`SlotStateSpec` per block kind,
 :func:`init_slot_states`, :meth:`LM.prefill_chunk`, :meth:`LM.decode_slots`,
 :func:`extract_state_chunk` and :func:`inject_state_chunk`. Only the ``attn``
-kind is ported; the others wait (ROADMAP Queue 1 item 12).
+kind is ported; the others wait (ROADMAP Queue 1 item 12.2).
 """
 from __future__ import annotations
 
@@ -36,40 +45,51 @@ from torch import nn
 from repro_torch import convert
 from repro_torch.core import cim as cim_lib
 from repro_torch.core import deployment as dep_lib
+from repro_torch.core import tree
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cim_read import ops as cr_ops
 from repro_torch.models.attention import Attention, init_kv_cache
-from repro_torch.models.common import apply_norm, embed_init
+from repro_torch.models.common import apply_norm, embed_init, init_norm
 from repro_torch.models.mlp import MLP
 
 
+def _norm(cfg, device) -> nn.ParameterDict:
+    """One norm's parameters as a module (empty for ``nonparametric_ln``)."""
+    return nn.ParameterDict({n: nn.Parameter(w) for n, w in init_norm(
+        cfg.norm_type, cfg.d_model, device=device,
+        dtype=cfg.pdtype()).items()})
+
+
 class Block(nn.Module):
-    """``attn`` kind: norm -> attention -> residual, norm -> MLP -> residual."""
+    """``attn`` kind: norm1 -> attention -> residual, norm2 -> MLP ->
+    residual. The norms apply the ``(norm1, norm2)`` parameter mappings
+    each call is handed (:meth:`LM._norms`: the block's own, or a serving
+    dict's)."""
 
     def __init__(self, cfg, *, generator=None, device=None):
         super().__init__()
-        if cfg.norm_type != "nonparametric_ln":
-            raise NotImplementedError(
-                f"norm_type={cfg.norm_type!r} waits (ROADMAP Queue 1 item 12)")
         self.cfg = cfg
         self.attn = Attention(cfg, generator=generator, device=device)
         self.mlp = MLP(cfg, generator=generator, device=device)
+        self.norm1 = _norm(cfg, device)
+        self.norm2 = _norm(cfg, device)
 
-    def norm(self, x):
-        return apply_norm(self.cfg.norm_type, {}, x)
-
-    def prefill(self, x, positions):
+    def prefill(self, x, positions, norms):
         """-> (x, k, v) with k/v the layer's decode-cache rows."""
-        out, k, v = self.attn.full(self.norm(x), positions)
+        n1, n2 = norms
+        nt = self.cfg.norm_type
+        out, k, v = self.attn.full(apply_norm(nt, n1, x), positions)
         x = x + out
-        return x + self.mlp(self.norm(x)), k, v
+        return x + self.mlp(apply_norm(nt, n2, x)), k, v
 
-    def decode(self, x, cache, pos):
+    def decode(self, x, cache, pos, norms):
         """Cache-append decode at ``pos`` (an int, or a [B] tensor of
         per-row positions)."""
-        out, cache = self.attn.decode(self.norm(x), cache, pos)
+        n1, n2 = norms
+        nt = self.cfg.norm_type
+        out, cache = self.attn.decode(apply_norm(nt, n1, x), cache, pos)
         x = x + out
-        return x + self.mlp(self.norm(x)), cache
+        return x + self.mlp(apply_norm(nt, n2, x)), cache
 
 
 def _cim_read_state(params, pos: int, leaf: str, req_salt=None):
@@ -114,16 +134,17 @@ def _unembed_logits(params, x, pos: int = 0, req_salt=None):
 
 
 class LM(nn.Module):
-    """olmo-family decoder: embed -> Blocks -> final norm -> unembed. Built on
-    ``device`` (default ``cuda``; pass ``"cpu"`` for the plain path)."""
+    """Dense decoder: embed (or a stub prefix) -> Blocks -> final norm ->
+    unembed. Built on ``device`` (default ``cuda``; pass ``"cpu"`` for the
+    plain path)."""
 
     def __init__(self, cfg, *, generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
-        if tuple(cfg.block_pattern) != ("attn",) or cfg.modality != "text":
+        if tuple(cfg.block_pattern) != ("attn",):
             raise NotImplementedError(
-                f"{cfg.arch_id}: only the text 'attn' block kind is ported "
-                f"(ROADMAP Queue 1 item 12)")
+                f"{cfg.arch_id}: block pattern {tuple(cfg.block_pattern)} "
+                f"{KINDS_WAIT}")
         self.cfg = cfg
         # None means cuda and raises without a card; "meta" holds shapes
         # only (:func:`shell`)
@@ -138,6 +159,7 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(
             [Block(cfg, generator=generator, device=device)
              for _ in range(cfg.n_layers)])
+        self.final_norm = _norm(cfg, device)
         # The module's own weights serve inference only. Training
         # differentiates a reference-layout tree through :func:`forward`
         # (``functional_call``), which never reads these, so the flag does
@@ -145,31 +167,67 @@ class LM(nn.Module):
         self.requires_grad_(False)
 
     def cim_leaves(self) -> dict:
-        """The leaves the reference's deployment can pack: its only 2-D
-        weights (the block weights are layer-stacked 3-D tensors there)."""
-        return {"embed": self.embed.detach(), "unembed": self.unembed.detach()}
+        """The leaves the reference's deployment can pack, in flatten order:
+        its 2-D float weights, ``embed``, ``unembed`` and the norms'
+        layer-stacked parameters (a copy). The block weights are
+        layer-stacked 3-D tensors there and the final norm's are 1-D."""
+        return tree.flatten({"embed": self.embed.detach(),
+                             "unembed": self.unembed.detach(),
+                             **convert.stacked_norms(self)})
 
     def _params(self, params):
         p = {"embed": self.embed, "unembed": self.unembed}
         p.update(params or {})
         return p
 
-    def _final(self, x):
-        return apply_norm(self.cfg.norm_type, {}, x)
+    def _norms(self, params):
+        """([(norm1, norm2)] a layer, the final norm's) parameter mappings:
+        the module's own, each leaf replaced where ``params`` holds its
+        reference-layout path (``groups/blk0/norm1/scale`` [L, D] row i;
+        ``final_norm/scale``): the hbm path serves decoded norm leaves."""
+        def pick(own, path, i=None):
+            return {n: (w if f"{path}/{n}" not in params else
+                        params[f"{path}/{n}"] if i is None else
+                        params[f"{path}/{n}"][i]) for n, w in own.items()}
+        layers = [(pick(blk.norm1, f"{convert.GROUP}/norm1", i),
+                   pick(blk.norm2, f"{convert.GROUP}/norm2", i))
+                  for i, blk in enumerate(self.blocks)]
+        return layers, pick(self.final_norm, "final_norm")
 
-    def forward(self, tokens: torch.Tensor, params=None, *,
+    def _final(self, x, norm):
+        return apply_norm(self.cfg.norm_type, norm, x)
+
+    def _embed_inputs(self, params, batch):
+        """The reference's ``_embed_inputs``: a ``vision_stub`` batch's patch
+        embeddings come before its token embeddings; an ``audio_stub``
+        batch's ``embeds`` take the place of the token gather."""
+        cfg = self.cfg
+        if isinstance(batch, torch.Tensor):
+            batch = {"tokens": batch}
+        if cfg.modality == "vision_stub" and "vision_embeds" in batch:
+            tok = _embed_lookup(params, cfg, batch["tokens"])
+            return torch.cat([batch["vision_embeds"].to(cfg.cdtype()), tok],
+                             dim=1)
+        if cfg.modality == "audio_stub" and "embeds" in batch:
+            return batch["embeds"].to(cfg.cdtype())
+        return _embed_lookup(params, cfg, batch["tokens"])
+
+    def forward(self, batch, params=None, *,
                 unembed: bool = True) -> torch.Tensor:
-        """tokens [B, S] -> logits [B, S, V] at every position (no caches,
-        reads at read index 0); with ``unembed=False`` the final-normed
-        hidden states [B, S, D] that the unembed multiplies."""
+        """``batch`` (tokens [B, S], or the reference's batch dict:
+        ``tokens``, with ``vision_embeds`` [B, P, D] or ``embeds`` [B, S, D]
+        for a stub modality) -> logits [B, S, V] at every position (no
+        caches, reads at read index 0); with ``unembed=False`` the
+        final-normed hidden states [B, S, D] that the unembed multiplies."""
         params = self._params(params)
-        x = _embed_lookup(params, self.cfg, tokens, pos=0)
+        layers, final = self._norms(params)
+        x = self._embed_inputs(params, batch)
         b, s, _ = x.shape
         positions = torch.arange(s, dtype=torch.int64,
                                  device=x.device)[None].expand(b, s)
-        for blk in self.blocks:
-            x = blk.prefill(x, positions)[0]
-        x = self._final(x)
+        for blk, norms in zip(self.blocks, layers):
+            x = blk.prefill(x, positions, norms)[0]
+        x = self._final(x, final)
         return _unembed_logits(params, x, pos=0) if unembed else x
 
     def prefill(self, tokens: torch.Tensor, params=None, max_len=None):
@@ -177,20 +235,21 @@ class LM(nn.Module):
         ``max_len`` (default S) positions; reads happen at read index 0."""
         cfg = self.cfg
         params = self._params(params)
+        norms, final = self._norms(params)
         x = _embed_lookup(params, cfg, tokens, pos=0)
         b, s, _ = x.shape
         max_len = max_len or s
         positions = torch.arange(s, dtype=torch.int64,
                                  device=x.device)[None].expand(b, s)
         layers = []
-        for blk in self.blocks:
-            x, k, v = blk.prefill(x, positions)
+        for blk, nrm in zip(self.blocks, norms):
+            x, k, v = blk.prefill(x, positions, nrm)
             cache = {"k": k.new_zeros((b, max_len) + k.shape[2:]),
                      "v": v.new_zeros((b, max_len) + v.shape[2:])}
             cache["k"][:, :s] = k
             cache["v"][:, :s] = v
             layers.append(cache)
-        x = self._final(x[:, -1:])
+        x = self._final(x[:, -1:], final)
         logits = _unembed_logits(params, x, pos=0)[:, 0]
         return logits, {"layers": layers, "pos": s}
 
@@ -198,11 +257,12 @@ class LM(nn.Module):
         """One decode step at read index ``caches['pos']``. tokens [B, 1] ->
         (logits [B, V], caches); the caches update in place."""
         params = self._params(params)
+        norms, final = self._norms(params)
         pos = caches["pos"]
         x = _embed_lookup(params, self.cfg, tokens, pos=pos)
-        for blk, cache in zip(self.blocks, caches["layers"]):
-            x, _ = blk.decode(x, cache, pos)
-        x = self._final(x)
+        for blk, cache, nrm in zip(self.blocks, caches["layers"], norms):
+            x, _ = blk.decode(x, cache, pos, nrm)
+        x = self._final(x, final)
         logits = _unembed_logits(params, x, pos=pos)[:, 0]
         return logits, {"layers": caches["layers"], "pos": pos + 1}
 
@@ -229,13 +289,14 @@ class LM(nn.Module):
                              f"{length} valid do not fit the {max_len}-row "
                              f"slot state")
         params = self._params(params)
+        norms, final = self._norms(params)
         x = _embed_lookup(params, cfg, tokens[None], pos=pos,
                           req_salt=req_salt)
-        for blk, cache in zip(self.blocks, caches["layers"]):
+        for blk, cache, nrm in zip(self.blocks, caches["layers"], norms):
             view = {"k": cache["k"][slot:slot + 1],
                     "v": cache["v"][slot:slot + 1]}
-            x, _ = blk.decode(x, view, pos)
-        h = self._final(x)[:, length - 1:length]
+            x, _ = blk.decode(x, view, pos, nrm)
+        h = self._final(x, final)[:, length - 1:length]
         logits = _unembed_logits(params, h, pos=pos, req_salt=req_salt)
         caches["pos_host"][slot] = pos + length
         caches["pos"][slot] = pos + length
@@ -266,6 +327,7 @@ class LM(nn.Module):
                 "runtime but no req_salts; per-read seeds would alias across "
                 "requests: pass deployment.request_salt(rid) per slot")
         params = self._params(params)
+        norms, final = self._norms(params)
         pos_host = caches["pos_host"]
         max_len = caches["layers"][0]["k"].shape[1]
         if (pos_host >= max_len).any():
@@ -280,9 +342,9 @@ class LM(nn.Module):
                            for i in range(s)])
         else:
             x = _embed_lookup(params, cfg, tokens)
-        for blk, cache in zip(self.blocks, caches["layers"]):
-            x, _ = blk.decode(x, cache, caches["pos"])
-        x = self._final(x)
+        for blk, cache, nrm in zip(self.blocks, caches["layers"], norms):
+            x, _ = blk.decode(x, cache, caches["pos"], nrm)
+        x = self._final(x, final)
         if dynamic and isinstance(params["unembed"], cim_lib.CIMStore):
             logits = torch.cat([_unembed_logits(params, x[i:i + 1],
                                                 pos=int(pos_host[i]),
@@ -303,7 +365,7 @@ class LM(nn.Module):
 # never looks inside a block's state.
 
 ENGINE_KINDS = ("attn", "local", "moe", "rwkv", "rec")
-KINDS_WAIT = "waits (ROADMAP Queue 1 item 12); only 'attn' is ported"
+KINDS_WAIT = "waits (ROADMAP Queue 1 item 12.2); only 'attn' is ported"
 
 _SPEC_VOCAB = {"kind": ENGINE_KINDS,
                "advance": ("parallel",),
@@ -314,7 +376,7 @@ _SPEC_VOCAB = {"kind": ENGINE_KINDS,
 class SlotStateSpec:
     """Per-block-kind contract of the serving engine's slot-state protocol,
     reduced to what ``attn`` uses (the other kinds bring their fields with
-    ROADMAP Queue 1 item 12).
+    ROADMAP Queue 1 item 12.2).
 
     * ``advance``: how a prompt chunk enters the state, ``'parallel'``
       (position-parallel attention over K/V rows).
@@ -373,7 +435,7 @@ def engine_capacity_coupled(cfg, tokens: int) -> bool:
     """True when co-batched requests of up to ``tokens`` tokens can couple
     through capacity-based MoE dispatch, which voids the bitwise
     solo-vs-co-batched guarantee. Only ``moe`` is capacity-coupled, and it
-    waits with ``moe.drop_free`` (ROADMAP Queue 1 item 12), so every kind
+    waits with ``moe.drop_free`` (ROADMAP Queue 1 item 12.2), so every kind
     that validates here is uncoupled."""
     del tokens     # the drop-free test of moe's capacity comes with moe
     slot_state_specs(cfg)
@@ -422,17 +484,18 @@ def inject_state_chunk(cfg, caches, slot: int, pos: int, chunk) -> dict:
     return caches
 
 
-def forward(model: LM, params: Mapping, tokens: torch.Tensor, *,
+def forward(model: LM, params: Mapping, batch, *,
             unembed: bool = True) -> torch.Tensor:
     """The reference's ``lm.forward(params, cfg, batch)``: ``params`` is a
     ``{path: tensor}`` tree in the reference's layout (layer-stacked
     ``groups/blk0/...`` leaves, :func:`convert.flat_from_jax`) and replaces
     ``model``'s weights for this call only (views, no copies). Gradients
     flow to the tree's stacked leaves, so a training step has one gradient
-    per reference leaf. Returns logits [B, S, V] (the final-normed hidden
-    states with ``unembed=False``)."""
+    per reference leaf. ``batch`` is a token tensor or the reference's
+    batch dict (:meth:`LM.forward`). Returns logits [B, S, V] (the
+    final-normed hidden states with ``unembed=False``)."""
     state = convert.lm_state_from_flat(params, model.cfg)
-    return torch.func.functional_call(model, state, (tokens,),
+    return torch.func.functional_call(model, state, (batch,),
                                       {"unembed": unembed})
 
 

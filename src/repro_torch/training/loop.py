@@ -92,9 +92,14 @@ class TrainResult:
 
 
 def _on_device(batch: Dict, device: torch.device) -> Dict:
-    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
-                               else v).to(device=device, dtype=torch.int64)
-            for k, v in batch.items()}
+    """Token and label arrays as int64, stub embeddings as float32."""
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor)
+                            else v)
+        out[k] = v.to(device=device, dtype=torch.float32
+                      if v.is_floating_point() else torch.int64)
+    return out
 
 
 _STATE_FIELDS = ("params", "opt", "exps", "signs", "ef_error")

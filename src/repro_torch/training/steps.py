@@ -66,7 +66,8 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
 
 def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
     """-> ``train_step(state, batch) -> (state, metrics)``. ``batch`` holds
-    ``tokens`` and ``labels`` [B, S] tensors on the parameters' device;
+    ``tokens`` and ``labels`` [B, S] tensors on the parameters' device (and
+    a stub modality's ``vision_embeds`` or ``embeds``, :func:`batches_for`);
     metrics are 0-dim tensors (``loss``, ``accuracy``, ``tokens``,
     ``grad_norm``, ``lr``, ``aux_loss``, and ``exp_penalty`` with the
     regularizer). A state with ``ef_error`` compresses its clipped gradient
@@ -90,7 +91,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
 
     def loss_fn(params, batch):
         params_c = {k: _cast(v) for k, v in params.items()}
-        logits = lm.forward(model, params_c, batch["tokens"])
+        logits = lm.forward(model, params_c, batch)
         loss, metrics = lm_loss(logits, batch["labels"])
         del logits
         if reg_policy is not None:
@@ -106,10 +107,14 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
                   for k, v in state.params.items()}
         with torch.enable_grad():
             total, (metrics, aux) = loss_fn(leaves, batch)
-            grads = torch.autograd.grad(total, list(leaves.values()))
+            # an audio_stub batch leaves the embed unread: its gradient is
+            # zero, as jax.grad's
+            grads = torch.autograd.grad(total, list(leaves.values()),
+                                        allow_unused=True)
+        grads = {p: torch.zeros_like(w) if g is None else g
+                 for (p, w), g in zip(leaves.items(), grads)}
         del total, leaves
         metrics = {k: v.detach() for k, v in metrics.items()}
-        grads = dict(zip(state.params, grads))
         grads, gnorm = adamw.clip_by_global_norm(grads, opt_cfg.grad_clip)
         ef = state.ef_error
         if ef is not None:
