@@ -192,9 +192,27 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    vision_stub forward), norms drawn nonzero, card against the port's
    plain CPU path as phase 3's reduced check; the phase's seconds.
 
-Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 12, 7. Prints the card's name and power
+13. the other block kinds on full-width rwkv6-1.6b (24 layers, d_model
+   2048, 32 heads of 64, RWKV6 time mix and channel mix d_ff 7168,
+   layernorm, vocab 65536, fp32; 1.600 B parameters from a seeded
+   generator on the card, every constant-initialised leaf drawn, the
+   decay base spread past both ends of the decay clamp), after granite is
+   freed: (a) phase 12's lock-step arms, decode-step profile, K1/K2 at its
+   unembed shape (K = 2048, J = 65536: 512 full strips) and engine arm (a)
+   (145 K1 launches, solo == co-batched), and the engine behind a shared
+   32-token prefix: every prefix hit (a fold's state snapshot) equal to
+   its cold prefill bitwise; the phase's peak. (b) Each block kind reduced
+   (local-only at window 16, rwkv6, recurrentgemma at 5 layers, qwen3-moe,
+   dbrx), card against the port's plain CPU path as phase 12's (d), and
+   the engine on the card: solo == co-batched bitwise. (c)
+   ``ExpertDeployment`` on reduced qwen3-moe at static BER 1e-3: its
+   ``stats_by_expert`` on the card equal to the CPU's, the served tokens
+   equal.
+
+Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 12, 13, 7. Prints the card's name and power
 limit, then one ``{"kernels": [...]}`` line (each K1/K2 row carries its
-granite figures under ``"granite"``), and as its last line
+granite figures under ``"granite"`` and its rwkv6 figures under
+``"rwkv6"``), and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2459,8 +2477,8 @@ def phase_bfp_times(dev, bfp: dict, card: str) -> dict:
 # ---------------------------------------------------------------- phase 12
 
 GRANITE = "granite-3-8b"
-GRANITE_ARMS = ARMS[:3] + ARMS[4:]           # (a), (b), (c), (e)
-GRANITE_BER = 1e-3                           # the identity probe's faulted image
+FULL_ARMS = ARMS[:3] + ARMS[4:]              # (a), (b), (c), (e)
+FULL_BER = 1e-3                              # the identity probe's faulted image
 REDUCED_FAMILIES = ("granite-3-8b", "codeqwen1.5-7b", "command-r-35b",
                     "tinyvit-paper", "musicgen-large", "internvl2-76b")
 
@@ -2472,20 +2490,23 @@ def _store_bytes(store) -> int:
                if p is not None)
 
 
-def _drawn_norms(model, seed: int) -> None:
-    """Every norm scale and bias of ``model`` redrawn nonzero (they start
-    at zero, which would hide a missing ``1 +`` or a swapped pair)."""
+def _drawn_leaves(model, seed: int) -> None:
+    """Every constant-initialised leaf of ``model`` (``CONSTANT_LEAF_DRAWS``)
+    redrawn from a seeded generator on its device."""
     import torch
+    from repro_torch.models.common import CONSTANT_LEAF_DRAWS
     g = torch.Generator(device=model.embed.device).manual_seed(seed)
     for name, w in model.named_parameters():
-        if "norm" in name:
-            s = 0.5 if name.endswith("scale") else 0.1
-            w.data.copy_(s * torch.randn(w.shape, generator=g,
-                                         device=w.device))
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in CONSTANT_LEAF_DRAWS:
+            s, m = CONSTANT_LEAF_DRAWS[leaf]
+            w.data.copy_(m + s * torch.randn(w.shape, generator=g,
+                                             device=w.device))
 
 
-def _granite_serve(model, kernel_lib) -> dict:
-    """(a) Lock-step serving of full-width granite-3-8b in arms (a), (b),
+def _full_serve(model, kernel_lib, tag: str) -> dict:
+    """(a) Lock-step serving of a full-width model (granite-3-8b in phase
+    12, rwkv6-1.6b in phase 13) in arms (a), (b),
     (c) and (e): the counts zeroed just before each arm, read just after;
     (a) makes GEN narrow K1 launches, (b) GEN narrow K2 launches, (c) and
     (e) none."""
@@ -2493,7 +2514,7 @@ def _granite_serve(model, kernel_lib) -> dict:
     from repro_torch.launch import serve as serve_lib
     cfg = model.cfg
     launches = {}
-    for label, path, protect, inject, ber in GRANITE_ARMS:
+    for label, path, protect, inject, ber in FULL_ARMS:
         kernel_lib.reset_launch_counts()
         res, kernels = _kernels_of(lambda: serve_lib.serve(
             model, batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0, cim=True,
@@ -2505,23 +2526,23 @@ def _granite_serve(model, kernel_lib) -> dict:
             if inject == "dynamic" else None
         want = {k: GEN if k == name else 0 for k in counts}
         _check(counts == res["launches"] == want,
-               f"phase 12: {GRANITE} arm {label}: launches {counts}, "
+               f"{tag} arm {label}: launches {counts}, "
                f"expected {want}")
         _check(kernels == ["narrow"] * (GEN if name else 0),
-               f"phase 12: {GRANITE} arm {label}: reads went through "
+               f"{tag} arm {label}: reads went through "
                f"{kernels}")
         logits = res["prefill_logits"]
         _check(tuple(logits.shape) == (BATCH, cfg.vocab_size) and
                bool(torch.isfinite(logits).all()),
-               f"phase 12: {GRANITE} arm {label}: logits "
+               f"{tag} arm {label}: logits "
                f"{tuple(logits.shape)}, finite "
                f"{bool(torch.isfinite(logits).all())}")
         _check(res["tokens"].shape == (BATCH, GEN) and
                ((res["tokens"] >= 0) & (res["tokens"] < cfg.vocab_size)).all(),
-               f"phase 12: {GRANITE} arm {label}: tokens out of range")
+               f"{tag} arm {label}: tokens out of range")
         if name:
             launches[name] = counts[name]
-        print(f"phase 12: {GRANITE} arm {label}: {res['tok_per_s']:.1f} "
+        print(f"{tag} arm {label}: {res['tok_per_s']:.1f} "
               f"tok/s, prefill {res['prefill_s'] * 1e3:.1f} ms, ECC "
               f"corrected={res['ecc']['corrected']} uncorrectable="
               f"{res['ecc']['uncorrectable']}, launches {counts}"
@@ -2532,8 +2553,8 @@ def _granite_serve(model, kernel_lib) -> dict:
 PROFILE_STEPS = 8
 
 
-def _granite_steps(model) -> None:
-    """Where a lock-step decode step of full-width granite goes: arms (a)
+def _full_steps(model, tag: str) -> None:
+    """Where a lock-step decode step of the full-width model goes: arms (a)
     and (e) prefilled, then PROFILE_STEPS decode steps timed on the host
     clock (synchronized) and again under ``torch.profiler`` (the device
     kernels' sum against that wall: the device-busy share)."""
@@ -2543,8 +2564,8 @@ def _granite_steps(model) -> None:
     toks = torch.as_tensor(MarkovLM(model.cfg.vocab_size, PROMPT, BATCH,
                                     seed=0).batch(0)["tokens"],
                            dtype=torch.int64, device=model.embed.device)
-    for label, path, protect, inject, ber in (GRANITE_ARMS[0],
-                                              GRANITE_ARMS[3]):
+    for label, path, protect, inject, ber in (FULL_ARMS[0],
+                                              FULL_ARMS[3]):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2553,7 +2574,7 @@ def _granite_steps(model) -> None:
                                         protect=protect, serve_path=path,
                                         inject=inject, verbose=False)[0]
         torch.cuda.synchronize()
-        print(f"phase 12: {GRANITE} arm {label}: the deployment (align, "
+        print(f"{tag} arm {label}: the deployment (align, "
               f"pack{', read' if path == 'hbm' else ''}) took "
               f"{time.perf_counter() - t0:.2f} s and peaked "
               f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 30:.2f} "
@@ -2575,20 +2596,21 @@ def _granite_steps(model) -> None:
             torch.cuda.synchronize()
             return time.perf_counter() - t0
         wall = steps(*prefill())
-        print(f"phase 12: {GRANITE} arm {label}: {PROFILE_STEPS} decode "
+        print(f"{tag} arm {label}: {PROFILE_STEPS} decode "
               f"steps in {wall * 1e3:.1f} ms ({wall / PROFILE_STEPS * 1e3:.2f}"
               f" ms a step, host clock)")
         state = prefill()
         _profile_arm(model.embed.device, lambda: steps(*state), wall,
-                     f"phase 12: {GRANITE} arm {label} decode steps "
+                     f"{tag} arm {label} decode steps "
                      f"profiled")
         del params
 
 
-def _granite_kernels(model, card: str) -> dict:
-    """(b) K1 and K2 at granite's unembed shape (K = 4096, J = 49155, the
-    last 128-column strip holding 16 padded columns, 3 of them real) on
-    the served weights: the 8-row identity probe exact on the clean and the
+def _full_kernels(model, card: str, tag: str) -> dict:
+    """(b) K1 and K2 at the model's unembed shape (granite's K = 4096,
+    J = 49155: the last 128-column strip holds 16 padded columns, 3 of them
+    real; rwkv6's K = 2048, J = 65536: 512 full strips) on the served
+    weights: the 8-row identity probe exact on the clean and the
     BER 1e-3 image, the last strip's columns included; the dynamic read
     equal to the static read of the image it flips; the final-normed
     hidden states of a MarkovLM batch (M = 4 and 1) within 1e-4 of
@@ -2603,7 +2625,7 @@ def _granite_kernels(model, card: str) -> dict:
     cfg = model.cfg
     k, j = cfg.d_model, cfg.vocab_size
     seeds = {"man": 0x1234567, "meta": 0x89ABCDE, "cw": 0x2468ACE}
-    thr = ber_to_threshold(GRANITE_BER)
+    thr = ber_to_threshold(FULL_BER)
     scalars = ops.make_scalars(seeds, thr, thr)
     t_thr = ber_to_threshold(MODEL_BER)
     t_scalars = ops.make_scalars(seeds, t_thr, t_thr)
@@ -2617,18 +2639,18 @@ def _granite_kernels(model, card: str) -> dict:
     for name, protect in PROTECT_OF.items():
         store = cim.pack(w_al, cim.CIMConfig(n_group=N_GROUP, protect=protect))
         j_pad = -(-j // 16) * 16                    # 49168 = 384 x 128 + 16
-        _check(tuple(store.man.shape) == (k, j_pad), f"phase 12: {name}: "
+        _check(tuple(store.man.shape) == (k, j_pad), f"{tag}: {name}: "
                f"store {tuple(store.man.shape)}")
         injected = cim.inject_with_seeds(store, seeds, thr, thr)
         last = slice((j_pad - 1) // 128 * 128, j)
-        for what, image in (("clean", store), (f"BER {GRANITE_BER:g}",
+        for what, image in (("clean", store), (f"BER {FULL_BER:g}",
                                                 injected)):
             w_ref, _ = cim.read(image)
             out, bad = _identity_probe(name, image, w_ref, what, rows=8)
             fin = torch.isfinite(w_ref[:, last]).all(0)
             _check(torch.equal(out[:, last][:, fin], w_ref[:, last][:, fin]),
-                   f"phase 12: {name}: last strip's columns ({what})")
-            print(f"phase 12: {name} identity probe at ({k}, {j}): exact "
+                   f"{tag}: {name}: last strip's columns ({what})")
+            print(f"{tag}: {name} identity probe at ({k}, {j}): exact "
                   f"on the {what} image in {k // 8} narrow launches, the "
                   f"last strip's {j - last.start} real columns included "
                   f"({bad} columns hold a non-finite weight)")
@@ -2640,15 +2662,15 @@ def _granite_kernels(model, card: str) -> dict:
             dyn, info = ops.cim_linear_store(x, store, scalars=scalars,
                                              with_info=True)
             _check(info["tiles"]["kernel"] == "narrow",
-                   f"phase 12: {name} at M = {x.shape[0]}: {info['tiles']}")
+                   f"{tag}: {name} at M = {x.shape[0]}: {info['tiles']}")
             _check(_same_bits(dyn, ops.cim_linear_store(x, injected)),
-                   f"phase 12: {name}: dynamic != static read of its image "
+                   f"{tag}: {name}: dynamic != static read of its image "
                    f"(M = {x.shape[0]})")
             for sc, wabs in ((None, w_abs), (scalars, w_inj_abs)):
                 got = dyn if sc is not None else ops.cim_linear_store(x, store)
                 want, _ = ref.cim_read_ref(x, store, sc)
                 ok, err = _close(got, want, x.abs() @ wabs)
-                _check(ok, f"phase 12: {name} vs plain at M = {x.shape[0]} "
+                _check(ok, f"{tag}: {name} vs plain at M = {x.shape[0]} "
                        f"({'dynamic' if sc is not None else 'static'}, max "
                        f"err {err:.3e})")
                 worst = max(worst, err)
@@ -2674,7 +2696,7 @@ def _granite_kernels(model, card: str) -> dict:
                 "dynamic_bound_by": "bytes" if bytes_ms >= hash_ms
                 else "operations"}
             row[f"m{m}"] = vals
-            print(f"phase 12: {name} narrow at ({k}, {j}), M = {m}: "
+            print(f"{tag}: {name} narrow at ({k}, {j}), M = {m}: "
                   f"{vals['ms']:.4f} ms dynamic (BER {MODEL_BER:g}), "
                   f"{vals['static_ms']:.4f} ms static; torch.matmul "
                   f"{vals['library_ms']:.4f} ms, plain {vals['plain_ms']:.2f}"
@@ -2687,8 +2709,8 @@ def _granite_kernels(model, card: str) -> dict:
     return rows
 
 
-def _granite_engine(model, kernel_lib) -> int:
-    """(c) Engine arm (a) on full-width granite: phase 10's load through 4
+def _full_engine(model, kernel_lib, tag: str) -> int:
+    """(c) Engine arm (a) on the full-width model: phase 10's load through 4
     slots, chunk 16, timed as phase 10 times it (no accounting, no logits
     kept); the count zeroed just before, read just after: one narrow K1
     launch a prefill chunk plus one a slot a decode step. The load again
@@ -2706,23 +2728,23 @@ def _granite_engine(model, kernel_lib) -> int:
     counts = dict(kernel_lib.launch_counts)
     want = chunks + agg["decode_steps"] * ENGINE_SLOTS
     _check(counts == {name: want, "cim_read_matmul_raw": 0},
-           f"phase 12: engine: launches {counts}, expected {want} of {name}")
-    _check(kernels == ["narrow"] * want, f"phase 12: engine reads went "
+           f"{tag}: engine: launches {counts}, expected {want} of {name}")
+    _check(kernels == ["narrow"] * want, f"{tag}: engine reads went "
            f"through {sorted(set(kernels))}")
     for r in reqs:
         got = res[r.rid]
         _check(len(got.tokens) == r.max_new and got.finite,
-               f"phase 12: engine request {r.rid}: {got.tokens}")
+               f"{tag}: engine request {r.rid}: {got.tokens}")
     co, _ = _engine_run(model, params, reqs, max_len, ecc_accounting=False,
                         collect_logits=True)
     _check(all(co[r.rid].tokens == res[r.rid].tokens for r in reqs),
-           "phase 12: engine tokens changed when the logits were kept")
+           f"{tag}: engine tokens changed when the logits were kept")
     for rid in (0, 2):
         solo, _ = _engine_run(model, params, [reqs[rid]], max_len,
                               ecc_accounting=False, collect_logits=True)
         _check(_same_request(co[rid], solo[rid]),
-               f"phase 12: engine request {rid} solo != co-batched")
-    print(f"phase 12: {GRANITE} engine arm {ENGINE_ARMS[0][0]}: decode "
+               f"{tag}: engine request {rid} solo != co-batched")
+    print(f"{tag} engine arm {ENGINE_ARMS[0][0]}: decode "
           f"{agg['decode_tok_s']:.1f} tok/s aggregate ("
           f"{agg['decode_wall_s'] / agg['decode_steps'] * 1e3:.1f} ms a "
           f"step), TTFT mean {agg['ttft_s_mean'] * 1e3:.1f} ms p95 "
@@ -2750,7 +2772,7 @@ def _reduced_families(dev, kernel_lib) -> None:
         cfg = get_config(arch).reduced()
         cpu = LM(cfg, generator=torch.Generator().manual_seed(3),
                  device="cpu")
-        _drawn_norms(cpu, 4)
+        _drawn_leaves(cpu, 4)
         gpu = LM(cfg, device=dev)
         gpu.load_state_dict(cpu.state_dict())
         if cfg.modality != "text":
@@ -2790,6 +2812,212 @@ def _reduced_families(dev, kernel_lib) -> None:
               f"{errs[0]:.3e} / {errs[1]:.3e})")
 
 
+# ---------------------------------------------------------------- phase 13
+
+RWKV = "rwkv6-1.6b"
+KIND_FAMILIES = (  # (label, arch, config overrides), reduced
+    ("local", "olmo-1b", dict(block_pattern=("local",), local_window=16)),
+    ("rwkv", "rwkv6-1.6b", {}),
+    ("rec", "recurrentgemma-9b", dict(n_layers=5)),
+    ("moe", "qwen3-moe-235b-a22b", {}),
+    ("dbrx", "dbrx-132b", {}))
+KIND_CHUNK = 8          # a MoE's 4 slots and 8-token chunks stay drop-free
+
+
+def _state_prefix(model, tag: str) -> None:
+    """A prefix hit injects a fold's post-chunk snapshot: 3 requests behind
+    a shared 32-token prefix (two full 16-token chunks) through engine arm
+    (a) with a prefix cache equal the same requests served cold, bitwise
+    (tokens, logits)."""
+    from repro_torch.launch import engine as engine_lib
+    load = engine_lib.LoadGen(n_requests=3, prompt_lens=(4, 12),
+                              gen_lens=(2, 4), vocab_size=model.cfg.vocab_size,
+                              seed=1, prefix_len=32)
+    reqs, max_len = load.requests(), load.max_len()
+    params = _engine_params(model, ENGINE_ARMS[0])
+    kw = dict(ecc_accounting=False, collect_logits=True)
+    warm, agg = _engine_run(model, params, reqs, max_len, prefix_cache=True,
+                            **kw)
+    cold, _ = _engine_run(model, params, reqs, max_len, **kw)
+    _check(agg["prefix_hits"] >= 2, f"{tag}: prefix hits {agg['prefix_hits']}")
+    for r in reqs:
+        _check(_same_request(warm[r.rid], cold[r.rid]),
+               f"{tag}: prefix-hit request {r.rid} != its cold prefill")
+    print(f"{tag}: engine arm {ENGINE_ARMS[0][0]} behind a 32-token shared "
+          f"prefix: {agg['prefix_hits']} prefix hits ({agg['prefix_tokens']} "
+          f"tokens from state snapshots), each request equal to its cold "
+          f"prefill bitwise (tokens, logits)")
+
+
+def _reduced_kinds(dev, kernel_lib) -> None:
+    """(b) Each block kind reduced (local-only at window 16, rwkv6,
+    recurrentgemma at 5 layers, qwen3-moe, dbrx), weights from one seeded
+    generator with the constant leaves drawn, on the card against the
+    port's plain CPU path: lock-step dynamic one4n and none at BER 1e-3,
+    prompt 16 (the ring wraps), one kernel launch a read, tokens equal and
+    logits within allclose(1e-4, 1e-4); then the engine on the card (fused
+    one4n, static from the row cache and dynamic, 4 slots, chunk 8, no
+    capacity warning): rids 0 and 2 served solo equal them co-batched
+    bitwise in both arms (the attn kind's two arms are phase 10's a and
+    c)."""
+    import dataclasses
+    import warnings
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import engine as engine_lib
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models.lm import LM
+    for label, arch, ov in KIND_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **ov)
+        cpu = LM(cfg, generator=torch.Generator().manual_seed(3),
+                 device="cpu")
+        _drawn_leaves(cpu, 4)
+        gpu = LM(cfg, device=dev)
+        gpu.load_state_dict(cpu.state_dict())
+        errs = []
+        for protect in ("one4n", "none"):
+            kw = dict(batch=2, prompt_len=16, gen=6, seed=1, cim=True,
+                      ber=1e-3, protect=protect, inject="dynamic",
+                      verbose=False)
+            a = serve_lib.serve(cpu, **kw)
+            kernel_lib.reset_launch_counts()
+            b = serve_lib.serve(gpu, **kw)
+            _check(sum(kernel_lib.launch_counts.values()) == kw["gen"],
+                   f"phase 13: reduced {label} {protect}: launches "
+                   f"{dict(kernel_lib.launch_counts)}")
+            _check((a["tokens"] == b["tokens"]).all(),
+                   f"phase 13: reduced {label} {protect}: card tokens != CPU")
+            ok, err = _close(a["prefill_logits"], b["prefill_logits"].cpu())
+            _check(ok, f"phase 13: reduced {label} {protect}: logits vs CPU "
+                   f"(max err {err:.3e})")
+            errs.append(err)
+        reqs = engine_lib.LoadGen(n_requests=3, prompt_lens=(3, 14),
+                                  gen_lens=(3, 5), vocab_size=256,
+                                  seed=5).requests()
+
+        def run(params, rs):
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")    # no capacity coupling
+                eng = engine_lib.Engine(gpu, params, n_slots=ENGINE_SLOTS,
+                                        max_len=24, chunk=KIND_CHUNK,
+                                        collect_logits=True)
+            with torch.inference_mode():
+                return eng.run(rs)[0]
+        for inject in ("static", "dynamic"):
+            params = serve_lib.build_params(gpu, cim=True, ber=1e-3,
+                                            inject=inject, verbose=False)[0]
+            co = run(params, reqs)
+            for rid in (0, 2):
+                _check(_same_request(co[rid],
+                                     run(params, [reqs[rid]])[rid]),
+                       f"phase 13: reduced {label} engine {inject}: request "
+                       f"{rid} solo != co-batched")
+        print(f"phase 13: reduced {label} ({arch}, {cfg.n_layers} layers "
+              f"{'/'.join(dict.fromkeys(cfg.block_pattern))}): served "
+              f"dynamic one4n / none, card == CPU plain (tokens equal, "
+              f"logits max err {errs[0]:.3e} / {errs[1]:.3e}); engine on the "
+              f"card, static and dynamic: rids 0 and 2 solo == co-batched "
+              f"bitwise")
+
+
+def _expert_card_vs_cpu(dev) -> None:
+    """(c) ``ExpertDeployment`` on reduced qwen3-moe, static BER 1e-3 (the
+    launcher's ``--expert-cim``): ``stats_by_expert`` on the card equals the
+    CPU's, every count; the served tokens (restacked experts, dynamic one4n
+    unembed) equal."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models.lm import LM
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    cpu = LM(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    _drawn_leaves(cpu, 4)
+    gpu = LM(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    out = []
+    for m in (cpu, gpu):
+        edep, extra = serve_lib.expert_deploy(
+            convert.expert_leaves(m), ber=1e-3, protect="one4n", n_group=8,
+            index=2, seed=0, verbose=False)
+        res = serve_lib.serve(m, batch=2, prompt_len=8, gen=6, seed=1,
+                              cim=True, ber=1e-3, inject="dynamic",
+                              extra=extra, verbose=False)
+        out.append((edep.stats_by_expert(), res["tokens"]))
+    (cs, ct), (gs, gt) = out
+    _check(cs == gs, "phase 13: expert stats on the card != the CPU's")
+    _check((ct == gt).all(), "phase 13: expert-served tokens card != CPU")
+    print(f"phase 13: ExpertDeployment on reduced qwen3-moe ({len(gs)} "
+          f"expert stores, BER 1e-3 static): stats_by_expert card == CPU "
+          f"(corrected {sum(v['corrected'] for v in gs.values())}, "
+          f"uncorrectable {sum(v['uncorrectable'] for v in gs.values())}), "
+          f"served tokens equal")
+
+
+def phase_kinds(dev, kernel_lib, card: str) -> dict:
+    """Phase 13: the other block kinds. Full-width rwkv6-1.6b (24 layers,
+    d_model 2048, 32 heads of 64, channel mix d_ff 7168, vocab 65536,
+    layernorm; weights from a seeded generator on the card, the constant
+    leaves drawn) served lock-step and through the engine over K1/K2's
+    narrow kernels, the kernels held at its unembed shape, a prefix hit
+    against a cold prefill; then each kind reduced, card against CPU, and
+    the expert deployment. Returns each kernel's rwkv6 figures (the
+    kernels line carries them)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(RWKV)
+    model = LM(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+               device=dev)
+    _drawn_leaves(model, 1)
+    n = sum(p.numel() for p in model.parameters())
+    w0 = torch.stack([b.tmix.decay_w0 for b in model.blocks])
+    lo, hi = float((w0 < -8).float().mean()), float((w0 > 1).float().mean())
+    _check(lo > 0 and hi > 0, f"phase 13: decay bases {lo}, {hi} past the "
+           f"clamp")
+    print(f"phase 13: {RWKV} full width: {n / 1e9:.3f} B fp32 parameters "
+          f"({n * 4 / 1e9:.2f} GB) built on the card in "
+          f"{time.perf_counter() - t0:.1f} s; decay bases past the clamp: "
+          f"{100 * lo:.2f}% below -8, {100 * hi:.2f}% above 1")
+    tag = f"phase 13: {RWKV}"
+    peaks, secs = {}, {}
+
+    def part(what, fn):
+        t = time.perf_counter()
+        out = fn()
+        secs[what] = time.perf_counter() - t
+        peaks[what] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        return out
+    launches = part("lock-step arms", lambda: _full_serve(model, kernel_lib,
+                                                          tag))
+    part("decode-step profile", lambda: _full_steps(model, tag))
+    rows = part("kernels at the unembed shape",
+                lambda: _full_kernels(model, card, tag))
+    rows["cim_read_matmul_one4n"]["engine_launches"] = part(
+        "engine", lambda: _full_engine(model, kernel_lib, tag))
+    part("prefix cache", lambda: _state_prefix(model, tag))
+    for name, v in launches.items():
+        rows[name]["launches"] = v
+    del model
+    torch.cuda.empty_cache()
+    print(f"{tag} peak device memory {max(peaks.values()):.2f} GiB "
+          f"(max_memory_allocated over the phase; by part: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+          + f") on {card}")
+    t = time.perf_counter()
+    _reduced_kinds(dev, kernel_lib)
+    secs["reduced kinds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    _expert_card_vs_cpu(dev)
+    secs["expert deployment"] = time.perf_counter() - t
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s (by part: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + ")")
+    return rows
+
+
 def phase_granite(dev, kernel_lib, card: str) -> dict:
     """Phase 12: the dense variants. Full-width granite-3-8b (40 layers,
     d_model 4096, 32 heads over 8 KV heads, rmsnorm with its parameters,
@@ -2806,7 +3034,7 @@ def phase_granite(dev, kernel_lib, card: str) -> dict:
     cfg = get_config(GRANITE)
     model = LM(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                device=dev)
-    _drawn_norms(model, 1)
+    _drawn_leaves(model, 1)
     n = sum(p.numel() for p in model.parameters())
     print(f"phase 12: {GRANITE} full width: {n / 1e9:.3f} B fp32 parameters "
           f"({n * 4 / 1e9:.1f} GB) built on the card in "
@@ -2818,13 +3046,14 @@ def phase_granite(dev, kernel_lib, card: str) -> dict:
         peaks[what] = torch.cuda.max_memory_allocated() / 2 ** 30
         torch.cuda.reset_peak_memory_stats()
         return out
-    launches = part("lock-step arms", lambda: _granite_serve(model,
-                                                             kernel_lib))
-    part("decode-step profile", lambda: _granite_steps(model))
+    tag = f"phase 12: {GRANITE}"
+    launches = part("lock-step arms", lambda: _full_serve(model, kernel_lib,
+                                                          tag))
+    part("decode-step profile", lambda: _full_steps(model, tag))
     rows = part("kernels at the unembed shape",
-                lambda: _granite_kernels(model, card))
+                lambda: _full_kernels(model, card, tag))
     rows["cim_read_matmul_one4n"]["engine_launches"] = part(
-        "engine", lambda: _granite_engine(model, kernel_lib))
+        "engine", lambda: _full_engine(model, kernel_lib, tag))
     for name, v in launches.items():
         rows[name]["launches"] = v
     del model
@@ -2885,9 +3114,11 @@ def main() -> int:
     del trained
     torch.cuda.empty_cache()
     granite = phase_granite(dev, kernel_lib, card)
+    rwkv = phase_kinds(dev, kernel_lib, card)
     rows = phase_times(dev, checks, launches, engine_launches, card)
     for row in rows:
         row["granite"] = granite[row["name"]]
+        row["rwkv6"] = rwkv[row["name"]]
     rows += phase_fi_times(dev, checks, fig6["launches"], fi, card)
     rows.append(phase_bfp_times(dev, bfp, card))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build start")

@@ -1,9 +1,12 @@
 """Model configs (port of ``repro/configs/base.py``).
 
 Declared again here because the reference's module imports ``jax.numpy``.
-Only the fields the dense ``attn`` family reads are carried over; the MoE,
-recurrent and local-attention fields come with their block kinds (ROADMAP
-Queue 1 item 12.2). ``RunConfig`` describes one training run.
+The fields of every block kind are carried over (``attn``, ``local``,
+``moe``, ``rwkv``, ``rec``); left out are the reference's sharding choices
+(``attn_impl``, ``mlp_impl``) and ``kv_cache_dtype``, whose int8 cache
+waits (ROADMAP Queue 1). ``moe_dispatch="a2a"`` means the dense dispatch on
+one device, as the reference falls back to it without a mesh.
+``RunConfig`` describes one training run.
 """
 from __future__ import annotations
 
@@ -24,9 +27,20 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                # 0 -> d_model // n_heads
-    mlp_type: str = "swiglu"
+    mlp_type: str = "swiglu"         # swiglu | gelu | rwkv_cmix
     norm_type: str = "rmsnorm"
-    block_pattern: Tuple[str, ...] = ("attn",)
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    moe_dispatch: str = "a2a"        # a2a (dense on one device) | sort | cumsum
+    # hybrid / recurrent
+    block_pattern: Tuple[str, ...] = ("attn",)   # cycled over layers
+    d_rnn: int = 0
+    local_window: int = 0            # 0 -> full attention
+    conv_width: int = 4
     modality: str = "text"           # text | vision_stub | audio_stub
     n_prefix_embeds: int = 0         # vision_stub: # of patch embeddings
     rope_theta: float = 1e4
@@ -34,11 +48,15 @@ class ModelConfig:
     param_dtype: str = "float32"
     attn_chunk_q: int = 1024
     attn_chunk_threshold: int = 8192
+    sub_quadratic: bool = False
     tag: str = ""
 
     @property
     def head_dim_(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    def layer_kind(self, i: int) -> str:
+        return self.block_pattern[i % len(self.block_pattern)]
 
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
@@ -48,7 +66,7 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Same-family tiny config for CPU smoke tests (the reference's
-        ``reduced()`` on the fields carried here)."""
+        ``reduced()``)."""
         return dataclasses.replace(
             self,
             n_layers=min(self.n_layers, 2 if len(self.block_pattern) < 2
@@ -59,7 +77,13 @@ class ModelConfig:
             if self.n_heads else 0,
             head_dim=32 if self.n_heads else 0,
             d_ff=256,
+            d_ff_expert=64 if self.n_experts else 0,
+            n_experts=min(self.n_experts, 4),
+            top_k=min(self.top_k, 2),
             vocab_size=256,
+            d_rnn=128 if self.d_rnn else 0,
+            local_window=min(self.local_window, 64) if self.local_window
+            else 0,
             n_prefix_embeds=min(self.n_prefix_embeds, 4),
             attn_chunk_threshold=10 ** 9,
         )

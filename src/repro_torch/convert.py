@@ -4,9 +4,10 @@ between the port's two parameter layouts.
 The ``*_from_jax`` functions take numpy arrays (what ``np.asarray`` makes of
 the reference's jax arrays), so this module needs neither jax nor ``repro``.
 The reference's layout is a ``{path: tensor}`` tree in flatten order
-(:mod:`repro_torch.core.tree`) with the layers stacked under
-``groups/blk0``; :class:`repro_torch.models.lm.LM` holds one ``blocks.<i>``
-module per layer.
+(:mod:`repro_torch.core.tree`) with the layers stacked in pattern groups
+under ``groups/blk{i}`` and the remainder unstacked under ``tail/{j}``;
+:class:`repro_torch.models.lm.LM` holds one ``blocks.<l>`` module per layer
+(:func:`layer_slots`).
 """
 from __future__ import annotations
 
@@ -19,17 +20,58 @@ from repro_torch.core import tree
 from repro_torch.core.cim import CIMConfig, CIMStore
 from repro_torch.models.common import NORM_LEAVES
 from repro_torch.models.mlp import MLP_LEAVES
+from repro_torch.models.moe import EXPERT_LEAF_NAMES, MOE_LEAVES
 
-GROUP = "groups/blk0"
 ATTN_LEAVES = ("wk", "wo", "wq", "wv")
+TMIX_LEAVES = ("bonus_u", "decay_lora_a", "decay_lora_b", "decay_w0",
+               "gn_scale", "ts_lora_a", "ts_lora_b", "ts_mu", "ts_mu0", "w_g",
+               "w_k", "w_o", "w_r", "w_v")
+REC_LEAVES = ("conv_b", "conv_w", "rg_ba", "rg_bi", "rg_lambda", "rg_wa",
+              "rg_wi", "w_down", "w_gate_br", "w_x")
 
 
-def block_leaves(cfg) -> dict:
-    """{module: leaf names} of one ``attn`` block: the attention weights,
-    the MLP's by ``mlp_type`` and the two norms' by ``norm_type``."""
+def block_leaves(cfg, kind: str = "attn") -> dict:
+    """{module: leaf names} of one block of ``kind``: its mixer's (attention,
+    RWKV's time mix, the RG-LRU block), its FFN's (the MLP by
+    ``mlp_type``, the MoE, RWKV's channel mix) and the two norms' by
+    ``norm_type``."""
     norm = NORM_LEAVES[cfg.norm_type]
-    return {"attn": ATTN_LEAVES, "mlp": MLP_LEAVES[cfg.mlp_type],
-            "norm1": norm, "norm2": norm}
+    mods = {"attn": {"attn": ATTN_LEAVES, "mlp": MLP_LEAVES[cfg.mlp_type]},
+            "moe": {"attn": ATTN_LEAVES, "moe": MOE_LEAVES},
+            "rwkv": {"tmix": TMIX_LEAVES, "cmix": MLP_LEAVES[cfg.mlp_type]},
+            "rec": {"rec": REC_LEAVES, "mlp": MLP_LEAVES[cfg.mlp_type]}}
+    mods["local"] = mods["attn"]
+    if kind not in mods:
+        raise ValueError(f"block kind {kind!r}")
+    return {**mods[kind], "norm1": norm, "norm2": norm}
+
+
+def group_kinds(cfg):
+    """The reference's layout of ``cfg``'s layers: (pattern, number of
+    stacked groups, the tail's kinds)."""
+    pat = tuple(cfg.block_pattern)
+    n_groups = cfg.n_layers // len(pat)
+    return pat, n_groups, pat[:cfg.n_layers % len(pat)]
+
+
+def layer_slots(cfg) -> list:
+    """[(reference prefix, row)] a layer, in layer order: group g's
+    position i is layer ``g * len(pattern) + i`` at row g of the stacked
+    ``groups/blk{i}`` leaves; tail block j follows the groups, unstacked
+    at ``tail/{j}`` (row None)."""
+    pat, n_groups, tail = group_kinds(cfg)
+    return [(f"groups/blk{i}", g) for g in range(n_groups)
+            for i in range(len(pat))] + \
+        [(f"tail/{j}", None) for j in range(len(tail))]
+
+
+def _layer_leaves(cfg):
+    """(layer, reference prefix, row, module, leaf name) of every block
+    leaf."""
+    for layer, (prefix, row) in enumerate(layer_slots(cfg)):
+        for mod, names in block_leaves(cfg, cfg.layer_kind(layer)).items():
+            for name in names:
+                yield layer, prefix, row, mod, name
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -55,50 +97,60 @@ def cnn_params_from_jax(np_params: Mapping, device="cpu") -> dict:
     return flat
 
 
-def _check_attn(cfg) -> None:
-    if tuple(cfg.block_pattern) != ("attn",):
-        raise NotImplementedError("only the 'attn' block kind is ported "
-                                  "(ROADMAP Queue 1 item 12.2)")
-
-
 def lm_state_from_flat(flat: Mapping, cfg) -> dict:
     """Reference-layout LM params -> a state dict of
-    :class:`repro_torch.models.lm.LM`: each ``groups/blk0/...`` leaf unstacks
-    into ``blocks.<i>...`` views (no copies), ``final_norm/<name>`` maps to
-    ``final_norm.<name>``."""
-    _check_attn(cfg)
+    :class:`repro_torch.models.lm.LM`: each stacked ``groups/blk{i}/...``
+    leaf unstacks into its layers' ``blocks.<l>...`` views and each
+    ``tail/{j}/...`` leaf maps to its layer (no copies);
+    ``final_norm/<name>`` maps to ``final_norm.<name>``."""
     state = {"embed": flat["embed"], "unembed": flat["unembed"]}
-    for mod, names in block_leaves(cfg).items():
-        for name in names:
-            for i, w in enumerate(flat[f"{GROUP}/{mod}/{name}"].unbind(0)):
-                state[f"blocks.{i}.{mod}.{name}"] = w
-    for name in block_leaves(cfg)["norm1"]:
+    for layer, prefix, row, mod, name in _layer_leaves(cfg):
+        w = flat[f"{prefix}/{mod}/{name}"]
+        state[f"blocks.{layer}.{mod}.{name}"] = w if row is None else w[row]
+    for name in NORM_LEAVES[cfg.norm_type]:
         state[f"final_norm.{name}"] = flat[f"final_norm/{name}"]
     return state
 
 
-def _stack(model, mod: str, name: str) -> torch.Tensor:
-    return torch.stack([getattr(getattr(blk, mod), name).detach()
-                        for blk in model.blocks])
+def _ref_leaves(model, keep=None) -> dict:
+    """An :class:`LM`'s block leaves in the reference layout (group leaves
+    stacked, a copy; tail leaves as they are), those ``keep(leaf name,
+    per-layer ndim, row)`` admits."""
+    by_path = {}
+    for layer, prefix, row, mod, name in _layer_leaves(model.cfg):
+        w = getattr(getattr(model.blocks[layer], mod), name).detach()
+        if keep is None or keep(name, w.ndim, row):
+            by_path.setdefault(f"{prefix}/{mod}/{name}", []).append(
+                (row, w))
+    return {p: ws[0][1] if ws[0][0] is None
+            else torch.stack([w for _, w in ws]) for p, ws in by_path.items()}
 
 
-def stacked_norms(model) -> dict:
-    """An :class:`LM`'s block norm parameters in the reference layout:
-    ``groups/blk0/norm{1,2}/<name>`` [L, D] (a copy; empty for
-    ``nonparametric_ln``)."""
-    return {f"{GROUP}/{mod}/{name}": _stack(model, mod, name)
-            for mod in ("norm1", "norm2")
-            for name in block_leaves(model.cfg)[mod]}
+def two_d_leaves(model) -> dict:
+    """The 2-D float leaves of an :class:`LM` in the reference's layout and
+    flatten order, the leaves its deployment can pack: ``embed``,
+    ``unembed``, the group leaves that are 1-D a layer (stacked [G, d], a
+    copy) and the tail's 2-D leaves. The block matrices are 3-D stacked
+    there and the final norm's leaves 1-D."""
+    flat = {"embed": model.embed.detach(), "unembed": model.unembed.detach()}
+    flat.update(_ref_leaves(model, lambda name, ndim, row:
+                            ndim + (row is not None) == 2))
+    return tree.flatten(flat)
+
+
+def expert_leaves(model) -> dict:
+    """An :class:`LM`'s stacked MoE expert weights in the reference layout
+    (``groups/blk{i}/moe/moe_win`` [G, E, D, F] and the like, a copy; an
+    :class:`~repro_torch.core.deployment.ExpertDeployment`'s input)."""
+    return tree.flatten(_ref_leaves(model, lambda name, ndim, row:
+                                    name in EXPERT_LEAF_NAMES))
 
 
 def flat_from_lm(model) -> dict:
-    """An :class:`LM`'s weights -> the reference layout (the block weights
-    are stacked, a copy)."""
-    _check_attn(model.cfg)
-    flat = {"embed": model.embed.detach(), "unembed": model.unembed.detach()}
-    for mod, names in block_leaves(model.cfg).items():
-        for name in names:
-            flat[f"{GROUP}/{mod}/{name}"] = _stack(model, mod, name)
+    """An :class:`LM`'s weights -> the reference layout (the group leaves
+    stacked, a copy)."""
+    flat = {"embed": model.embed.detach(), "unembed": model.unembed.detach(),
+            **_ref_leaves(model)}
     for name, w in model.final_norm.items():
         flat[f"final_norm/{name}"] = w.detach()
     return tree.flatten(flat)

@@ -6,7 +6,8 @@ A :class:`ReliabilityPolicy` maps each leaf path to a :class:`PolicyRule`
 first match wins, then the default). :class:`CIMDeployment` owns the packed
 stores and passthrough leaves of a flat ``{path: tensor}`` dict and exposes
 deploy / inject / runtime / read / read_rows / stats / linear /
-serving_params.
+serving_params. :class:`ExpertDeployment` deploys a MoE's stacked expert
+weights one macro an expert.
 
 Seeds. The reference splits one ``jax.random`` key over the flat leaves of the
 params pytree; the port takes explicit per-path uint32 plane-seed dicts
@@ -28,7 +29,9 @@ import torch
 from repro_torch.core import align as align_lib
 from repro_torch.core import cim as cim_lib
 from repro_torch.core import faultmodels as fm_lib
+from repro_torch.core import tree
 from repro_torch.core.bitops import FORMAT_NAMES, get_format
+from repro_torch.models.moe import EXPERT_LEAF_NAMES
 
 VALID_MODES = ("off", "align", "cim")
 VALID_PROTECTS = ("one4n", "per_weight", "none")
@@ -333,6 +336,94 @@ class CIMDeployment:
         return {"stored_bits": int(stored), "raw_bits": int(raw),
                 "stored_bytes": int(byts),
                 "overhead": (stored / raw - 1.0) if raw else 0.0}
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel MoE deployment: each expert is its own macro.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class ExpertDeployment:
+    """Per-expert CIM deployment of a model's stacked MoE weights.
+
+    Every stacked expert tensor (:data:`EXPERT_LEAF_NAMES`, ``[E, D, F]`` or
+    ``[G, E, D, F]``) is sliced into per-expert 2-D matrices at paths like
+    ``groups/blk0/moe/moe_win/g0/expert3`` and deployed through one
+    :class:`CIMDeployment`, so :class:`ReliabilityPolicy` rules match the
+    per-expert paths (``PolicyRule("*/expert3", ber_scale=4.0)`` ages one
+    expert across all its matrices).
+
+    Serving is decode-once: :meth:`serving_params` reads every expert store
+    back and restacks the dense tensors, which the MoE's dispatch consumes
+    unchanged. Injection is therefore static only, as the reference's: the
+    faults are a property of the image, not of the read, so the engine's
+    bitwise solo-vs-co-batched guarantee holds. :meth:`stats_by_expert`
+    gives each expert store's ECC counters."""
+
+    inner: CIMDeployment
+    leaves: Tuple[Tuple[str, tuple], ...]   # (params path, stacked shape)
+
+    @classmethod
+    def deploy(cls, params: Dict[str, torch.Tensor],
+               policy: ReliabilityPolicy) -> "ExpertDeployment":
+        """Slice and deploy every stacked expert tensor of the flat
+        reference-layout ``params``; raises if there is none (deploying
+        nothing would serve unprotected experts silently)."""
+        expert, meta = {}, []
+        for p, leaf in params.items():
+            if _is_store(leaf) or p.split("/")[-1] not in EXPERT_LEAF_NAMES \
+                    or getattr(leaf, "ndim", 0) not in (3, 4):
+                continue
+            if leaf.ndim == 4:                       # [G, E, D, F]
+                for g in range(leaf.shape[0]):
+                    for e in range(leaf.shape[1]):
+                        expert[f"{p}/g{g}/expert{e}"] = leaf[g, e]
+            else:                                    # [E, D, F]
+                for e in range(leaf.shape[0]):
+                    expert[f"{p}/expert{e}"] = leaf[e]
+            meta.append((p, tuple(leaf.shape)))
+        if not expert:
+            raise ValueError(
+                "ExpertDeployment.deploy: params has no stacked MoE expert "
+                f"leaves (looked for {', '.join(EXPERT_LEAF_NAMES)})")
+        return cls(inner=CIMDeployment.deploy(tree.flatten(expert), policy),
+                   leaves=tuple(meta))
+
+    def inject(self, seeds: Dict[str, dict], ber, field: Optional[str] = None,
+               model=None) -> "ExpertDeployment":
+        """Static soft errors into every expert store (per-rule BER scales
+        apply), from each store's plane seeds ``seeds[path]``."""
+        return ExpertDeployment(
+            inner=self.inner.inject(seeds, ber, field=field, model=model),
+            leaves=self.leaves)
+
+    def serving_params(self, params: Optional[dict] = None) -> dict:
+        """``params`` (a serving dict; stores and ``_cim`` pass through) with
+        every expert leaf recorded at deploy time set to its restacked
+        decoded tensor. The read's ECC counts fold into the inner
+        deployment's counters."""
+        decoded, _ = self.inner.read()
+        out = dict(params or {})
+        for p, shape in self.leaves:
+            if len(shape) == 4:
+                w = torch.stack([torch.stack(
+                    [decoded[f"{p}/g{g}/expert{e}"] for e in range(shape[1])])
+                    for g in range(shape[0])])
+            else:
+                w = torch.stack([decoded[f"{p}/expert{e}"]
+                                 for e in range(shape[0])])
+            out[p] = w
+        return out
+
+    def stats_by_expert(self) -> dict:
+        """Per-expert-store ECC counters: path -> counts + rule settings."""
+        out = {}
+        for p, rule, s in self.inner.store_leaves():
+            st = cim_lib.store_stats(s)
+            out[p] = {"corrected": int(st["corrected"]),
+                      "uncorrectable": int(st["uncorrectable"]),
+                      "protect": rule.protect, "ber_scale": rule.ber_scale}
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,18 @@
 """Continuous-batching CIM serving engine with per-request fault streams
-(port of ``repro/launch/engine.py``, single device, the ``attn`` kind).
+(port of ``repro/launch/engine.py``, single device, every block kind).
 
 It serves a stream of requests through a fixed decode batch of ``n_slots``
 slots over the deployment's serving params (packed stores, decoded copies or
 plain weights, plus the optional ``_cim`` per-read dynamic runtime):
 
 * **admit**: a queued request takes the lowest free slot; its prompt is
-  prefilled ``chunk`` tokens at a time into the slot's K/V rows, the ragged
-  tail padded only as far as ``max_len`` (pad rows stay causally masked
-  until later writes overwrite them). The last chunk's logits give the
-  first token (TTFT is taken here).
+  prefilled ``chunk`` tokens at a time into the slot's states, the ragged
+  tail padded only as far as ``max_len`` (pad K/V rows stay causally
+  masked until later writes overwrite them, ring kinds drop pad writes,
+  fold kinds mask pads out of the fold). The last chunk's logits give the
+  first token (TTFT is taken here). A ``window_bound`` kind (``local``)
+  clamps the chunk to its window: a ring of W slots takes at most W new
+  rows at once.
 * **decode**: one :meth:`LM.decode_slots` step advances every active slot at
   its own position.
 * **evict**: a slot that reaches its request's ``max_new`` (or the cache
@@ -23,10 +26,15 @@ up through the chunk), decode reads by request id
 the rest of a decode step is row-independent at the fixed ``n_slots``
 shape, so a request's tokens, logits and ECC charges are bitwise the same
 served alone (through an engine of the same ``n_slots``) or co-batched.
+The one boundary is capacity-coupled MoE dispatch: when
+:func:`lm.engine_capacity_coupled` holds at the engine's shape, co-batched
+tokens can evict each other from expert capacity, and the engine warns at
+construction, as the reference's does.
 
 **Prefix cache.** With a :class:`PrefixCache` attached, admission walks the
 prompt's full leading chunks through a hash-consed trie; a hit injects the
-cached K/V rows instead of prefilling, and replays the chunk's ECC charge
+cached state chunk (the K/V rows of ``'rows'`` kinds, the post-chunk state
+snapshot of ``'state'`` kinds) instead of prefilling, and replays the chunk's ECC charge
 from the same (leaf, content salt, position) chain, so a hit equals a cold
 prefill bitwise. The final chunk always runs (its logits are the first
 token). :meth:`Engine.refresh_params` invalidates the trie: cached state
@@ -51,12 +59,13 @@ scrubber (:mod:`repro_torch.launch.scrub`) ages and rewrites the image from:
 ``refresh_params(force=True)`` swaps the params with requests in flight and
 ``record_scrub`` logs a scrub. ``replica``, ``drain``, ``start`` and
 ``depth`` serve the fleet router (:mod:`repro_torch.launch.fleet`). The
-other block kinds wait for ROADMAP Queue 1 item 12.2, the mesh for item 14.
+mesh waits for ROADMAP Queue 1 item 14.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
 
@@ -317,7 +326,7 @@ class Engine:
                  check_finite: bool = True, prefix_cache=None,
                  replica: str = ""):
         cfg = model.cfg
-        lm.check_engine_kinds(cfg)
+        specs = lm.check_engine_kinds(cfg)
         if not (n_slots >= 1 and chunk >= 1 and max_len >= 2):
             raise ValueError(f"Engine: n_slots {n_slots}, chunk {chunk}, "
                              f"max_len {max_len}")
@@ -325,10 +334,24 @@ class Engine:
         self.params = dict(params or {})
         self._check_devices()
         self.cfg = cfg
-        # a chunk never writes past the cache ceiling (window-bound kinds,
-        # which also clamp it to their ring, wait with item 12.2)
+        # a chunk never writes past the cache ceiling, and a window-bound
+        # kind's chunk never past its ring (W slots take W new rows at most)
         self.n_slots, self.max_len = n_slots, max_len
         self.chunk = min(chunk, max_len)
+        if any(s.window_bound for s in specs):
+            self.chunk = min(self.chunk, cfg.local_window)
+        # capacity-coupled MoE dispatch at these shapes voids the bitwise
+        # solo-vs-co-batched guarantee (moe.drop_free draws the boundary)
+        self.capacity_coupled = lm.engine_capacity_coupled(
+            cfg, max(n_slots, self.chunk))
+        if self.capacity_coupled:
+            warnings.warn(
+                "engine: MoE dispatch is capacity-coupled at these shapes "
+                f"(n_slots={n_slots}, chunk={self.chunk}): co-batched tokens "
+                "may contend for expert capacity, voiding the bitwise "
+                "solo-vs-cobatched guarantee (fault streams stay "
+                "per-request). Raise capacity_factor or shrink the batch "
+                "until moe.drop_free holds to restore it.")
         self.collect_logits = collect_logits
         self.check_finite = check_finite
         self.replica = replica
@@ -501,7 +524,8 @@ class Engine:
 
     def _reset_slot(self, slot_idx: int) -> None:
         """Free a slot: the next admission prefills from row 0; stale rows
-        stay causally masked until overwritten."""
+        and ring slots stay masked until overwritten, and the first chunk
+        zeroes the fold states (``LM.prefill_chunk`` at ``pos == 0``)."""
         self.slots[slot_idx] = None
         self.caches["pos_host"][slot_idx] = 0
         self.caches["pos"][slot_idx] = 0

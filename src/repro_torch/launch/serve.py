@@ -16,9 +16,11 @@ served from the packed SRAM image:
 
 Runs on ``cuda`` unless ``--device cpu`` is given; with no card it raises.
 ``--arch`` takes the ported text configs: olmo-1b (default), granite-3-8b,
-codeqwen1.5-7b, command-r-35b and tinyvit-paper, lock-step, ``--engine``
-and ``--fleet``. A stub modality (internvl2-76b, musicgen-large) is refused,
-as the reference's launcher refuses it: serving is text-only.
+codeqwen1.5-7b, command-r-35b, tinyvit-paper, rwkv6-1.6b,
+recurrentgemma-9b, qwen3-moe-235b-a22b and dbrx-132b, lock-step,
+``--engine`` and ``--fleet``. A stub modality (internvl2-76b,
+musicgen-large) is refused, as the reference's launcher refuses it: serving
+is text-only.
 
 Seeds: weights come from ``torch.Generator(device).manual_seed(seed)``; the
 fault seeds from :func:`default_seeds`. Neither equals the reference
@@ -62,8 +64,17 @@ ECC match the routed run.
   python -m repro_torch.launch.serve --fleet 2 --cim --ber 1e-4 \\
       --inject dynamic --slots 4 --chunk 16 --requests 12 --probe 5
 
-``--mesh``, ``--rounds`` and ``--expert-cim`` wait (ROADMAP Queue 1 items
-12.2 and 14).
+``--expert-cim`` (MoE archs) deploys every expert's matrices as its own
+CIM store under the launcher's protection (static faults at ``--ber``,
+decoded once and restacked) before the embed/unembed deploy, and
+``--engine-json`` then records each expert store's ECC counts under
+``expert_ecc``:
+
+  python -m repro_torch.launch.serve --arch qwen3-moe-235b-a22b --reduced \\
+      --device cpu --expert-cim --cim --ber 1e-3 --engine --slots 2 \\
+      --chunk 8 --requests 4 --engine-json /tmp/e.json
+
+``--mesh`` and ``--rounds`` wait (ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -76,6 +87,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.core import cim as cim_lib
 from repro_torch.core import deployment as dep_lib
@@ -105,6 +117,49 @@ def serving_policy(*, protect: str, n_group: int, index: int,
         rules=(dataclasses.replace(rule, pattern="embed", row_cache=False),
                dataclasses.replace(rule, pattern="unembed", row_cache=True)),
         default=dep_lib.PolicyRule(deploy=False))
+
+
+def expert_serving_policy(*, protect: str, n_group: int, index: int,
+                          field: str = "full") -> dep_lib.ReliabilityPolicy:
+    """Per-expert MoE deployment policy (``--expert-cim``): every expert
+    store (``groups/blk0/moe/moe_win/g0/expert3`` and the like) takes the
+    launcher's protection, decoded once."""
+    return dep_lib.ReliabilityPolicy(rules=(), default=dep_lib.PolicyRule(
+        pattern="*", protect=protect, n_group=n_group, index=index,
+        field=field, serve_path="hbm"))
+
+
+def expert_seeds(seed: int, paths) -> dict:
+    """Static plane seeds of the expert stores ``paths`` (in their order):
+    ``np.random.SeedSequence([seed, 0x5EED, 2]).generate_state(3n)``, three
+    words (man, meta, cw) a store."""
+    w = [int(v) for v in np.random.SeedSequence(
+        [int(seed), _SEED_SALT, 2]).generate_state(3 * len(paths), np.uint32)]
+    return {p: {"man": w[3 * i], "meta": w[3 * i + 1], "cw": w[3 * i + 2]}
+            for i, p in enumerate(paths)}
+
+
+def expert_deploy(leaves, *, ber: float, protect: str, n_group: int,
+                  index: int, field: str = "full", seed: int = 0,
+                  seeds=None, fault_model: str = "", verbose: bool = True):
+    """``--expert-cim``: deploy the stacked expert leaves (reference layout,
+    :func:`convert.expert_leaves`) one store an expert, inject static faults
+    at ``ber`` (``seeds`` per store, default :func:`expert_seeds`) ->
+    (the :class:`ExpertDeployment`, its restacked serving leaves)."""
+    edep = dep_lib.ExpertDeployment.deploy(leaves, expert_serving_policy(
+        protect=protect, n_group=n_group, index=index, field=field))
+    if ber > 0:
+        paths = [p for p, _, _ in edep.inner.store_leaves()]
+        edep = edep.inject(seeds or expert_seeds(seed, paths), ber,
+                           model=fault_model or None)
+    restacked = edep.serving_params()
+    if verbose:
+        est = edep.stats_by_expert()
+        print(f"expert CIM deploy: {len(est)} per-expert stores "
+              f"(protect={protect} ber={ber:.1e}), corrected="
+              f"{sum(v['corrected'] for v in est.values())} uncorrectable="
+              f"{sum(v['uncorrectable'] for v in est.values())}")
+    return edep, restacked
 
 
 def default_seeds(seed: int, paths=()):
@@ -193,9 +248,11 @@ def build_params(model: LM, *, seed: int = 0, cim: bool = False,
                  index: int = 2, serve_path: str = "fused",
                  inject: str = "static", field: str = "full",
                  static_seeds=None, dynamic_seeds=None, fault_model: str = "",
-                 verbose: bool = True):
+                 extra=None, verbose: bool = True):
     """The serving params of a launch -> (params or None for the model's own
-    weights, ECC counts of the deployed image, fused report or None)."""
+    weights, ECC counts of the deployed image, fused report or None).
+    ``extra`` (reference-layout leaves, e.g. :func:`expert_deploy`'s
+    restacked experts) rides in the params."""
     dep_lib.check_enum("serve_path", serve_path, dep_lib.VALID_SERVE_PATHS,
                        "serve")
     dep_lib.check_enum("inject", inject, dep_lib.VALID_INJECTS, "serve")
@@ -232,6 +289,8 @@ def build_params(model: LM, *, seed: int = 0, cim: bool = False,
                 print(f"CIM deploy (hbm): protect={protect} ber={ber:.1e} "
                       f"corrected={ecc['corrected']} "
                       f"uncorrectable={ecc['uncorrectable']}")
+    if extra:
+        params = {**extra, **(params or {})}
     return params, ecc, report
 
 
@@ -240,7 +299,7 @@ def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
           protect: str = "one4n", n_group: int = 8, index: int = 2,
           serve_path: str = "fused", inject: str = "static",
           field: str = "full", static_seeds=None, dynamic_seeds=None,
-          fault_model: str = "", verbose: bool = True) -> dict:
+          fault_model: str = "", extra=None, verbose: bool = True) -> dict:
     """Lock-step serve of one MarkovLM batch. Returns the generated tokens
     [B, gen], the prefill logits, ECC counts, timings and the kernel launches
     of the run. ``fault_model`` (grammar string) shapes the static
@@ -251,7 +310,7 @@ def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
         model, seed=seed, cim=cim, ber=ber, protect=protect, n_group=n_group,
         index=index, serve_path=serve_path, inject=inject, field=field,
         static_seeds=static_seeds, dynamic_seeds=dynamic_seeds,
-        fault_model=fault_model, verbose=verbose)
+        fault_model=fault_model, extra=extra, verbose=verbose)
 
     data = MarkovLM(cfg.vocab_size, prompt_len, batch, seed=seed)
     prompts = torch.as_tensor(data.batch(0)["tokens"], dtype=torch.int64,
@@ -518,6 +577,10 @@ def main(argv=None):
                          "restored per replica)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="fleet: no per-replica prefix cache")
+    ap.add_argument("--expert-cim", action="store_true",
+                    help="MoE archs: deploy every expert's matrices as its "
+                         "own per-expert CIM store (static faults, decode-"
+                         "once restack; per-expert ECC in the artifact)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -526,6 +589,16 @@ def main(argv=None):
     check_text(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = LM(cfg, generator=gen, device=device)
+    args.edep = None
+    if args.expert_cim:
+        # runs before the embed/unembed deploy, as the reference's launcher:
+        # the serving params carry the experts the macros would serve
+        args.edep, args.extra = expert_deploy(
+            convert.expert_leaves(model), ber=args.ber, protect=args.protect,
+            n_group=args.n_group, index=args.index, field=args.field,
+            seed=args.seed, fault_model=args.fault_model)
+    else:
+        args.extra = None
     if args.fleet > 0:
         return _main_fleet(args, model)
     if args.engine:
@@ -534,7 +607,8 @@ def main(argv=None):
                  gen=args.gen, seed=args.seed, cim=args.cim, ber=args.ber,
                  protect=args.protect, n_group=args.n_group, index=args.index,
                  serve_path=args.serve_path, inject=args.inject,
-                 field=args.field, fault_model=args.fault_model)
+                 field=args.field, fault_model=args.fault_model,
+                 extra=args.extra)
 
 
 
@@ -544,6 +618,9 @@ def _scrubber(args, model: LM):
     if not (args.cim or args.ber > 0) or args.serve_path != "fused":
         raise ValueError("--scrub needs the fused CIM serve path "
                          "(--cim --serve-path fused)")
+    if args.expert_cim:
+        raise ValueError("--scrub rewrites the embed/unembed image; with "
+                         "--expert-cim it is not ported")
     static, dynamic = default_seeds(args.seed)
     dep = make_deployment(model.cim_leaves(), ber=args.ber,
                           protect=args.protect, n_group=args.n_group,
@@ -569,6 +646,8 @@ def _write_json(args, keys, agg, probe, results) -> None:
     os.makedirs(os.path.dirname(args.engine_json) or ".", exist_ok=True)
     payload = {"config": {k: getattr(args, k) for k in keys},
                "aggregate": agg, "probe": probe,
+               "expert_ecc": (args.edep.stats_by_expert()
+                              if args.edep is not None else None),
                "requests": [results[r].to_json() for r in sorted(results)]}
     with open(args.engine_json, "w") as f:
         json.dump(payload, f, indent=2)
@@ -577,7 +656,7 @@ def _write_json(args, keys, agg, probe, results) -> None:
 
 _JSON_KEYS = ("arch", "reduced", "slots", "chunk", "max_len", "requests",
               "rate", "ber", "protect", "inject", "serve_path", "seed",
-              "fault_model", "shared_prefix", "device")
+              "fault_model", "shared_prefix", "device", "expert_cim")
 
 
 def _main_engine(args, model: LM):
@@ -591,7 +670,7 @@ def _main_engine(args, model: LM):
             model, seed=args.seed, cim=args.cim, ber=args.ber,
             protect=args.protect, n_group=args.n_group, index=args.index,
             serve_path=args.serve_path, inject=args.inject, field=args.field,
-            fault_model=args.fault_model)
+            fault_model=args.fault_model, extra=args.extra)
     results, agg, probe = serve_engine(
         model, params, slots=args.slots, chunk=args.chunk,
         max_len=args.max_len, requests=args.requests, rate=args.rate,
@@ -613,7 +692,7 @@ def _main_fleet(args, model: LM):
         model, seed=args.seed, cim=args.cim, ber=args.ber,
         protect=args.protect, n_group=args.n_group, index=args.index,
         serve_path=args.serve_path, inject=args.inject, field=args.field,
-        fault_model=args.fault_model)
+        fault_model=args.fault_model, extra=args.extra)
     results, agg, probe = serve_fleet(
         model, params, fleet=args.fleet, slots=args.slots, chunk=args.chunk,
         max_len=args.max_len, requests=args.requests, rate=args.rate,

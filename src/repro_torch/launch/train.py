@@ -23,7 +23,9 @@ saves the state (and the data cursor) every ``--checkpoint-every`` steps
 and at the end; a run pointed at a directory that holds a checkpoint
 resumes from its latest step and consumes the batches the interrupted run
 would have. ``--grad-compression`` compresses the gradient to int8 with
-error feedback. The other block kinds wait (ROADMAP Queue 1 item 12.2).
+error feedback. The other block kinds (rwkv6-1.6b, recurrentgemma-9b,
+qwen3-moe-235b-a22b, dbrx-132b) serve but do not train yet: ``--arch`` with
+one of them raises NotImplementedError (ROADMAP Queue 1 item 12.3).
 """
 from __future__ import annotations
 

@@ -1,17 +1,21 @@
-"""GQA attention: short-prefill and cached decode (port of
-``repro/models/attention.py``, the ``attn_impl='cp'`` path at
-``s <= attn_chunk_threshold``).
+"""GQA attention: full, local-window and query-chunked prefill, cached
+decode and the local-window ring (port of ``repro/models/attention.py``,
+the ``attn_impl='cp'`` path; above ``attn_chunk_threshold`` the query axis
+runs in chunks of ``attn_chunk_q``, as the reference's ``_q_chunked``).
 
 Written as plain einsum + softmax rather than a fused attention call, so the
-parity suite compares like with like against the reference. Query-chunked
-prefill and the local-window ring wait (ROADMAP Queue 1 item 12.2).
+parity suite compares like with like against the reference. The int8 K/V
+cache (``kv_cache_dtype``) waits (ROADMAP Queue 1).
 """
 from __future__ import annotations
+
+from typing import Mapping
 
 import torch
 from torch import nn
 
-from repro_torch.models.common import apply_rope, dense_init, rope_frequencies
+from repro_torch.models.common import (Leaves, apply_rope, dense_init,
+                                       rope_frequencies)
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps fully-masked rows NaN-free
 
@@ -25,9 +29,40 @@ def _attend(q, k, v, mask):
     return torch.einsum("bkgst,btkh->bskgh", probs, v)
 
 
-def _causal_mask(q_pos, k_pos):
-    """[..., S, T] boolean."""
-    return q_pos[..., :, None] >= k_pos[..., None, :]
+def _attend_mha(q, k, v, mask):
+    """q/k/v [B,S|T,H,hd] (kv expanded), mask broadcast to [B,H,S,T]."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bshd,bthd->bhst", q, k) * scale
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
+
+
+def _expand_kv(k, g: int):
+    """[B,T,K,hd] -> [B,T,K*g,hd] (each kv head repeated over its q group)."""
+    return k if g == 1 else k.repeat_interleave(g, dim=2)
+
+
+def _causal_mask(q_pos, k_pos, window: int = 0):
+    """[..., S, T] boolean; a local-window band when ``window`` > 0."""
+    m = q_pos[..., :, None] >= k_pos[..., None, :]
+    if window > 0:
+        m = m & ((q_pos[..., :, None] - k_pos[..., None, :]) < window)
+    return m
+
+
+def _q_chunked(q, k, v, positions, window: int, chunk: int):
+    """Query chunks in turn; logits bounded to [B,H,chunk,T]. q/k/v
+    [B,S,H,hd] (kv expanded)."""
+    s = q.shape[1]
+    if s % chunk:
+        raise ValueError(f"seq {s} must divide the q-chunk size {chunk}")
+    outs = []
+    for c0 in range(0, s, chunk):
+        mask = _causal_mask(positions[0, c0:c0 + chunk], positions[0],
+                            window)[None, None]
+        outs.append(_attend_mha(q[:, c0:c0 + chunk], k, v, mask))
+    return torch.cat(outs, dim=1)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, *, device=None, dtype=None):
@@ -37,8 +72,21 @@ def init_kv_cache(cfg, batch: int, max_len: int, *, device=None, dtype=None):
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
-class Attention(nn.Module):
-    """wq/wk/wv/wo in the reference's [in, out] layout (``x @ w``)."""
+def init_local_cache(cfg, batch: int, window: int, *, device=None,
+                     dtype=None):
+    """Rolling-window ring for local attention: O(window) rows whatever the
+    decode length; ring slot ``pos % window`` is overwritten and each slot's
+    absolute position (``-1``: empty) drives the mask."""
+    ring = init_kv_cache(cfg, batch, window, device=device, dtype=dtype)
+    ring["pos"] = torch.full((batch, window), -1, dtype=torch.int64,
+                             device=device)
+    return ring
+
+
+class Attention(Leaves):
+    """wq/wk/wv/wo in the reference's [in, out] layout (``x @ w``). Every
+    method takes ``over``, leaves that replace the module's own for the
+    call (:class:`~repro_torch.models.common.Leaves`)."""
 
     def __init__(self, cfg, *, generator=None, device=None):
         super().__init__()
@@ -50,32 +98,40 @@ class Attention(nn.Module):
         self.wv = nn.Parameter(dense_init((d, k * hd), **kw))
         self.wo = nn.Parameter(dense_init((h * hd, d), **kw))
 
-    def project_qkv(self, x, positions):
+    def project_qkv(self, x, positions, over: Mapping = {}):
         cfg = self.cfg
         b, s, _ = x.shape
         h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
         dt = cfg.cdtype()
-        q = (x @ self.wq.to(dt)).reshape(b, s, h, hd)
-        kk = (x @ self.wk.to(dt)).reshape(b, s, k, hd)
-        vv = (x @ self.wv.to(dt)).reshape(b, s, k, hd)
+        q = (x @ self.w("wq", over).to(dt)).reshape(b, s, h, hd)
+        kk = (x @ self.w("wk", over).to(dt)).reshape(b, s, k, hd)
+        vv = (x @ self.w("wv", over).to(dt)).reshape(b, s, k, hd)
         sin, cos = rope_frequencies(hd, cfg.rope_theta, positions)
         return apply_rope(q, sin, cos), apply_rope(kk, sin, cos), vv
 
-    def full(self, x, positions):
-        """Prefill: x [B,S,D] -> (out [B,S,D], k, v) — k/v seed the cache."""
+    def _out(self, out, x, over):
+        b, s = out.shape[:2]
+        return out.reshape(b, s, -1) @ self.w("wo", over).to(x.dtype)
+
+    def full(self, x, positions, window: int = 0, over: Mapping = {}):
+        """Prefill: x [B,S,D] -> (out [B,S,D], k, v); k/v seed the cache.
+        ``window`` > 0 bands the mask (local attention); above
+        ``attn_chunk_threshold`` the queries run in chunks."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        q, k, v = self.project_qkv(x, positions, over)
         if s > cfg.attn_chunk_threshold:
-            raise NotImplementedError(
-                "query-chunked prefill waits (ROADMAP Queue 1 item 12.2)")
-        q, k, v = self.project_qkv(x, positions)
-        q = q.reshape(b, s, kh, h // kh, hd)
-        mask = _causal_mask(positions[0], positions[0])[None, None, None]
-        out = _attend(q, k, v, mask).reshape(b, s, h * hd)
-        return out @ self.wo.to(x.dtype), k, v
+            out = _q_chunked(q, _expand_kv(k, h // kh), _expand_kv(v, h // kh),
+                             positions, window, cfg.attn_chunk_q)
+        else:
+            q = q.reshape(b, s, kh, h // kh, hd)
+            mask = _causal_mask(positions[0], positions[0],
+                                window)[None, None, None]
+            out = _attend(q, k, v, mask)
+        return self._out(out, x, over), k, v
 
-    def decode(self, x, cache, pos):
+    def decode(self, x, cache, pos, over: Mapping = {}):
         """Cache-append decode: x [B,S,D] -> (out [B,S,D], cache), the cache
         updated in place (a view's base included). ``pos`` is the number of
         tokens already cached: a [B] int64 tensor (continuous batching:
@@ -89,11 +145,8 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-        if not isinstance(pos, torch.Tensor):
-            pos = torch.full((b,), pos, dtype=torch.int64, device=x.device)
-        positions = pos[:, None] + torch.arange(s, dtype=torch.int64,
-                                                device=x.device)
-        q, k_new, v_new = self.project_qkv(x, positions)
+        positions = _positions(pos, b, s, x.device)
+        q, k_new, v_new = self.project_qkv(x, positions, over)
         q = q.reshape(b, s, kh, h // kh, hd)
         rows = torch.arange(b, device=x.device)[:, None]
         cache["k"][rows, positions] = k_new.to(cache["k"].dtype)
@@ -102,4 +155,44 @@ class Attention(nn.Module):
         k_pos = torch.arange(t, dtype=torch.int64, device=x.device)[None]
         mask = _causal_mask(positions, k_pos)[:, None, None]
         out = _attend(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask)
-        return out.reshape(b, s, h * hd) @ self.wo.to(x.dtype), cache
+        return self._out(out, x, over), cache
+
+    def advance_local(self, x, ring, pos, length=None, over: Mapping = {}):
+        """Local attention against the rolling ring, in place: x [B,S,D] at
+        offset ``pos`` (an int or a [B] tensor; S = 1 is a decode step, S > 1
+        one prompt chunk whose first ``length`` tokens are valid). Valid rows
+        scatter into ring slots ``(pos + i) % W``; pad rows are dropped, so
+        they never clobber a slot an earlier query's window still needs. S
+        must not exceed the ring (the engine clamps its chunk to the
+        window). Output rows past ``length`` are garbage the caller
+        ignores."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        w = ring["k"].shape[1]
+        if s > w:
+            raise ValueError(f"chunk {s} exceeds the local ring ({w} slots)")
+        length = s if length is None else int(length)
+        positions = _positions(pos, b, s, x.device)
+        q, k_new, v_new = self.project_qkv(x, positions, over)
+        q = q.reshape(b, s, kh, h // kh, hd)
+        pv = positions[:, :length]
+        rows = torch.arange(b, device=x.device)[:, None]
+        slots = torch.remainder(pv, w)
+        ring["k"][rows, slots] = k_new[:, :length].to(ring["k"].dtype)
+        ring["v"][rows, slots] = v_new[:, :length].to(ring["v"].dtype)
+        ring["pos"][rows, slots] = pv
+        cpos = ring["pos"][:, None, :]                         # [B,1,W]
+        qp = positions[:, :, None]                             # [B,S,1]
+        valid = (cpos >= 0) & (cpos <= qp) & ((qp - cpos) < cfg.local_window)
+        out = _attend(q, ring["k"].to(q.dtype), ring["v"].to(q.dtype),
+                      valid[:, None, None])
+        return self._out(out, x, over), ring
+
+
+def _positions(pos, b: int, s: int, device) -> torch.Tensor:
+    """[B, S] absolute positions of S new tokens at offset ``pos`` (an int,
+    every row's, or a [B] tensor)."""
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((b,), int(pos), dtype=torch.int64, device=device)
+    return pos[:, None] + torch.arange(s, dtype=torch.int64, device=device)

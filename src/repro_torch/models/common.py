@@ -2,8 +2,21 @@
 from __future__ import annotations
 
 import math
+from typing import Mapping
 
 import torch
+from torch import nn
+
+
+class Leaves(nn.Module):
+    """A module whose compute methods take ``over``, a ``{name: tensor}``
+    mapping of leaves that replace its own parameters for one call: how a
+    serving dict's decoded leaves (the hbm path) and a reference-layout tree
+    (:func:`repro_torch.models.lm.forward`) reach the layer without copying
+    into it."""
+
+    def w(self, name: str, over: Mapping = {}) -> torch.Tensor:
+        return over[name] if name in over else getattr(self, name)
 
 
 def dense_init(shape, *, generator=None, device=None, dtype=torch.float32):
@@ -57,6 +70,18 @@ def apply_norm(norm_type: str, params, x):
 # The parameters each norm_type holds, in flatten order.
 NORM_LEAVES = {"rmsnorm": ("scale",), "layernorm": ("bias", "scale"),
                "nonparametric_ln": ()}
+
+# The leaves the models initialise to a constant (the norms, RWKV's lerps,
+# group-norm scale, bonus and decay base, RG-LRU's gates and conv bias), each
+# with the (scale, mean) of the normal draw that parity tests and the card's
+# smoke run put in their place, so that every leaf carries a signal; the
+# decay base spread over [-9, 3] passes the decay clamp at both ends.
+CONSTANT_LEAF_DRAWS = {
+    "scale": (0.5, 0.0), "bias": (0.1, 0.0), "ts_mu0": (0.3, 0.0),
+    "ts_mu": (0.3, 0.0), "mix_k": (0.3, 0.5), "mix_r": (0.3, 0.5),
+    "gn_scale": (0.3, 1.0), "bonus_u": (0.1, 0.0), "decay_w0": (2.0, -3.0),
+    "rg_wa": (0.5, 0.0), "rg_ba": (0.5, 0.0), "rg_wi": (0.5, 0.0),
+    "rg_bi": (0.5, 0.0), "conv_b": (0.1, 0.0)}
 
 
 def init_norm(norm_type: str, d: int, *, device=None,

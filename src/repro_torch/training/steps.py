@@ -44,6 +44,7 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
     and frozen when the run's reliability is on and ``freeze_exponents``;
     with ``grad_compression`` a zero float32 error-feedback residual per
     leaf."""
+    lm.check_trainable(cfg)
     if params is None:
         from repro_torch import convert
         model = lm.LM(cfg, generator=generator, device=device)
@@ -72,6 +73,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
     ``grad_norm``, ``lr``, ``aux_loss``, and ``exp_penalty`` with the
     regularizer). A state with ``ef_error`` compresses its clipped gradient
     (int8 with error feedback) before AdamW."""
+    lm.check_trainable(cfg)
     rel = run.rel
     project = rel.enabled() and run.freeze_exponents
     reg_policy = rel.policy if run.exp_reg_coef > 0 else None

@@ -280,8 +280,12 @@ def test_batches_for_has_the_reference_structure(arch):
 
 
 def test_init_norm_and_block_kinds_that_wait():
-    """Fresh norms are zeros, as the reference's ``init_norm``; the block
-    kinds beyond ``attn`` still raise, citing ROADMAP item 12.2."""
+    """Fresh norms are zeros, as the reference's ``init_norm``. Every block
+    kind builds, its slot-state spec equal to the reference's field by
+    field; what still waits is training the kinds beyond ``attn``, which
+    raises citing ROADMAP item 12.3 (the step, the state and the
+    launcher), and an unknown MLP type raises."""
+    from repro.models import lm as jl
     from repro.models.common import init_norm as j_init_norm
     from repro_torch.models.common import init_norm
     for nt in ("rmsnorm", "layernorm", "nonparametric_ln"):
@@ -289,14 +293,25 @@ def test_init_norm_and_block_kinds_that_wait():
         assert set(j) == set(t)
         assert all(not v.any() and v.shape == (8,) for v in t.values())
     cfg = get_config("granite-3-8b").reduced()
+    assert set(t_lm.SLOT_STATE_SPECS) == set(jl.SLOT_STATE_SPECS)
+    for kind, j in jl.SLOT_STATE_SPECS.items():
+        assert dataclasses.asdict(t_lm.slot_state_spec(kind)) == \
+            dataclasses.asdict(j), kind
     for pattern in (("rwkv",), ("rec", "rec", "local"), ("moe",)):
-        with pytest.raises(NotImplementedError, match=r"item 12\.2"):
-            t_lm.LM(dataclasses.replace(cfg, block_pattern=pattern),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 12\.2"):
-        MLP(dataclasses.replace(cfg, mlp_type="rwkv_cmix"), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 12\.2"):
-        t_lm.slot_state_spec("rwkv")
+        c = dataclasses.replace(cfg, block_pattern=pattern, n_experts=4,
+                                top_k=2, d_ff_expert=64, local_window=8)
+        model = t_lm.LM(c, device="cpu")
+        assert [b.kind for b in model.blocks] == \
+            [pattern[i % len(pattern)] for i in range(c.n_layers)]
+        with pytest.raises(NotImplementedError, match=r"item 12\.3"):
+            t_steps.make_train_step(c, RunConfig())
+        with pytest.raises(NotImplementedError, match=r"item 12\.3"):
+            t_steps.init_train_state(None, c, RunConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 12\.3"):
+        t_train.main(["--arch", "rwkv6-1.6b", "--reduced", "--steps", "1",
+                      "--device", "cpu"])
+    with pytest.raises(ValueError, match="mlp_type"):
+        MLP(dataclasses.replace(cfg, mlp_type="relu"), device="cpu")
 
 
 @pytest.mark.parametrize("arch", ("musicgen-large", "internvl2-76b"))

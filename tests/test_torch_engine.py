@@ -134,8 +134,10 @@ def _reference_seeds(params, dkey, serve_path, protect):
     return static, dynamic
 
 
-def _jax_serving_params(params, dkey, path, protect, inject, fault_model):
-    """The reference launcher's serving params of one arm, compiled once."""
+def _jax_serving_params(params, dkey, path, protect, inject, fault_model,
+                        compiler_options=None):
+    """The reference launcher's serving params of one arm, compiled once
+    (with XLA's ``compiler_options``, if given)."""
     def build(p, k):
         if path == "hbm":
             return j_serve.deploy(p, ber=BER, protect=protect, n_group=8,
@@ -146,11 +148,11 @@ def _jax_serving_params(params, dkey, path, protect, inject, fault_model):
         return dep.serving_params(**j_serve.serving_kw(
             ber=BER, key=k, inject_mode=inject, field="full",
             fault_model=fault_model))
-    return jax.jit(build)(params, dkey)
+    return jax.jit(build, compiler_options=compiler_options)(params, dkey)
 
 
 @contextlib.contextmanager
-def _reference_compiled_by_parts(jcfg):
+def _reference_compiled_by_parts(jcfg, compiler_options=None):
     """Run the reference engine with its steps unjitted and their heavy
     parts under ``jax.jit``: the block stack (one program for every arm,
     since no arm deploys a block weight), the row-gather read, the fused
@@ -160,12 +162,15 @@ def _reference_compiled_by_parts(jcfg):
     its reads once instead of once per step program, every slot's read
     included; the arithmetic is the reference's own. Everything is
     restored on exit, with the engine's step cache, so no other test sees
-    a function or program traced here."""
+    a function or program traced here. ``compiler_options`` go to XLA with
+    each of these programs."""
     real = (j_lm._decode_stack, j_cim.read_rows, j_cim.store_stats,
             j_cr_ops.cim_linear_store)
     saved = dict(j_engine._STEP_CACHE)
 
-    @functools.partial(jax.jit, static_argnums=0)
+    jit = functools.partial(jax.jit, compiler_options=compiler_options)
+
+    @functools.partial(jit, static_argnums=0)
     def stack(cfg, blocks, caches, x, pos, length):
         return real[0](blocks, cfg, caches, x, pos, length=length)
 
@@ -173,9 +178,9 @@ def _reference_compiled_by_parts(jcfg):
         blocks = {k: params[k] for k in ("groups", "tail", "final_norm")}
         return stack(cfg, blocks, caches, x, pos, length)
     j_lm._decode_stack = decode_stack
-    j_cim.read_rows = jax.jit(real[1])
-    j_cim.store_stats = jax.jit(real[2])
-    j_cr_ops.cim_linear_store = jax.jit(
+    j_cim.read_rows = jit(real[1])
+    j_cim.store_stats = jax.jit(real[2])    # nested in the engine's own jit
+    j_cr_ops.cim_linear_store = jit(
         functools.partial(real[3], use_kernel=False),
         static_argnames=("with_info",))
     j_engine._STEP_CACHE[jcfg, None] = (
@@ -597,9 +602,13 @@ def test_check_finite_records_and_raises(port, monkeypatch):
 def test_guards(port, monkeypatch):
     model, params = port
     cfg = model.cfg
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_lm.check_engine_kinds(dataclasses.replace(cfg,
-                                                    block_pattern=("rwkv",)))
+    from repro_torch.models import moe as t_moe
+    rwkv = get_config("rwkv6-1.6b").reduced()
+    assert t_lm.check_engine_kinds(rwkv) == (t_lm.SLOT_STATE_SPECS["rwkv"],)
+    moe = get_config("qwen3-moe-235b-a22b").reduced()
+    assert t_moe.dispatch(moe) == "sort"        # a2a without a mesh
+    with pytest.raises(NotImplementedError, match=r"item 14"):
+        t_moe.dispatch(moe, mesh=object())
     with pytest.raises(ValueError, match="allowed"):
         t_lm.slot_state_spec("conv")
     with pytest.raises(ValueError, match="allowed"):
