@@ -208,11 +208,35 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    ``ExpertDeployment`` on reduced qwen3-moe at static BER 1e-3: its
    ``stats_by_expert`` on the card equal to the CPU's, the served tokens
    equal.
+14. training every block kind, then the co-design loop, after rwkv6 is
+   freed: (a) full-width rwkv6-1.6b trains 4 aligned steps at 8 x 128
+   through run_training with phase 8's one4n rule (at batch 4 if batch 8
+   runs out of memory, said so), losses and grad norms finite, aux_loss
+   0, each step's ms and the peak; then reduced rwkv6, recurrentgemma (5
+   layers), qwen3-moe and a local-window olmo-1b take one aligned step
+   from one state (constant leaves drawn) on the card and on the CPU:
+   losses, grad norms and aux losses within 1e-4 relative (the MoE's
+   nonzero), parameters within one fp16 ulp. (b) Full-width olmo-1b
+   through the Finetuner (2 reshape steps with the exponent regularizer, 2
+   aligned steps under the Fig. 7 schedule at BER 1e-4): losses finite,
+   ``exp_penalty`` in stage 1, ``ecc_stats``; K4's launches, reset just
+   before and read just after, equal drawn leaves x fields x counter
+   chunks a step; step 0's schedule alone: each field's flips over the
+   whole tree within 5 sigma of the binomial mean (exponent/sign at
+   ``residual_exp_ber``), a second draw from the seed equal bitwise, its
+   wall time beside the steps' and K4 timed at a full counter chunk; then
+   ``PolicySearch.select`` of uniform One4N against One4N on the
+   embeddings only at BER 1e-3, 2 trials, greedy accuracy over two
+   MarkovLM batches: one K3 launch a store plane, reset before and read
+   after; then ``PolicySearch.search`` over two groups on reduced
+   olmo-1b: the card's trace equal to the CPU's move for move. The
+   phase's wall time and peak by part.
 
-Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 12, 13, 7. Prints the card's name and power
-limit, then one ``{"kernels": [...]}`` line (each K1/K2 row carries its
-granite figures under ``"granite"`` and its rwkv6 figures under
-``"rwkv6"``), and as its last line
+Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 12, 13, 14, 7. Prints the
+card's name and power limit, then one ``{"kernels": [...]}`` line (each
+K1/K2 row carries its granite figures under ``"granite"`` and its rwkv6
+figures under ``"rwkv6"``; K3's and K4's rows their co-design path's
+launches and times under ``"codesign"``), and as its last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2172,10 +2196,14 @@ def _fp16_ulps(a, b):
             - b.cpu().to(torch.float16).view(torch.int16).to(torch.int32)).abs()
 
 
-def _check_frozen(state) -> int:
+def _check_frozen(state, zero_blocks: bool = False, tag: str = "phase 8"
+                  ) -> int:
     """Every aligned leaf's weights carry their block's frozen exponent and
     their frozen sign, bitwise; one leaf at a time. Returns the weights
-    checked."""
+    checked. With ``zero_blocks``, a block frozen at exponent 0 (a block of
+    zeros: the projection clamps it into [0, 2^-14], past exponent 0, in
+    the reference too) and a weight frozen at sign 0 are not held to them;
+    without it, none may occur."""
     import torch
     from repro_torch.core import align, bitops
     n = 0
@@ -2187,11 +2215,17 @@ def _check_frozen(state) -> int:
             ew = bitops.biased_exponent(w)
             blocks, _ = align._block_view(ew, N_GROUP, w.ndim - 2)
             frozen = torch.movedim(e, w.ndim - 2, 0).to(torch.int64)
-            _check(bool((blocks == frozen[:, None]).all()),
-                   f"phase 8: {path} left its frozen block exponents")
-            del ew, blocks
-            _check(torch.equal(torch.sign(w).to(torch.int8), state.signs[path]),
-                   f"phase 8: {path} left its frozen signs")
+            ok = blocks == frozen[:, None]
+            if zero_blocks:
+                ok |= frozen[:, None] == 0
+            _check(bool(ok.all()),
+                   f"{tag}: {path} left its frozen block exponents")
+            del ew, blocks, ok
+            signs = state.signs[path]
+            ok = torch.sign(w).to(torch.int8) == signs
+            if zero_blocks:
+                ok |= signs == 0
+            _check(bool(ok.all()), f"{tag}: {path} left its frozen signs")
             n += w.numel()
     return n
 
@@ -2254,6 +2288,20 @@ def phase_train(dev):
     return trained
 
 
+def _moved_state(state, dev):
+    """A training state's copy on ``dev`` (the step count stays on the
+    host, where the lr schedule reads it)."""
+    from repro_torch.training import steps
+
+    def moved(t):
+        return {k: None if v is None else v.to(dev) for k, v in t.items()}
+    return steps.TrainState(
+        moved(state.params),
+        {"m": moved(state.opt["m"]), "v": moved(state.opt["v"]),
+         "step": state.opt["step"].clone()},
+        moved(state.exps), moved(state.signs))
+
+
 def _reduced_train_card_vs_cpu(dev) -> None:
     import numpy as np
     import torch
@@ -2267,14 +2315,7 @@ def _reduced_train_card_vs_cpu(dev) -> None:
                           warmup_steps=1)
     cpu_state = steps.init_train_state(torch.Generator().manual_seed(1), cfg,
                                        run, device="cpu")
-
-    def moved(t):
-        return {k: None if v is None else v.to(dev) for k, v in t.items()}
-    card_state = steps.TrainState(
-        moved(cpu_state.params),
-        {"m": moved(cpu_state.opt["m"]), "v": moved(cpu_state.opt["v"]),
-         "step": cpu_state.opt["step"].clone()},
-        moved(cpu_state.exps), moved(cpu_state.signs))
+    card_state = _moved_state(cpu_state, dev)
     runs = {}
     for name, state in (("card", card_state), ("cpu", cpu_state)):
         runs[name] = loop.run_training(cfg, run, iter(MarkovLM(
@@ -3067,6 +3108,518 @@ def phase_granite(dev, kernel_lib, card: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------- phase 14
+
+CODESIGN_BER, SEARCH_BER = 1e-4, 1e-3     # the Finetuner's, the search's SLO
+TRAIN_KIND_FAMILIES = (  # (label, arch, config overrides), reduced
+    ("rwkv", "rwkv6-1.6b", {}),
+    ("rec", "recurrentgemma-9b", dict(n_layers=5)),
+    ("moe", "qwen3-moe-235b-a22b", {}),
+    ("local", "olmo-1b", dict(block_pattern=("local",), local_window=16)))
+FLIP_SIGMAS = 5
+B1 = 0.9                # AdamW's b1 (optim/adamw.py)
+GRAD_FLOOR = 1e-6       # 100x AdamW's eps: the first update is lr * sign(g)
+
+
+def _train_full_kind(dev, card: str) -> dict:
+    """(a) Full-width rwkv6-1.6b: TRAIN_STEPS aligned steps through
+    run_training (phase 8's one4n align rule) at TRAIN_BATCH x TRAIN_SEQ,
+    or at half the batch if that does not fit."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.models import lm
+    from repro_torch.training import loop
+    cfg = get_config(RWKV)
+    run = _align_rule_run(TRAIN_STEPS)
+    res, batch = None, TRAIN_BATCH
+    while res is None:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            res = loop.run_training(cfg, run, iter(MarkovLM(
+                cfg.vocab_size, TRAIN_SEQ, batch, seed=0)), device=dev)
+        except torch.cuda.OutOfMemoryError:
+            _check(batch > TRAIN_BATCH // 2, f"phase 14: {RWKV} training "
+                   f"does not fit at batch {batch} either")
+            print(f"phase 14: {RWKV} training at batch {batch} x "
+                  f"{TRAIN_SEQ} ran out of device memory; batch "
+                  f"{batch // 2}")
+            batch //= 2
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = res.history
+    _check(len(hist) == TRAIN_STEPS and all(
+        math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+        for h in hist), f"phase 14: {RWKV} losses "
+        f"{[(h['loss'], h['grad_norm']) for h in hist]}")
+    _check(all(h["aux_loss"] == 0.0 for h in hist),
+           f"phase 14: {RWKV} aux_loss {[h['aux_loss'] for h in hist]}")
+    for h in hist:
+        print(f"phase 14: {RWKV} step {h['step']}: loss {h['loss']:.4f} "
+              f"grad_norm {h['grad_norm']:.4f} lr {h['lr']:.3e} "
+              f"{h['step_time'] * 1e3:.1f} ms")
+    rest = [h["step_time"] * 1e3 for h in hist[1:]]
+    checked = _check_frozen(res.state, zero_blocks=True, tag="phase 14")
+    print(f"phase 14: {RWKV} full width ({lm.param_count(res.state.params) / 1e9:.3f}"
+          f" B parameters), {TRAIN_STEPS} aligned steps at {batch} x "
+          f"{TRAIN_SEQ}: step ms first {hist[0]['step_time'] * 1e3:.1f}, then "
+          f"median {float(np.median(rest)):.1f} (after a synchronize); peak "
+          f"device memory {peak:.2f} GiB (max_memory_allocated); "
+          f"{checked / 1e9:.3f} B aligned weights keep their frozen "
+          f"exponents and signs (blocks of zeros aside); on {card}")
+    out = {"batch": batch, "step_ms": rest, "peak_gib": peak}
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _reduced_kind_steps(dev) -> None:
+    """(a) Each kind reduced, one aligned step from one state (the
+    constant leaves drawn, aligned on the CPU) on the card and on the CPU:
+    loss, grad norm and the MoE aux loss within LOSS_RTOL, the MoE's
+    nonzero; every gradient within allclose(TOL) of its leaf's largest;
+    every parameter whose gradient exceeds GRAD_FLOOR within one fp16
+    ulp."""
+    import dataclasses
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.models.lm import LM
+    from repro_torch.training import loop, steps
+    for label, arch, ov in TRAIN_KIND_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **ov)
+        run = _align_rule_run(1, learning_rate=REDUCED_LR, warmup_steps=0)
+        model = LM(cfg, generator=torch.Generator().manual_seed(3),
+                   device="cpu")
+        _drawn_leaves(model, 4)
+        # one state, aligned on the CPU (the card's elementwise kernels
+        # may contract alignment's rescale into an FMA), then copied
+        cpu_state = steps.init_train_state(None, cfg, run,
+                                           params=convert.flat_from_lm(model))
+        card_state = _moved_state(cpu_state, dev)
+        out = {}
+        for name, state in (("card", card_state), ("cpu", cpu_state)):
+            d = next(iter(state.params.values())).device
+            batch = loop._on_device(MarkovLM(cfg.vocab_size, 32, 2,
+                                             seed=1).batch(0), d)
+            out[name] = steps.make_train_step(cfg, run)(state, batch)
+        (cs, cm), (ps, pm) = out["card"], out["cpu"]
+        for k in ("loss", "grad_norm", "aux_loss"):
+            a, b = float(cm[k]), float(pm[k])
+            _check(abs(a - b) <= LOSS_RTOL * abs(b), f"phase 14: reduced "
+                   f"{label} {k} card {a} cpu {b}")
+        _check((float(pm["aux_loss"]) > 0) == (label == "moe"),
+               f"phase 14: reduced {label} aux_loss {float(pm['aux_loss'])}")
+        # the gradients (AdamW's first moment after one step is (1 - b1)
+        # times the clipped gradient); then the parameters, within one
+        # fp16 ulp where the gradient is far above AdamW's eps: below it
+        # the first update is lr * g / eps, which carries the gradient's
+        # summation-order error whole
+        worst, fine, tiny = 0, 0, 0
+        for p, w in cs.params.items():
+            gc, gp = cs.opt["m"][p].cpu(), ps.opt["m"][p]
+            scale = float(gp.abs().max()) or 1.0
+            _check(torch.allclose(gc, gp, rtol=TOL, atol=TOL * scale),
+                   f"phase 14: reduced {label} {p}: gradient card vs CPU "
+                   f"(max err {float((gc - gp).abs().max()):.3e} of "
+                   f"{scale:.3e})")
+            big = gp.abs() / (1 - B1) > GRAD_FLOOR
+            ulps = _fp16_ulps(ps.params[p], w)
+            worst = max(worst, int(ulps[big].max()) if big.any() else 0)
+            fine += int(big.sum())
+            tiny += int((~big).sum())
+        _check(worst <= 1, f"phase 14: reduced {label}: parameters {worst} "
+               f"fp16 ulps apart where |g| > {GRAD_FLOOR:g}")
+        print(f"phase 14: reduced {label} ({arch}) one aligned step card vs "
+              f"CPU: loss {float(cm['loss']):.6f} / {float(pm['loss']):.6f}, "
+              f"aux {float(cm['aux_loss']):.3e} / {float(pm['aux_loss']):.3e}"
+              f", gradients within allclose({TOL:g}), parameters within "
+              f"{worst} fp16 ulp where |g| > {GRAD_FLOOR:g} ({fine} "
+              f"weights; {tiny} below it)")
+
+
+def _field_flips(before: dict, after: dict, rates) -> dict:
+    """{field: (flipped bits, binomial mean, sd)} over the leaves the
+    schedule draws."""
+    import torch
+    from repro_torch.core import bitops
+    out = {}
+    for f, field in enumerate(("exponent_sign", "mantissa")):
+        pos = [int(p) for p in bitops.FP16.field_bit_positions(field)]
+        mask = sum(1 << p for p in pos)
+        got, mean, var = 0, 0.0, 0.0
+        for path, w in before.items():
+            rate = rates(path, w)[f]
+            if rate <= 0:
+                continue
+            x = (bitops.to_bits(w).to(torch.int32)
+                 ^ bitops.to_bits(after[path]).to(torch.int32)) & mask
+            got += sum(int(((x >> p) & 1).sum()) for p in pos)
+            n = w.numel() * len(pos)
+            mean += n * rate
+            var += n * rate * (1 - rate)
+            del x
+        out[field] = (got, mean, var ** 0.5)
+    return out
+
+
+def _k4_launches_expected(params: dict, rates) -> int:
+    """One K4 launch a (drawn leaf, field, counter chunk)."""
+    from repro_torch.core import fault
+    n = 0
+    for path, w in params.items():
+        k = sum(1 for r in rates(path, w) if r > 0)
+        if k:
+            n += k * len(fault.counter_chunks(w.numel() // w.shape[-1],
+                                              w.shape[-1]))
+    return n
+
+
+def _check_chunked_leaf(params: dict, faulty: dict, seed: int, corrupt,
+                        ft) -> str:
+    """The first leaf the schedule draws in two or more counter chunks
+    (olmo-1b's stacked MLP leaves, 2^28 elements), held bitwise to K4's
+    plain version drawn here chunk by chunk with the schedule's seeds:
+    field f of leaf i from ``fold_seed(fold_seed(seed, f), i)``, chunk c
+    of 2^27 elements from ``fold_seed(that, c)``, exponent/sign (bits
+    10-15) at ``residual_exp_ber`` and mantissa (bits 0-9) at the BER. The
+    plain version runs on the card: on the host it would take minutes."""
+    from repro_torch.core import bitops
+    from repro_torch.core.cim import fold_seed
+    from repro_torch.kernels.fault_inject import kernel as fi_kernel
+    from repro_torch.kernels.fault_inject import ref as fi_ref
+    import torch
+    rel = ft._run_cfg(ber=CODESIGN_BER, inject="dynamic").rel
+    fields = ((range(10, 16), rel.residual_exp_ber), (range(10), rel.ber))
+    for i, (path, w) in enumerate(params.items()):
+        rows = w.numel() // w.shape[-1]
+        per = fi_kernel.MAX_COUNTER_ELEMENTS // w.shape[-1]
+        if w.ndim >= 2 and rows > per:
+            break
+    else:
+        _check(False, "phase 14: no leaf takes two counter chunks")
+    _check(corrupt.rates(path, w) == tuple(r for _, r in fields),
+           f"phase 14: {path}'s rates {corrupt.rates(path, w)}")
+    bits = bitops.to_bits(w.reshape(rows, -1)).view(torch.int16)
+    for f, (positions, ber) in enumerate(fields):
+        leaf_seed = fold_seed(fold_seed(seed, f), i)
+        for c, r0 in enumerate(range(0, rows, per)):
+            bits[r0:r0 + per] = fi_ref.fault_inject_ref(
+                bits[r0:r0 + per].view(torch.uint16),
+                seed=fold_seed(leaf_seed, c), ber=ber,
+                positions=positions).view(torch.int16)
+    got = bitops.to_bits(faulty[path].reshape(rows, -1)).view(torch.int16)
+    _check(torch.equal(got, bits), f"phase 14: the schedule's {path} "
+           f"differs from K4's plain version drawn chunk by chunk")
+    n = len(range(0, rows, per))
+    return f"{path} {tuple(w.shape)} ({n} counter chunks x 2 fields)"
+
+
+def _fi_figures(what: str, fn, plain, n: int, t: int, n_pos: int) -> dict:
+    """A K3/K4 call held bitwise to its plain version on the same inputs,
+    then its device time, the plain version's and its bound (phase 7's
+    accounting: each plane read once, T copies written; 10 ALU and 2 IMAD
+    ops a draw)."""
+    import torch
+    got, want = fn(), plain()
+    # uint16 has no CUDA comparison: compare the int16 views
+    _check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+           f"phase 14: {what} differs from its plain version on the same "
+           f"inputs")
+    del got, want
+    ms = _time_ms(fn, reps=3, inner=3)
+    plain_ms = _time_ms(plain, reps=3, inner=1)
+    nbytes = n * 2 * (1 + t)
+    hashes = n * t * n_pos
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = max(hashes * ALU_OPS_PER_DRAW, hashes * IMAD_OPS_PER_DRAW) \
+        / INT32_OPS * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "hashes": hashes}
+
+
+def _codesign_full(dev, fi_kernel, card: str) -> dict:
+    """(b) The co-design loop on full-width olmo-1b: the Finetuner (2
+    reshape steps, 2 aligned steps under the Fig. 7 schedule at BER 1e-4,
+    drawn through K4), the schedule's K4 launches, flip counts and
+    determinism, then PolicySearch.select over two arms at BER 1e-3 (K3)."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import bitops
+    from repro_torch.core.cim import field_thresholds
+    from repro_torch.core.deployment import CIMDeployment, ReliabilityPolicy
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels.fault_inject import ops as fi_ops
+    from repro_torch.kernels.fault_inject import ref as fi_ref
+    from repro_torch.models import lm
+    from repro_torch.training import codesign, loop
+    cfg = get_config("olmo-1b")
+    data = MarkovLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    ft = codesign.Finetuner(cfg, ReliabilityPolicy(), ber=CODESIGN_BER,
+                            reshape_steps=2, aligned_steps=2, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    fi_kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ft.run(iter(data))
+    wall = time.perf_counter() - t0
+    k4 = fi_kernel.launch_counts[fi_kernel.K4]
+    _check(fi_kernel.launch_counts[fi_kernel.K3] == 0,
+           "phase 14: the Finetuner launched K3")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    stage1 = res.info["reshape"]["history"]
+    losses = [h["loss"] for h in stage1 + res.history]
+    _check(len(losses) == 4 and all(math.isfinite(x) for x in losses),
+           f"phase 14: Finetuner losses {losses}")
+    _check("exp_penalty" in stage1[0], "phase 14: no exp_penalty in stage 1")
+    stats = res.ecc_stats
+    _check(stats.get("stored_bits", 0) > 0, f"phase 14: ecc_stats {stats}")
+    run2 = ft._run_cfg(steps=2, ber=CODESIGN_BER, inject="dynamic")
+    corrupt = loop.make_fault_schedule(run2)
+    params = res.state.params
+    res.state.opt = None                   # the moments: not needed below
+    want = _k4_launches_expected(params, corrupt.rates)
+    _check(k4 == 2 * want, f"phase 14: K4 launched {k4} times in 2 aligned "
+           f"steps, expected {want} a step (drawn leaves x fields x counter "
+           f"chunks)")
+    for h in stage1:
+        print(f"phase 14: Finetuner reshape step {h['step']}: loss "
+              f"{h['loss']:.4f} exp_penalty {h['exp_penalty']:.4f} "
+              f"{h['step_time'] * 1e3:.1f} ms")
+    for h in res.history:
+        print(f"phase 14: Finetuner aligned step {h['step']} (BER "
+              f"{CODESIGN_BER:g}, dynamic): loss {h['loss']:.4f} grad_norm "
+              f"{h['grad_norm']:.4f} {h['step_time'] * 1e3:.1f} ms")
+    # the schedule at step 0's seed, alone: its flips, its determinism and
+    # its time inside a step
+    seed0 = loop.step_seed(run2, 0)
+    torch.cuda.synchronize()
+    fi_kernel.reset_launch_counts()
+    t = time.perf_counter()
+    a = corrupt(params, seed0)
+    torch.cuda.synchronize()
+    corrupt_ms = (time.perf_counter() - t) * 1e3
+    _check(fi_kernel.launch_counts[fi_kernel.K4] == want,
+           f"phase 14: one corrupt launched "
+           f"{fi_kernel.launch_counts[fi_kernel.K4]} K4, expected {want}")
+    flips = _field_flips(params, a, corrupt.rates)
+    for field, (got, mean, sd) in flips.items():
+        _check(abs(got - mean) <= FLIP_SIGMAS * sd, f"phase 14: {field} "
+               f"flips {got}, binomial mean {mean:.1f} sd {sd:.1f}")
+    b = corrupt(params, seed0)
+    same = all(torch.equal(bitops.to_bits(a[p]), bitops.to_bits(b[p]))
+               for p in params)
+    _check(same, "phase 14: the schedule drew two trees from one seed")
+    del b
+    split = _check_chunked_leaf(params, a, seed0, corrupt, ft)
+    del a
+    torch.cuda.empty_cache()
+    _profile_arm(dev, lambda: corrupt(params, seed0), corrupt_ms / 1e3,
+                 label="phase 14: the schedule's profile")
+    step_ms = [h["step_time"] * 1e3 for h in res.history]
+    chunk = max(((p, w) for p, w in params.items() if w.ndim >= 2),
+                key=lambda pw: pw[1].numel())
+    plane = bitops.to_bits(chunk[1].reshape(-1, chunk[1].shape[-1]))
+    rows = min(plane.shape[0], fi_kernel.MAX_COUNTER_ELEMENTS
+               // plane.shape[1])
+    plane = plane[:rows]
+    k4_fig = _fi_figures(
+        "K4", lambda: fi_ops.fault_inject_bits(plane, seed=7, ber=CODESIGN_BER,
+                                         positions=range(10)),
+        lambda: fi_ref.fault_inject_ref(plane, seed=7, ber=CODESIGN_BER,
+                                        positions=range(10)),
+        plane.numel(), 1, 10)
+    del plane
+    print(f"phase 14: Finetuner on full-width olmo-1b: 4 steps in "
+          f"{wall:.1f} s of wall; losses finite; ecc_stats: "
+          f"{stats['stored_bits']} stored bits ({stats['overhead']:+.1%}); "
+          f"peak device memory {peak:.2f} GiB (max_memory_allocated)")
+    print(f"phase 14: K4 launches a step: {want} (= drawn leaves x fields x "
+          f"counter chunks; {k4} over the 2 aligned steps); the schedule "
+          f"alone {corrupt_ms:.1f} ms of wall (host clock, synchronized) "
+          f"against aligned steps of {', '.join(f'{x:.1f}' for x in step_ms)}"
+          f" ms; K4 at the {chunk[0]} counter chunk {tuple(chunk[1].shape)} "
+          f"-> [{rows}, {chunk[1].shape[-1]}] mantissa: "
+          f"{k4_fig['ms']:.4f} ms (plain {k4_fig['plain_ms']:.2f} ms), bound "
+          f"{k4_fig['bound_ms']:.4f} ms ({k4_fig['bound_by']}) on {card}")
+    print("phase 14: step 0's flips over the whole tree: " + "; ".join(
+        f"{f} {got} (binomial mean {mean:.1f}, sd {sd:.1f}, "
+        f"{(got - mean) / sd:+.2f} sigma)" for f, (got, mean, sd)
+        in flips.items()) + "; a second draw from the same seed equal "
+        f"bitwise; {split} == its plain version chunk by chunk, bitwise")
+    # PolicySearch.select on the fine-tuned weights (K3), scored against
+    # the clean model's own greedy predictions, so that faults can move it
+    shell = lm.shell(cfg)
+    evals = []
+    with torch.no_grad():
+        for i in range(2):
+            toks = data.batch(9000 + i)["tokens"]
+            pred = lm.forward(shell, params, torch.as_tensor(
+                toks, dtype=torch.int64, device=dev)).argmax(-1)
+            evals.append({"tokens": toks, "labels": pred.cpu().numpy()})
+    del shell, pred
+    accuracy = codesign.lm_accuracy_eval(cfg, evals)
+    largest = []        # the embeddings' largest |w|, an evaluation
+
+    def eval_fn(p):
+        largest.append(tuple(float(p[k].abs().max())
+                             for k in ("embed", "unembed")))
+        return accuracy(p)
+    search = codesign.PolicySearch(
+        params, eval_fn, codesign.AccuracySLO(ber=SEARCH_BER, max_drop=0.05),
+        n_trials=2, device=dev)
+    cells = []          # the engine's SweepResults, for their ECC counts
+    run_policies = search.engine.run_policies
+
+    def recorded(*args):
+        out = run_policies(*args)
+        cells.extend(out)
+        return out
+    search.engine.run_policies = recorded
+    fi_kernel.reset_launch_counts()
+    t = time.perf_counter()
+    sel = search.select(codesign.smoke_candidates())
+    select_s = time.perf_counter() - t
+    ecc = {r.protect: (r.corrected, r.uncorrectable) for r in cells}
+    k3 = fi_kernel.launch_counts[fi_kernel.K3]
+    _check(fi_kernel.launch_counts[fi_kernel.K4] == 0,
+           "phase 14: the search launched K4")
+    planes, overhead, read_acc = {}, {}, {}
+    for name, policy in codesign.smoke_candidates().items():
+        dep = CIMDeployment.deploy(params, policy)
+        planes[name] = sum(len([q for q in (s.man, s.codewords, s.exp,
+                                            s.sign) if q is not None])
+                           for _, _, s in dep.store_leaves())
+        overhead[name] = dep.bit_cost()["overhead"]
+        read_acc[name] = float(accuracy(dep.read()[0]))
+        del dep
+    _check(k3 == sum(planes.values()), f"phase 14: K3 launched {k3} times, "
+           f"expected one a store plane: {planes}")
+    arms = search.trace[-1]["arms"]
+    for name, v in arms.items():
+        print(f"phase 14: PolicySearch arm {name}: K3 launches "
+              f"{planes[name]} (planes x 1), accuracy {v['accuracy']:.4f} "
+              f"against the clean greedy predictions ({read_acc[name]:.4f} "
+              f"from a fault-free deploy and read), mean codewords "
+              f"corrected {ecc[name][0]:.1f} / uncorrectable "
+              f"{ecc[name][1]:.1f} a trial, stored_bits {v['stored_bits']} "
+              f"(overhead {overhead[name]:+.2%} against raw fp16)")
+    print(f"phase 14: the largest |w| of (embed, unembed) an evaluation "
+          f"(clean first, then each arm's trials): {largest}")
+    print(f"phase 14: PolicySearch.select at BER {SEARCH_BER:g} (n_trials 2): "
+          f"selected {sel.name}, accuracy {sel.accuracy:.4f} (clean "
+          f"{sel.clean_accuracy:.4f}, floor {sel.floor:.4f}), slo_met "
+          f"{sel.slo_met}, stored_bits {sel.stored_bits} (overhead "
+          f"{sel.overhead:+.2%}), {sel.evals} evals in {select_s:.1f} s")
+    man = None
+    for _, _, s in CIMDeployment.deploy(
+            {"embed": params["embed"]}, ReliabilityPolicy()).store_leaves():
+        man = s.man
+    seeds = [1, 2]
+    thr = field_thresholds(SEARCH_BER)[0]
+    k3_fig = _fi_figures(
+        "K3", lambda: fi_ops.fault_inject_bits_batched(man, seeds, thr,
+                                                 positions=range(10)),
+        lambda: fi_ref.fault_inject_batched_ref(man, seeds, thr,
+                                                positions=range(10)),
+        man.numel(), 2, 10)
+    print(f"phase 14: K3 at the embed's mantissa plane {tuple(man.shape)}, "
+          f"T = 2: {k3_fig['ms']:.4f} ms (plain {k3_fig['plain_ms']:.2f} ms)"
+          f", bound {k3_fig['bound_ms']:.4f} ms ({k3_fig['bound_by']}) on "
+          f"{card}")
+    del res, params, search
+    torch.cuda.empty_cache()
+    return {"fault_inject": {"launches": want, "launches_2_steps": k4,
+                             "shape": [rows, int(chunk[1].shape[-1])],
+                             "corrupt_ms": corrupt_ms, "step_ms": step_ms,
+                             **k4_fig},
+            "fault_inject_batched": {"launches": k3, "by_arm": planes,
+                                     "shape": list(man.shape), "trials": 2,
+                                     **k3_fig},
+            "peak_gib": peak}
+
+
+def _reduced_search_card_vs_cpu(dev) -> None:
+    """(b) PolicySearch.search over two groups on reduced olmo-1b, card
+    against CPU: the same trace move for move, accuracies equal (K3 is
+    bitwise its plain version, the eval labels are the CPU's clean
+    predictions)."""
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.models import lm
+    from repro_torch.models.losses import lm_loss
+    from repro_torch.training import codesign
+    cfg = get_config("olmo-1b").reduced()
+    model = lm.LM(cfg, generator=torch.Generator().manual_seed(5),
+                  device="cpu")
+    flat = convert.flat_from_lm(model)
+    toks = torch.as_tensor(MarkovLM(cfg.vocab_size, 16, 2, seed=0)
+                           .batch(0)["tokens"], dtype=torch.int64)
+    with torch.no_grad():
+        labels = lm.forward(model, flat, toks).argmax(-1)
+    space = codesign.SearchSpace(groups=(("embed", "embed"),
+                                         ("unembed", "unembed")),
+                                 protects=("none", "one4n"),
+                                 fields=("exponent_sign",))
+    out = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        shell = lm.shell(cfg)
+        t, y = toks.to(d), labels.to(d)
+
+        @torch.no_grad()
+        def eval_fn(p):
+            return lm_loss(lm.forward(shell, p, t), y)[1]["accuracy"]
+        out[name] = codesign.PolicySearch(
+            {p: w.to(d) for p, w in flat.items()}, eval_fn,
+            codesign.AccuracySLO(ber=3e-3, max_drop=0.02), space,
+            n_trials=3, seeds=11, device=d).search()
+    a, b = out["card"], out["cpu"]
+    _check(a.trace == b.trace and a.assignment == b.assignment
+           and a.slo_met == b.slo_met, f"phase 14: reduced search card "
+           f"trace {a.trace} != CPU {b.trace}")
+    print(f"phase 14: reduced olmo-1b PolicySearch.search (2 groups, BER "
+          f"3e-3): card trace == CPU move for move ("
+          + ", ".join(e["action"] + (f" {e['group']}" if "group" in e else "")
+                      for e in a.trace)
+          + f"), assignment {a.assignment}, slo_met {a.slo_met}, "
+          f"{a.evals} evals")
+
+
+def phase_codesign(dev, fi_kernel, card: str) -> dict:
+    """Phase 14: training every block kind, then the co-design loop.
+    Returns K3's and K4's figures on this path (the kernels line carries
+    them under ``"codesign"``)."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    secs, peaks = {}, {}
+
+    def part(what, fn):
+        t = time.perf_counter()
+        out = fn()
+        secs[what] = time.perf_counter() - t
+        peaks[what] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        return out
+    part(f"{RWKV} training", lambda: _train_full_kind(dev, card))
+    part("reduced kinds", lambda: _reduced_kind_steps(dev))
+    figs = part("co-design", lambda: _codesign_full(dev, fi_kernel, card))
+    part("reduced search", lambda: _reduced_search_card_vs_cpu(dev))
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s of wall (by part: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + f"); peak device memory {max(peaks.values()):.2f} GiB "
+          f"(max_memory_allocated; by part: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+          + f") on {card}")
+    return figs
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "cim_read" / "csrc").is_dir():
@@ -3115,11 +3668,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     granite = phase_granite(dev, kernel_lib, card)
     rwkv = phase_kinds(dev, kernel_lib, card)
+    codesign = phase_codesign(dev, fi_kernel, card)
     rows = phase_times(dev, checks, launches, engine_launches, card)
     for row in rows:
         row["granite"] = granite[row["name"]]
         row["rwkv6"] = rwkv[row["name"]]
-    rows += phase_fi_times(dev, checks, fig6["launches"], fi, card)
+    fi_rows = phase_fi_times(dev, checks, fig6["launches"], fi, card)
+    for row in fi_rows:
+        row["codesign"] = codesign[row["name"]]
+    rows += fi_rows
     rows.append(phase_bfp_times(dev, bfp, card))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build start")
     print(card)

@@ -107,6 +107,14 @@ class ReliabilityConfig:
             serve_path=self.serve_path)
         return dep_lib.ReliabilityPolicy(rules=(), default=rule)
 
+    @property
+    def residual_exp_ber(self) -> float:
+        """Closed-form post-ECC exponent/sign BER of the active codec (the
+        training fault schedule's rate for that field; the raw BER when
+        unprotected)."""
+        from repro_torch.core import deployment as dep_lib
+        return dep_lib._residual_ber(self.ber, self)
+
     def enabled(self) -> bool:
         return self.mode != "off"
 

@@ -520,3 +520,76 @@ def dispatch_read_rows(store, idx, *, seeds=None, thr_man=0, thr_meta=0,
         return store.cache[idx]
     return cim_lib.read_rows(store, idx, seeds=seeds, thr_man=thr_man,
                              thr_meta=thr_meta, model=model)
+
+
+# ---------------------------------------------------------------------------
+# Training-time dynamic fault schedule (paper Fig. 7), policy-aware.
+# ---------------------------------------------------------------------------
+
+# fold indices of the schedule's two cell classes (the reference splits its
+# step key in two, exponent/sign first)
+_SCHEDULE_FIELDS = ("exponent_sign", "mantissa")
+
+
+def _residual_ber(ber: float, rule) -> float:
+    """Post-ECC exponent/sign rate of ``ber`` under ``rule``'s protection
+    (a :class:`PolicyRule`, or a ``ReliabilityConfig``: anything with
+    ``protect`` and ``cim_cfg``)."""
+    from repro_torch.core.ecc import residual_ber_after_secded
+    if rule.protect == "one4n":
+        return residual_ber_after_secded(ber, codec=rule.cim_cfg.codec)
+    if rule.protect == "per_weight":
+        return residual_ber_after_secded(ber, codeword_bits=rule.cim_cfg
+                                         .pw_code.n)
+    return ber
+
+
+def training_fault_schedule(rel) -> Optional[Callable]:
+    """Per-step weight corruption for dynamic-injection training, or None:
+    ``corrupt(params, step_seed) -> params`` over a ``{path: tensor}`` tree.
+
+    Each deployed injectable leaf sees ITS rule's post-ECC residual rate on
+    the exponent/sign field and ``ber * ber_scale`` on the mantissa,
+    restricted to the rule's field, as ``CIMDeployment.inject`` on the same
+    policy. The reference's legacy uniform branch (exponent/sign at
+    ``rel.residual_exp_ber``, mantissa at ``rel.ber``) gives the same rates
+    for every uniform policy that ``ReliabilityConfig`` builds from its
+    scalar fields or ``from_policy``, so the port keeps this one path.
+
+    The draws go through :func:`repro_torch.core.fault.inject` (K4 on the
+    card): field ``f`` (0 exponent/sign, 1 mantissa) of leaf ``i`` in
+    flatten order draws from ``fold_seed(fold_seed(step_seed, f), i)``.
+    The reference draws ``jax.random`` streams here, so the port holds it
+    to its rates, not its bits. ``corrupt.rates(path, leaf)`` gives a
+    leaf's (exponent/sign, mantissa) rates, 0 where it is not drawn."""
+    from repro_torch.core import fault as fault_lib
+    if rel.mode != "cim" or rel.ber <= 0 or rel.inject != "dynamic":
+        return None
+    policy = rel.policy
+
+    def rates(path, leaf):
+        """(exponent/sign rate, mantissa rate) of one leaf."""
+        if not fault_lib._is_injectable(path, leaf):
+            return 0.0, 0.0
+        rule = policy.rule_for(path)
+        if not rule.deploy:
+            return 0.0, 0.0
+        b = rel.ber * rule.ber_scale
+        return (_residual_ber(b, rule)
+                if rule.field in ("full", "exponent_sign") else 0.0,
+                b if rule.field in ("full", "mantissa") else 0.0)
+
+    def corrupt(params, step_seed: int) -> dict:
+        seeds = [cim_lib.fold_seed(step_seed, f)
+                 for f in range(len(_SCHEDULE_FIELDS))]
+        out = {}
+        for i, (path, leaf) in enumerate(params.items()):
+            for f, ber in enumerate(rates(path, leaf)):
+                leaf = fault_lib.inject(cim_lib.fold_seed(seeds[f], i), leaf,
+                                        ber, _SCHEDULE_FIELDS[f],
+                                        policy.rule_for(path).fmt)
+            out[path] = leaf
+        return out
+
+    corrupt.rates = rates
+    return corrupt

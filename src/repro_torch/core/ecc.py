@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -282,3 +282,23 @@ class One4NRowCodec:
             bitpack.or_window(pw, [data[..., s, w] for w in range(data.shape[-1])],
                               s * self.segment_bits, self.segment_bits)
         return (*self.split_payload_packed(pw), status)
+
+
+def residual_ber_after_secded(ber: float, codeword_bits: Optional[int] = None,
+                              codec: Optional[One4NRowCodec] = None) -> float:
+    """Post-ECC residual error rate per protected bit, in closed form.
+
+    SECDED corrects one flip per codeword; a bit stays wrong only when its
+    codeword took >= 2 flips. With n-bit codewords and i.i.d. flips at
+    ``ber``: ``P(>=2) = 1 - (1-p)^n - n p (1-p)^(n-1)``, and given that,
+    about 2 of the n bits are wrong. ``codeword_bits`` defaults to the
+    stored codeword length of ``codec`` (or of the default
+    :class:`One4NRowCodec`, 112 bits for N = 8). The training fault
+    schedule draws the exponent/sign field at this rate."""
+    if codeword_bits is None:
+        codeword_bits = (codec or One4NRowCodec()).code.n
+    n, p = codeword_bits, ber
+    if p <= 0:
+        return 0.0
+    p_ge2 = 1.0 - (1.0 - p) ** n - n * p * (1.0 - p) ** (n - 1)
+    return p_ge2 * 2.0 / n

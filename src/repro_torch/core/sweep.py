@@ -4,7 +4,9 @@ The paper's Fig. 2 / Fig. 6 evidence is a fault-injection grid over (field
 or protection arm × BER × trial). For each arm and BER the engine draws all
 T trials' faulted copies of every weight plane in one launch of the
 trial-batched counter-PRNG kernel K3 (:mod:`repro_torch.kernels.
-fault_inject`), then evaluates the trials.
+fault_inject`), then evaluates the trials. ``run_policies`` does the same
+for arms that are per-layer reliability policies (the co-design search's
+evaluator).
 
 How it differs from the reference's engine:
 
@@ -61,6 +63,7 @@ class SweepResult:
     accuracies: List[float]
     corrected: float = 0.0
     uncorrectable: float = 0.0
+    stored_bits: int = 0    # the arm's deployed SRAM cells (policy sweeps)
     fault_model: str = "iid"
 
     @property
@@ -108,6 +111,29 @@ def default_seeds(seed: int, n_arms: int, n_bers: int,
     words = np.random.SeedSequence([int(seed), _SEED_SALT]).generate_state(
         n_arms * n_bers * n_trials, np.uint32)
     return words.reshape(n_arms, n_bers, n_trials)
+
+
+_POLICY_SEED_SALT = 0x5EED3
+PLANE_KEYS = ("man", "meta", "cw")
+
+
+def policy_seeds(seed: int, n_arms: int, n_bers: int, n_trials: int,
+                 paths) -> list:
+    """A policy sweep's plane seeds from an int: ``[arm][BER][trial]``
+    ``{path: {"man", "meta", "cw"}}`` for every leaf path, from
+    ``np.random.SeedSequence([seed, 0x5EED3]).generate_state`` in C order
+    over (arm, BER, trial, path, plane) — the shape of the reference's key
+    chain (``_split_schedule`` per arm, then ``CIMDeployment.inject``'s
+    per-leaf split and ``plane_seeds``)."""
+    paths = list(paths)
+    words = np.random.SeedSequence([int(seed), _POLICY_SEED_SALT]) \
+        .generate_state(n_arms * n_bers * n_trials * len(paths) * 3,
+                        np.uint32).reshape(n_arms, n_bers, n_trials,
+                                           len(paths), 3)
+    return [[[{p: dict(zip(PLANE_KEYS, map(int, words[a, b, t, i])))
+               for i, p in enumerate(paths)}
+              for t in range(n_trials)] for b in range(n_bers)]
+            for a in range(n_arms)]
 
 
 def _salted(seeds: np.ndarray, salt: int) -> np.ndarray:
@@ -162,18 +188,28 @@ def _valid_words(masks: np.ndarray, device) -> torch.Tensor:
                             .view(np.int32)).to(device)
 
 
-def _store_inject_batched(store: cim_lib.CIMStore, seeds, threshold: int,
+def _store_inject_batched(store: cim_lib.CIMStore, seeds: Mapping,
+                          thr_man: int, thr_meta: int, n_trials: int,
                           model=None) -> cim_lib.CIMStore:
-    """Batched SRAM-plane injection (``field='full'``) on the word-packed
-    planes: K3 draws per-word flip masks and lanes that are not stored cells
-    (codeword tail words, the sign plane's ragged last word) are restored
-    to their original bits. The result's planes carry a leading [T]."""
-    seeds = fi_kernel.seed_words(seeds)
-    t = seeds.size
+    """Batched SRAM-plane injection on the word-packed planes: K3 draws
+    per-word flip masks over the ``n_trials`` trials, one launch a plane,
+    from the plane's uint32 [T] seeds ``seeds["man"]`` / ``["cw"]`` (the
+    codeword plane) / ``["meta"]`` and ``["sign"]`` (the raw exponent and
+    sign planes); ``thr_man`` gates the mantissa plane, ``thr_meta`` the
+    others (0: the plane is not drawn, its trials are ``expand`` views).
+    Lanes that are not stored cells (codeword tail words, the sign plane's
+    ragged last word) are restored to their original bits. The result's
+    planes carry a leading [T]."""
+    t = n_trials
     fmt = store.cfg.fmt
     dev = store.device
-    man = _inject(store.man, _salted(seeds, 101), threshold,
-                  range(fmt.man_bits), model)
+
+    def draw(plane, key, thr, positions, **kw):
+        if not thr:
+            return plane.expand((t,) + tuple(plane.shape))
+        return _inject(plane, seeds[key], thr, positions, model, **kw)
+
+    man = draw(store.man, "man", thr_man, range(fmt.man_bits))
     sign = exp = cw = None
     if store.codewords is not None:
         cw_arr = store.codewords
@@ -181,29 +217,31 @@ def _store_inject_batched(store: cim_lib.CIMStore, seeds, threshold: int,
         if cw_arr.ndim == 2:
             # per-weight SECDED: one uint16 word per weight, n stored bits
             positions = [p for p in range(16) if (int(masks) >> p) & 1]
-            cw = _inject(cw_arr, _salted(seeds, 102), threshold, positions,
-                         model)
+            cw = draw(cw_arr, "cw", thr_meta, positions)
         else:
             cw2d = cw_arr.reshape(cw_arr.shape[0], -1)     # [B, G*S*W]
             # macro-column units of the flattened plane are S*W words wide
             # (the geometry faultmodels.plane_geometry derives from 4-D)
-            flipped = _inject(cw2d, _salted(seeds, 102), threshold, range(32),
-                              model, col_div=cw_arr.shape[2] * cw_arr.shape[3])
-            valid = _valid_words(np.tile(masks, cw2d.shape[1] // masks.size),
-                                 dev)
-            flipped = (flipped & valid) | (cw2d[None] & ~valid)
-            cw = flipped.reshape((t,) + tuple(cw_arr.shape))
+            cw = draw(cw2d, "cw", thr_meta, range(32),
+                      col_div=cw_arr.shape[2] * cw_arr.shape[3])
+            if thr_meta:
+                valid = _valid_words(
+                    np.tile(masks, cw2d.shape[1] // masks.size), dev)
+                cw = (cw & valid) | (cw2d[None] & ~valid)
+            cw = cw.reshape((t,) + tuple(cw_arr.shape))
     else:
-        exp = _inject(store.exp, _salted(seeds, 103), threshold,
-                      range(fmt.exp_bits), model)
-        k_pad = store.man.shape[0]
-        valid = _valid_words(bitpack.word_masks(k_pad, store.sign.shape[0]),
-                             dev)[:, None]
-        sflip = _inject(store.sign, _salted(seeds, 104), threshold, range(32),
-                        model)
-        sign = (sflip & valid) | (store.sign[None] & ~valid)
+        exp = draw(store.exp, "meta", thr_meta, range(fmt.exp_bits))
+        sign = draw(store.sign, "sign", thr_meta, range(32))
+        if thr_meta:
+            valid = _valid_words(bitpack.word_masks(
+                store.man.shape[0], store.sign.shape[0]), dev)[:, None]
+            sign = (sign & valid) | (store.sign[None] & ~valid)
     return cim_lib.CIMStore(man=man, sign=sign, exp=exp, codewords=cw,
                             shape=store.shape, cfg=store.cfg)
+
+
+# the Fig. 6 engine's per-plane salts of a store's trial seeds
+_FIG6_PLANE_SALTS = (("man", 101), ("cw", 102), ("meta", 103), ("sign", 104))
 
 
 def cim_inject_pytree_batched(stores: Mapping, seeds, threshold: int,
@@ -215,8 +253,10 @@ def cim_inject_pytree_batched(stores: Mapping, seeds, threshold: int,
     out = {}
     for i, (path, leaf) in enumerate(tree.flatten(stores).items()):
         if cim_lib._is_store(leaf):
-            out[path] = _store_inject_batched(leaf, _salted(seeds, 7 * i + 1),
-                                              threshold, model)
+            salted = _salted(seeds, 7 * i + 1)
+            out[path] = _store_inject_batched(
+                leaf, {k: _salted(salted, s) for k, s in _FIG6_PLANE_SALTS},
+                threshold, threshold, t, model)
         else:
             out[path] = leaf.expand((t,) + tuple(leaf.shape))
     return out
@@ -234,6 +274,30 @@ def trial_params(batched: Mapping, i: int) -> dict:
     """Trial ``i`` of a batched tree (stores' planes and tensors at ``i``)."""
     return {p: _trial_store(v, i) if cim_lib._is_store(v) else v[i]
             for p, v in batched.items()}
+
+
+def policy_inject_batched(dep, trials, ber) -> dict:
+    """A deployment's T faulted copies at ``ber``: every store plane its
+    rule draws is one K3 launch over the trials, at the rule's threshold
+    (``ber * ber_scale`` in float32, ``field`` gating mantissa against
+    exponent/sign/check planes) from ``trials[t][path]``'s plane seeds —
+    trial ``t`` of the result equals ``dep.inject(trials[t], ber)``'s
+    stores bit for bit. Pass-through leaves become ``expand`` views."""
+    n_t = len(trials)
+    batched = {}
+    for path, leaf in dep.stores.items():
+        if not cim_lib._is_store(leaf):
+            batched[path] = leaf.expand((n_t,) + tuple(leaf.shape))
+            continue
+        rule = dep.rules[path]
+        thr_man, thr_meta = cim_lib.field_thresholds(
+            np.float32(ber) * np.float32(rule.ber_scale), rule.field)
+        planes = {k: np.asarray([c[path][k] for c in trials], np.uint32)
+                  for k in PLANE_KEYS}
+        planes["sign"] = planes["cw"]
+        batched[path] = _store_inject_batched(leaf, planes, thr_man, thr_meta,
+                                              n_t, rule.fault_process)
+    return batched
 
 
 class SweepEngine:
@@ -339,4 +403,65 @@ class SweepEngine:
                         float(np.mean([s["uncorrectable"] for s in stats])),
                         fault_model=fm_spec))
                 arm += 1
+        return results
+
+    # ------------------------------------------------- policy (mixed) sweeps
+
+    def run_policies(self, seeds, params: Mapping, eval_fn: Callable,
+                     policies) -> List[SweepResult]:
+        """Fig. 6 arms as reliability POLICIES: each arm deploys the whole
+        tree under its :class:`~repro_torch.core.deployment.
+        ReliabilityPolicy` (e.g. One4N on the unembed while the mantissas
+        of the rest go unprotected) and sweeps the plan's (BER x trial)
+        grid. ``policies`` is a sequence of ``(name, policy)`` pairs or a
+        dict; results carry ``protect=name`` and the arm's ``stored_bits``.
+
+        Each store plane of a (BER) cell is drawn for all T trials in one
+        K3 launch (:func:`policy_inject_batched`). K3 computes
+        ``cim.counter_flip_words``' stream, so the faulted planes equal
+        ``CIMDeployment.inject``'s at the same seeds, bit for bit (the
+        reference draws them through that path: its batched kernel takes
+        one threshold for every store, where a policy gives each store its
+        rule's). Each trial is then decoded (``CIMDeployment.read``) and
+        evaluated.
+
+        ``seeds`` is an int (:func:`policy_seeds`) or the explicit
+        ``[arm][BER][trial]`` list of ``{path: {"man", "meta", "cw"}}``
+        plane seeds."""
+        from repro_torch.core import deployment as dep_lib
+        plan = self.plan
+        flat = self._flat(params)
+        if isinstance(policies, dict):
+            policies = list(policies.items())
+        for name, policy in policies:
+            if not isinstance(policy, dep_lib.ReliabilityPolicy):
+                raise TypeError(f"arm {name!r}: expected ReliabilityPolicy, "
+                                f"got {type(policy).__name__}")
+        n_b, n_t = len(plan.bers), plan.n_trials
+        if isinstance(seeds, (int, np.integer)):
+            seeds = policy_seeds(int(seeds), len(policies), n_b, n_t, flat)
+        elif len(seeds) != len(policies) or any(
+                len(arm) != n_b or any(len(c) != n_t for c in arm)
+                for arm in seeds):
+            raise ValueError(f"SweepEngine.run_policies: expected plane "
+                             f"seeds [arm][BER][trial] of shape "
+                             f"({len(policies)}, {n_b}, {n_t})")
+        results = []
+        for arm, (name, policy) in enumerate(policies):
+            dep = dep_lib.CIMDeployment.deploy(flat, policy)
+            arm_bits = dep.bit_cost()["stored_bits"]
+            for b, ber in enumerate(plan.bers):
+                batched = policy_inject_batched(dep, seeds[arm][b], ber)
+                accs, stats = [], []
+                for i in range(n_t):
+                    restored, st = dep._replace_stores(
+                        trial_params(batched, i)).read()
+                    stats.append(st)
+                    accs.append(float(eval_fn(restored)))
+                del batched
+                results.append(SweepResult(
+                    ber, "policy", name, accs,
+                    float(np.mean([s["corrected"] for s in stats])),
+                    float(np.mean([s["uncorrectable"] for s in stats])),
+                    stored_bits=arm_bits))
         return results

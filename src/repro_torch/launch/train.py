@@ -7,25 +7,28 @@
       --checkpoint-dir /tmp/ckpt --checkpoint-every 2   # again: resumes
   python -m repro_torch.launch.train --arch musicgen-large --reduced \\
       --steps 3 --device cpu
+  python -m repro_torch.launch.train --arch rwkv6-1.6b --reduced \\
+      --steps 3 --device cpu --rel-mode cim --ber 1e-3 --inject dynamic
 
 It runs on ``cuda`` unless ``--device cpu`` is given, and raises without a
-card. ``--arch`` takes every ported config: olmo-1b, granite-3-8b,
-codeqwen1.5-7b, command-r-35b, internvl2-76b, musicgen-large and
-tinyvit-paper. Weights come from
+card. ``--arch`` takes every registered config: olmo-1b, granite-3-8b,
+codeqwen1.5-7b, command-r-35b, internvl2-76b, musicgen-large,
+tinyvit-paper, rwkv6-1.6b, recurrentgemma-9b, qwen3-moe-235b-a22b and
+dbrx-132b (a MoE's aux loss joins the loss). Weights come from
 ``torch.Generator(device).manual_seed(seed)``; a text arch trains on the
 reference's ``MarkovLM`` (numpy, so the batches are the reference's), a
 stub modality (internvl2's ``vision_stub``, musicgen's ``audio_stub``) on
 ``batches_for`` with seed ``seed + step``, as the reference's launcher.
 ``--rel-mode align`` trains exponent-aligned with frozen (exponent, sign)
-projection at BER 0; ``cim`` adds the fault schedule, of which only the
-static and BER-0 cases are ported (dynamic raises). ``--checkpoint-dir``
+projection at BER 0; ``cim`` with ``--inject dynamic`` and a BER corrupts
+the weights before every step with the paper's Fig. 7 schedule
+(:func:`repro_torch.core.deployment.training_fault_schedule`, drawn
+through the CUDA kernel K4 on the card). ``--checkpoint-dir``
 saves the state (and the data cursor) every ``--checkpoint-every`` steps
 and at the end; a run pointed at a directory that holds a checkpoint
 resumes from its latest step and consumes the batches the interrupted run
 would have. ``--grad-compression`` compresses the gradient to int8 with
-error feedback. The other block kinds (rwkv6-1.6b, recurrentgemma-9b,
-qwen3-moe-235b-a22b, dbrx-132b) serve but do not train yet: ``--arch`` with
-one of them raises NotImplementedError (ROADMAP Queue 1 item 12.3).
+error feedback.
 """
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
 """Small ConvNet, the paper's benchmark family at container scale (port of
-``repro/models/cnn.py``; inference only — training waits for ROADMAP Queue 1
-item 13). It is the Fig. 2 subject with the GaussianBlobs task.
+``repro/models/cnn.py``). It is the Fig. 2 subject with the GaussianBlobs
+task. :func:`cnn_loss` is its training loss (the gradient is autograd's);
+the training loop around it stays with the examples and benches (ROADMAP
+Queue 1 item 15).
 
 Conv kernels stay in the reference's HWIO layout ``[kh, kw, cin, cout]``:
 that is the tensor the sweep injects into (its element index runs over
@@ -63,6 +65,15 @@ def apply_cnn(params, x: torch.Tensor) -> torch.Tensor:
     h = h.reshape(h.shape[0], -1)
     h = torch.relu(h @ params["dense"])
     return h @ params["head"]
+
+
+def cnn_loss(params, x: torch.Tensor, y: torch.Tensor):
+    """(mean negative log-likelihood, accuracy) of labels ``y`` [B]."""
+    logits = apply_cnn(params, x)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(1, y[:, None].to(torch.int64))[:, 0]
+    acc = (logits.argmax(-1) == y).to(torch.float32).mean()
+    return nll.mean(), acc
 
 
 def accuracy(params, x: torch.Tensor, y: torch.Tensor) -> float:

@@ -36,8 +36,9 @@ kernel on the card. Without ``params`` the module's own weights serve.
 :func:`forward` runs it on a parameter tree in the reference's layout, as
 the sweep engine hands one to an ``eval_fn`` and as the training step
 differentiates it (through a weightless :func:`shell`). Serving and the
-engine are text-only, as the reference's. Training takes the ``attn`` kind
-only: the others wait (ROADMAP Queue 1 item 12.3).
+engine are text-only, as the reference's. Training takes every kind: the
+step differentiates :func:`forward` with ``with_aux=True`` (the MoE layers'
+aux loss joins the loss, as the reference's ``loss_fn`` adds it).
 
 The continuous-batching engine (:mod:`repro_torch.launch.engine`) speaks the
 slot-state protocol: :class:`SlotStateSpec` per block kind,
@@ -513,17 +514,6 @@ class LM(nn.Module):
         return logits[:, 0], caches
 
 
-def check_trainable(cfg) -> None:
-    """Training takes the ``attn`` kind only: the MoE aux loss under a
-    gradient and the backward through the chunked WKV and the RG-LRU scan
-    wait (ROADMAP Queue 1 item 12.3)."""
-    other = sorted(set(layer_kinds(cfg)) - {"attn"})
-    if other:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training the {', '.join(other)} block kind(s) "
-            f"waits (ROADMAP Queue 1 item 12.3); serving takes them")
-
-
 # ------------------------------------------------- continuous-batching engine
 #
 # Slot-state protocol: the engine/model boundary. Every block kind declares a
@@ -691,8 +681,8 @@ def inject_state_chunk(cfg, caches, slot: int, pos: int, chunk) -> dict:
     return caches
 
 
-def forward(model: LM, params: Mapping, batch, *,
-            unembed: bool = True) -> torch.Tensor:
+def forward(model: LM, params: Mapping, batch, *, unembed: bool = True,
+            with_aux: bool = False):
     """The reference's ``lm.forward(params, cfg, batch)``: ``params`` is a
     ``{path: tensor}`` tree in the reference's layout (layer-stacked
     ``groups/blk0/...`` leaves, :func:`convert.flat_from_jax`) and replaces
@@ -700,10 +690,13 @@ def forward(model: LM, params: Mapping, batch, *,
     flow to the tree's stacked leaves, so a training step has one gradient
     per reference leaf. ``batch`` is a token tensor or the reference's
     batch dict (:meth:`LM.forward`). Returns logits [B, S, V] (the
-    final-normed hidden states with ``unembed=False``)."""
+    final-normed hidden states with ``unembed=False``), and with
+    ``with_aux`` also the MoE layers' summed aux loss (a 0-dim float32
+    tensor, zero without a MoE layer)."""
     state = convert.lm_state_from_flat(params, model.cfg)
     return torch.func.functional_call(model, state, (batch,),
-                                      {"unembed": unembed})
+                                      {"unembed": unembed,
+                                       "with_aux": with_aux})
 
 
 def shell(cfg) -> LM:

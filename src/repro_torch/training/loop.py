@@ -2,8 +2,12 @@
 
 ``run_training`` trains for ``run.steps`` steps with the straggler watchdog
 and returns a :class:`TrainResult`. Modes: ``off`` (plain training) and
-``align`` / ``cim`` at BER 0 or with static injection (frozen-exponent
-training; the projection lives in the step). ``run.grad_compression``
+``align`` / ``cim`` (frozen-exponent training; the projection lives in the
+step). Under ``cim`` with ``inject='dynamic'`` and a BER, the paper's Fig. 7
+schedule (:func:`repro_torch.core.deployment.training_fault_schedule`)
+corrupts the parameters before every step, drawn through K4 on the card
+from the step seed ``fold_seed(run.seed + 17, step)``, so a resumed run
+draws what the uninterrupted one would have. ``run.grad_compression``
 compresses each gradient to int8 with error feedback.
 
 Checkpoints. With a non-empty ``run.checkpoint_dir`` the state is saved
@@ -14,12 +18,10 @@ resumes from the latest saved step (``info["resumed_from"]``). A
 has its cursor saved beside the state and restored with it, so the resumed
 run consumes the batches the interrupted one would have.
 
-What waits, and raises rather than being skipped:
-
-* dynamic fault injection during training (``cim``, ber > 0, ``inject=
-  'dynamic'``; paper Fig. 7): the reference draws it from ``jax.random``,
-  so parity can only be statistical; it comes with the Fig. 7 slice;
-* a device mesh: ROADMAP Queue 1 item 14.
+What waits, and raises rather than being skipped: a device mesh (ROADMAP
+Queue 1 item 14). The reference draws the Fig. 7 faults from
+``jax.random``; the port's are the counter PRNG's, so the two agree in
+rates, not in bits.
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.cim import fold_seed
+from repro_torch.core.deployment import training_fault_schedule
 from repro_torch.data.synthetic import CheckpointableLoader
 from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint as ckpt_lib
@@ -40,17 +44,20 @@ from repro_torch.distributed.elastic import StragglerWatchdog
 from repro_torch.training import steps as steps_lib
 
 
+FAULT_SEED_OFFSET = 17
+
+
 def make_fault_schedule(run: RunConfig):
-    """Per-step weight corruption for dynamic injection, or None. Only the
-    None cases are ported: ber 0, static injection, or a mode other than
-    ``cim``."""
-    rel = run.rel
-    if rel.mode != "cim" or rel.ber <= 0 or rel.inject != "dynamic":
-        return None
-    raise NotImplementedError(
-        "dynamic fault injection during training (paper Fig. 7) waits for "
-        "the Fig. 7 slice (ROADMAP Queue 1 item 13): the reference draws its "
-        "faults with jax.random, so the port's parity there is statistical")
+    """Per-step weight corruption for dynamic injection, or None (ber 0,
+    static injection, or a mode other than ``cim``)."""
+    return training_fault_schedule(run.rel)
+
+
+def step_seed(run: RunConfig, step: int) -> int:
+    """The fault schedule's seed of ``step``: a pure function of the run's
+    seed and the step index, as the reference's
+    ``fold_in(PRNGKey(seed + 17), step)``."""
+    return fold_seed(run.seed + FAULT_SEED_OFFSET, step)
 
 
 @dataclasses.dataclass
@@ -131,7 +138,7 @@ def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
     if mesh is not None:
         raise NotImplementedError("training on a device mesh waits for "
                                   "ROADMAP Queue 1 item 14")
-    make_fault_schedule(run)          # raises for the schedule not ported
+    corrupt = make_fault_schedule(run)
     step_fn = steps_lib.make_train_step(cfg, run)
     loader = batches if isinstance(batches, CheckpointableLoader) else None
     start_step, checkpointer = 0, None
@@ -172,6 +179,10 @@ def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
             t0 = time.perf_counter()
             if sleep_injector is not None:
                 time.sleep(sleep_injector(step))
+            if corrupt is not None:
+                # the step trains on the faulty weights, as the reference's
+                state = dataclasses.replace(
+                    state, params=corrupt(state.params, step_seed(run, step)))
             state, metrics = step_fn(state, batch)
             sync()
             dt = time.perf_counter() - t0

@@ -44,7 +44,6 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
     and frozen when the run's reliability is on and ``freeze_exponents``;
     with ``grad_compression`` a zero float32 error-feedback residual per
     leaf."""
-    lm.check_trainable(cfg)
     if params is None:
         from repro_torch import convert
         model = lm.LM(cfg, generator=generator, device=device)
@@ -73,7 +72,6 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
     ``grad_norm``, ``lr``, ``aux_loss``, and ``exp_penalty`` with the
     regularizer). A state with ``ef_error`` compresses its clipped gradient
     (int8 with error feedback) before AdamW."""
-    lm.check_trainable(cfg)
     rel = run.rel
     project = rel.enabled() and run.freeze_exponents
     reg_policy = rel.policy if run.exp_reg_coef > 0 else None
@@ -93,7 +91,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
 
     def loss_fn(params, batch):
         params_c = {k: _cast(v) for k, v in params.items()}
-        logits = lm.forward(model, params_c, batch)
+        logits, aux = lm.forward(model, params_c, batch, with_aux=True)
         loss, metrics = lm_loss(logits, batch["labels"])
         del logits
         if reg_policy is not None:
@@ -101,7 +99,6 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
                                                margin=run.exp_reg_margin)
             loss = loss + run.exp_reg_coef * pen
             metrics = dict(metrics, exp_penalty=pen)
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss + aux, (metrics, aux)
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
@@ -117,6 +114,7 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
                  for (p, w), g in zip(leaves.items(), grads)}
         del total, leaves
         metrics = {k: v.detach() for k, v in metrics.items()}
+        aux = aux.detach()
         grads, gnorm = adamw.clip_by_global_norm(grads, opt_cfg.grad_clip)
         ef = state.ef_error
         if ef is not None:

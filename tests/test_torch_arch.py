@@ -282,9 +282,9 @@ def test_batches_for_has_the_reference_structure(arch):
 def test_init_norm_and_block_kinds_that_wait():
     """Fresh norms are zeros, as the reference's ``init_norm``. Every block
     kind builds, its slot-state spec equal to the reference's field by
-    field; what still waits is training the kinds beyond ``attn``, which
-    raises citing ROADMAP item 12.3 (the step, the state and the
-    launcher), and an unknown MLP type raises."""
+    field; every kind now trains (the step, the state and the launcher
+    take it; ``tests/test_torch_train_kinds.py`` holds the steps to the
+    reference), and an unknown MLP type raises."""
     from repro.models import lm as jl
     from repro.models.common import init_norm as j_init_norm
     from repro_torch.models.common import init_norm
@@ -303,13 +303,16 @@ def test_init_norm_and_block_kinds_that_wait():
         model = t_lm.LM(c, device="cpu")
         assert [b.kind for b in model.blocks] == \
             [pattern[i % len(pattern)] for i in range(c.n_layers)]
-        with pytest.raises(NotImplementedError, match=r"item 12\.3"):
-            t_steps.make_train_step(c, RunConfig())
-        with pytest.raises(NotImplementedError, match=r"item 12\.3"):
-            t_steps.init_train_state(None, c, RunConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 12\.3"):
-        t_train.main(["--arch", "rwkv6-1.6b", "--reduced", "--steps", "1",
-                      "--device", "cpu"])
+        state = t_steps.init_train_state(
+            torch.Generator().manual_seed(0), c, RunConfig(), device="cpu")
+        batch = _on_device(batches_for(c, BATCH, SEQ, seed=2),
+                           torch.device("cpu"))
+        _, m = t_steps.make_train_step(c, RunConfig())(state, batch)
+        assert np.isfinite(float(m["loss"])), pattern
+        assert (float(m["aux_loss"]) > 0) == (pattern == ("moe",))
+    res = t_train.main(["--arch", "rwkv6-1.6b", "--reduced", "--steps", "1",
+                        "--device", "cpu", "--seq", "16", "--batch", "2"])
+    assert np.isfinite(res.history[0]["loss"])
     with pytest.raises(ValueError, match="mlp_type"):
         MLP(dataclasses.replace(cfg, mlp_type="relu"), device="cpu")
 

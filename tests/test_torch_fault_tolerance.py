@@ -4,9 +4,13 @@ watchdog, int8 error-feedback gradient compression and the checkpointable
 data loader.
 
 The single-process tests of ``tests/test_fault_tolerance.py`` are mirrored
-on the port (``test_dynamic_injection_protected_vs_not`` is not: it trains
-under dynamic faults drawn by ``jax.random``, which waits with the Fig. 7
-slice). Beside them, held against the reference: ``quantize_int8`` and
+on the port. ``test_dynamic_injection_protected_vs_not`` is mirrored over
+seeds: its claim (One4N finite over 8 steps at BER 2e-3, no protection
+non-finite or worse) holds or fails by the fault stream, which is the
+counter PRNG's on the port and ``jax.random``'s in the reference.
+``tools/fig7_seed_study.py`` runs both over run seeds 0-15: One4N
+non-finite in 3 of 16 on each side, no protection in 16 of 16, the claim
+on 13 of 16 on each. Beside them, held against the reference: ``quantize_int8`` and
 ``compress_decompress`` bitwise on the same arrays (both eager), the
 checkpointable loader's batches after a resume, and one compressed training
 step within ``tests/test_torch_train.py``'s tolerances (losses, accuracies
@@ -360,6 +364,48 @@ def test_training_with_compression_converges(tmp_path):
     _, hist, _ = _train(cfg, run, iter(data))
     assert hist[-1]["loss"] < hist[0]["loss"] + 0.1
     assert np.isfinite([h["loss"] for h in hist]).all()
+
+
+# ---------------------------------------------------------------- dynamic faults
+
+FIG7_SEEDS = range(8)
+
+
+def test_dynamic_injection_protected_vs_not():
+    """The reference's Fig. 7 claim at smoke scale, over run seeds 0-7 (one
+    seed is one fault stream): at BER 2e-3 under the dynamic schedule, One4N
+    keeps the loss finite in at least half the runs and its median last
+    loss below the unprotected runs', which are non-finite in at least
+    three quarters; the reference's per-run assertion (One4N finite, no
+    protection non-finite or 0.5 above) holds in at least half. The
+    reference meets each bound over seeds 0-15 (13 of 16 finite, 16 of 16
+    non-finite, the claim on 13), as the port does."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        last = {}
+        for protect in ("one4n", "none"):
+            cfg, run, data = _tiny_run("", steps=8, every=100)
+            last[protect] = []
+            for seed in FIG7_SEEDS:
+                run = RunConfig(**{**run.__dict__, "seed": seed,
+                                   "checkpoint_dir": "", "ber": 2e-3,
+                                   "inject": "dynamic",
+                                   "policy": ReliabilityPolicy(
+                                       default=PolicyRule(protect=protect))})
+                losses = np.asarray([h["loss"] for h in _train(
+                    cfg, run, iter(data)).history])
+                last[protect].append(losses[-1] if np.isfinite(losses).all()
+                                     else np.inf)
+    finally:
+        torch.set_num_threads(n)
+    good, bad = np.asarray(last["one4n"]), np.asarray(last["none"])
+    k = len(FIG7_SEEDS)
+    assert np.isfinite(good).sum() >= k / 2, good
+    assert (~np.isfinite(bad)).sum() >= 3 * k / 4, bad
+    assert np.median(good) < np.median(bad), (good, bad)
+    claim = np.isfinite(good) & (~np.isfinite(bad) | (bad > good + 0.5))
+    assert claim.sum() >= k / 2, (good, bad)
 
 
 def _fp16_ulps(a, b) -> np.ndarray:

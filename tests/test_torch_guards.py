@@ -50,7 +50,8 @@ def test_every_module_imports_with_jax_blocked():
               "repro_torch.models.moe", "repro_torch.configs.rwkv6_1_6b",
               "repro_torch.configs.recurrentgemma_9b",
               "repro_torch.configs.qwen3_moe_235b_a22b",
-              "repro_torch.configs.dbrx_132b"):
+              "repro_torch.configs.dbrx_132b",
+              "repro_torch.training.codesign"):
         assert m in mods, m
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"

@@ -12,8 +12,17 @@ one framework's summation order and not in the other's. NaN logits are
 otherwise the same on both sides (the faulted weights are bitwise equal),
 and both argmaxes then pick the first NaN. Logits agree within
 allclose(rtol=1e-4, atol=1e-5), as in ``tests/test_torch_serve.py``.
+
+The reference's programs compile at XLA's backend optimisation level 0
+(``tests/test_torch_kinds.py``'s ``O0``), and each reference result is
+computed once: the faulted leaves and batched stores the checks hold the
+port's to are the ones the reference engine drew inside its own planes
+(recorded by a ``jax.debug.callback``), and the engine's deployment is
+the one the plane checks deploy.
 """
 import dataclasses
+import functools
+import types
 
 import pytest
 
@@ -28,7 +37,6 @@ from repro.core import cim as j_cim  # noqa: E402
 from repro.core import sweep as j_sweep  # noqa: E402
 from repro.data.synthetic import GaussianBlobs as JGaussianBlobs  # noqa: E402
 from repro.data.synthetic import MarkovLM as JMarkovLM  # noqa: E402
-from repro.kernels.fault_inject import ops as j_fi_ops  # noqa: E402
 from repro.models import cnn as j_cnn  # noqa: E402
 from repro.models import lm as j_lm  # noqa: E402
 from repro.models.losses import lm_loss as j_lm_loss  # noqa: E402
@@ -44,6 +52,79 @@ from repro_torch.kernels.fault_inject import ops as t_fi_ops  # noqa: E402
 from repro_torch.models import cnn as t_cnn  # noqa: E402
 from repro_torch.models import lm as t_lm  # noqa: E402
 from repro_torch.models.losses import lm_loss  # noqa: E402
+
+# XLA options of the reference's programs (tests/test_torch_kinds.py's): each
+# compiles once on toy shapes, where LLVM's passes cost more than they save
+O0 = {"xla_backend_optimization_level": 0}
+jit = functools.partial(jax.jit, compiler_options=O0)
+
+
+class _O0Jax(types.ModuleType):
+    """``jax`` as the reference's sweep module sees it, its ``jit`` at O0."""
+    jit = staticmethod(jit)
+
+    def __getattr__(self, name):
+        return getattr(jax, name)
+
+
+# The faulted leaves / batched stores the reference engine drew, recorded
+# from inside its own compiled planes: (field or None, seeds) -> {path:
+# array}. The plane checks below read these rather than lower the
+# reference's injection (its kernel in interpret mode) a second time.
+DRAWN = {}
+
+
+def _recording(inject, field_arg: bool):
+    def wrapped(tree_, seeds, threshold, *args, **kw):
+        out = inject(tree_, seeds, threshold, *args, **kw)
+        field = args[0] if field_arg else None
+
+        def record(seeds_, leaves):
+            DRAWN[(field, tuple(np.asarray(seeds_).tolist()))] = leaves
+        jax.debug.callback(record, seeds, _jax_flat(out))
+        return out
+    return wrapped
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_at_o0():
+    """The reference sweep's programs at O0, its injections recorded
+    (``DRAWN``), and each of its deployments made once, jitted at O0: its
+    engine and the plane checks below deploy the same (params, config)
+    pair, so the second call takes the first's stores. (Under ``jax.jit``
+    at the default level XLA contracts alignment's rescale into an FMA
+    and a weight rounds to the neighbouring fp16 value; at level 0 it
+    does not, and the port's planes are held to these bitwise.)"""
+    saved = (j_sweep.jax, j_cim.deploy_pytree_impl,
+             j_sweep.inject_pytree_batched, j_sweep.cim_inject_pytree_batched)
+    deployed = {}
+
+    def deploy_once(params, cfg):
+        key = (id(params), cfg)
+        if key not in deployed:
+            deployed[key] = (params, jit(functools.partial(
+                saved[1], cfg=cfg))(params))
+        return deployed[key][1]
+    j_sweep.jax = _O0Jax("jax")
+    j_cim.deploy_pytree_impl = deploy_once
+    j_sweep.inject_pytree_batched = _recording(saved[2], True)
+    j_sweep.cim_inject_pytree_batched = _recording(saved[3], False)
+    yield
+    (j_sweep.jax, j_cim.deploy_pytree_impl, j_sweep.inject_pytree_batched,
+     j_sweep.cim_inject_pytree_batched) = saved
+    DRAWN.clear()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: the workers of a parallel test run share the
+    cores, and torch's thread pool on small tensors then spends more time
+    waiting than working."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 FIELDS = ("sign", "exponent", "mantissa", "full")
 PROTECTS = ("none", "per_weight", "one4n")
@@ -93,7 +174,10 @@ def _same_bits(j_arr, t_arr):
 
 @pytest.fixture(scope="module")
 def cnn():
-    jp = j_cnn.init_cnn(jax.random.PRNGKey(0), n_classes=16)
+    """The CNN (16 classes), its eval batch and the reference's clean
+    logits, each computed once."""
+    jp = jit(j_cnn.init_cnn, static_argnames="n_classes")(
+        jax.random.PRNGKey(0), n_classes=16)
     tp = convert.cnn_params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
     x, y = JGaussianBlobs().batch(N_CNN, 99_999)
     xt, yt = (torch.from_numpy(a) for a in GaussianBlobs().batch(N_CNN, 99_999))
@@ -103,7 +187,8 @@ def cnn():
 
     def t_eval(p):
         return (t_cnn.apply_cnn(p, xt).argmax(-1) == yt).to(torch.float32).mean()
-    return jp, tp, j_eval, t_eval, (x, xt)
+    logits = np.asarray(jit(j_cnn.apply_cnn)(jp, x))
+    return jp, tp, j_eval, t_eval, (x, xt, logits)
 
 
 @pytest.fixture(scope="module")
@@ -111,19 +196,20 @@ def olmo():
     """Reduced olmo-1b; the eval labels are the clean model's greedy
     predictions, so accuracy is agreement with the clean model."""
     jcfg = j_get_config("olmo-1b").reduced()
-    jp = jax.jit(j_lm.init_lm, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
+    jp = jit(j_lm.init_lm, static_argnums=1)(jax.random.PRNGKey(0), jcfg)
     flat = convert.flat_from_jax(jax.tree_util.tree_map(np.asarray, jp))
     model = t_lm.LM(get_config("olmo-1b").reduced(), device="cpu")
     toks = JMarkovLM(jcfg.vocab_size, LM_SEQ, LM_BATCH, seed=0).batch(0)["tokens"]
-    clean = jnp.argmax(j_lm.forward(jp, jcfg, {"tokens": toks},
-                                    remat=False)[0], -1)
-    batch = {"tokens": toks, "labels": clean}
+    logits = jit(lambda p, t: j_lm.forward(p, jcfg, {"tokens": t},
+                                           remat=False)[0])(jp, toks)
+    clean = jnp.argmax(logits, -1)
+    batch = {"tokens": toks, "labels": clean, "logits": np.asarray(logits)}
     t_toks = torch.from_numpy(np.array(toks)).long()
     t_labels = torch.from_numpy(np.array(clean)).long()
 
     def j_eval(p):
-        logits, _, _ = j_lm.forward(p, jcfg, batch, remat=False)
-        return j_lm_loss(logits, batch["labels"])[1]["accuracy"]
+        logits, _, _ = j_lm.forward(p, jcfg, {"tokens": toks}, remat=False)
+        return j_lm_loss(logits, clean)[1]["accuracy"]
 
     def t_eval(p):
         return lm_loss(t_lm.forward(model, p, t_toks), t_labels)[1]["accuracy"]
@@ -139,8 +225,7 @@ def test_gaussian_blobs_batches_identical():
 
 
 def test_apply_cnn_matches_reference(cnn):
-    jp, tp, _, _, (x, xt) = cnn
-    want = np.asarray(j_cnn.apply_cnn(jp, x))
+    jp, tp, _, _, (x, xt, want) = cnn
     got = t_cnn.apply_cnn(tp, xt).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
     assert t_cnn.accuracy(tp, xt, xt.new_zeros(N_CNN).long()) == \
@@ -149,18 +234,18 @@ def test_apply_cnn_matches_reference(cnn):
 
 def test_lm_forward_and_loss_match_reference(olmo):
     jcfg, jp, flat, model, j_eval, t_eval, batch = olmo
-    want = np.asarray(j_lm.forward(jp, jcfg, batch, remat=False)[0])
+    want = batch["logits"]
     toks = torch.from_numpy(np.array(batch["tokens"])).long()
     got = t_lm.forward(model, flat, toks)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
     labels = np.asarray(batch["labels"]).copy()
     labels[0, :3] = -100                              # IGNORE positions
-    j_loss, j_m = j_lm_loss(jnp.asarray(want), jnp.asarray(labels))
+    j_loss, j_m = jit(j_lm_loss)(want, labels)
     t_loss, t_m = lm_loss(got, torch.from_numpy(labels).long())
     assert float(t_loss) == pytest.approx(float(j_loss), rel=1e-5)
     assert float(t_m["accuracy"]) == float(j_m["accuracy"])
     assert int(t_m["tokens"]) == int(j_m["tokens"])
-    assert float(t_eval(flat)) == 1.0 == float(j_eval(jp))
+    assert float(t_eval(flat)) == 1.0 == float(jit(j_eval)(jp))
 
 
 def _fields_parity(jp, tp, j_eval, t_eval, n_eval, bers, n_trials, fields):
@@ -173,17 +258,13 @@ def _fields_parity(jp, tp, j_eval, t_eval, n_eval, bers, n_trials, fields):
                                        n_trials=n_trials, device="cpu")
     assert t_fi_kernel.launch_counts[t_fi_kernel.K3] == 0   # CPU: plain
     _assert_close_cells(j_res, t_res_, n_eval)
-    # every faulted leaf of every (arm, BER, trial), bit for bit
+    # every faulted leaf of every (arm, BER, trial), bit for bit, against
+    # the leaves the reference engine drew
     for a, field in enumerate(fields):
-        j_inject = jax.jit(lambda p, s, t, field=field: j_sweep.
-                           inject_pytree_batched(p, s, t, field,
-                                                 interpret=True))
         for b, ber in enumerate(bers):
-            want = j_inject(jp, jnp.asarray(seeds[a, b]),
-                            j_fi_ops.ber_to_threshold(jnp.float32(ber)))
+            want = DRAWN[(field, tuple(seeds[a, b].tolist()))]
             got = t_sweep.inject_pytree_batched(
                 tp, seeds[a, b], t_fi_ops.ber_to_threshold(ber), field)
-            want = _jax_flat(want)
             assert list(want) == list(got)             # the same leaf order
             for path in got:
                 assert _same_bits(want[path], got[path]), (field, ber, path)
@@ -222,19 +303,18 @@ def test_run_protection_on_reduced_olmo(olmo, protect):
     _assert_close_cells(j_res, t_res_, LM_BATCH * LM_SEQ)
     if protect != "none":
         assert t_res_[-1].corrected > 0
-    # the batched stores of every BER, plane by plane
-    j_stores, _ = j_cim.deploy_pytree_impl(jp, j_cfg)
+    # the batched stores of every BER, plane by plane, against the ones the
+    # reference engine drew
     t_stores, _ = t_cim.deploy_pytree_impl(flat, t_cfg)
-    j_inject = jax.jit(lambda s, sd, t: j_sweep.cim_inject_pytree_batched(
-        s, sd, t, True))
     for b, ber in enumerate(bers):
-        want = j_inject(j_stores, jnp.asarray(seeds[0, b]),
-                        j_fi_ops.ber_to_threshold(jnp.float32(ber)))
+        want = DRAWN[(None, tuple(seeds[0, b].tolist()))]
         got = t_sweep.cim_inject_pytree_batched(
             t_stores, seeds[0, b], t_fi_ops.ber_to_threshold(ber))
         for path in ("embed", "unembed"):
-            for plane in ("man", "sign", "exp", "codewords"):
-                a, g = getattr(want[path], plane), getattr(got[path], plane)
+            # a CIMStore flattens to (man, sign, exp, codewords, cache)
+            for i, plane in enumerate(("man", "sign", "exp", "codewords")):
+                a = want.get(f"{path}/{i}")
+                g = getattr(got[path], plane)
                 assert (a is None) == (g is None)
                 if a is not None:
                     assert _same_bits(a, g), (ber, path, plane)
