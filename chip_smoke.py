@@ -231,13 +231,44 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    after; then ``PolicySearch.search`` over two groups on reduced
    olmo-1b: the card's trace equal to the CPU's move for move. The
    phase's wall time and peak by part.
+15. the device mesh and the int8 K/V cache, n shards emulated on the one
+   card. (a) The sharded image at olmo-1b's full unembed (K = 2048,
+   J = 50304), one4n and none, 4-way ``dim='j'`` (12576-column shards, so
+   shards 1-3 start mid-bank and mid-strip) and 2-way ``dim='k'``: each
+   shard's ``inject_sharded`` planes equal the block of the single-device
+   image bitwise at BER 1e-4 i.i.d. and under each MODEL_SPECS process, its
+   i.i.d. decode the block of the single-device decode; K1/K2 on every
+   shard at its offsets, M = 4 and 1, static and dynamic, within 1e-4 of
+   |x| @ |W| of the plain version at the same offsets; the j slices
+   gathered equal the unsharded read (bitwise expected; a difference is
+   printed with its size), the k partials summed in shard order within
+   1e-4 of |x| @ |W|; one launch a shard a read; each shard read timed
+   beside the unsharded one with its bounds (its own bytes and draws).
+   (b) ``serve(mesh=make_serve_mesh("1x1"), rounds=2)`` over a
+   world-size-1 NCCL group on full-width olmo-1b (rebuilt), arms (a) and
+   (b): tokens and ECC equal the unsharded run's, GEN narrow launches a
+   round (counts zeroed before, read after). (c) Phase 5's one4n arm as two
+   trial slices (``trial_shard``), joined: per-trial agreement and ECC
+   counts equal the unsharded arm's bitwise; K3 timed on a slice. (d) The
+   int8 K/V cache on full-width olmo-1b's slot states (arm (c)'s image;
+   the lock-step prefill keeps the compute dtype, as the reference's):
+   cache bytes and decode ms a step beside the compute-dtype cache;
+   reduced olmo-1b's int8 values and bf16 scales on the card equal the
+   CPU's bitwise (tokens equal; ``quant_kv`` bitwise on the same input); the engine's solo ==
+   co-batched on the card. The phase's wall time by part.
 
-Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 12, 13, 14, 7. Prints the
-card's name and power limit, then one ``{"kernels": [...]}`` line (each
-K1/K2 row carries its granite figures under ``"granite"`` and its rwkv6
-figures under ``"rwkv6"``; K3's and K4's rows their co-design path's
-launches and times under ``"codesign"``), and as its last line
-``{"ok": true, "device": {...}}``.
+Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 12, 13, 14, 15, 7. Prints
+the card's name and power limit, then one ``{"kernels": [...]}`` line (each
+K1/K2 row carries its granite figures under ``"granite"``, its rwkv6
+figures under ``"rwkv6"`` and its shard reads under ``"mesh"``; K3's and
+K4's rows their co-design path's launches and times under ``"codesign"``,
+K3's its trial-slice figures under ``"trial_slice"``), and as its last line
+``{"ok": true, "device": {...}}``; the int8 cache's figures come on a
+``{"int8_cache": ...}`` line before the card's name.
+
+``python3 chip_smoke.py --phase 15`` builds the kernels and runs phase 15
+alone on phase 2's stores (a quick check while working on the mesh); it
+prints no contract line.
 """
 from __future__ import annotations
 
@@ -1716,12 +1747,12 @@ def _flipped_bits(got, plane) -> int:
                      & 0xFFFFFFFF)
 
 
-def phase_fig6(dev, model, fi_kernel) -> dict:
-    """Fig. 6 on full-width olmo-1b through characterize_protection."""
-    import numpy as np
+def _fig6_setup(dev, model):
+    """Fig. 6's inputs on ``model``: (its reference-layout params, the
+    agreement eval, the CIM config, the trial seeds [arms, BERs, trials])."""
     import torch
     from repro_torch import convert
-    from repro_torch.core import cim, resilience
+    from repro_torch.core import cim
     from repro_torch.core import sweep as sweep_lib
     from repro_torch.data.synthetic import MarkovLM
     from repro_torch.models import lm
@@ -1744,6 +1775,16 @@ def phase_fig6(dev, model, fi_kernel) -> dict:
 
     seeds = sweep_lib.default_seeds(6, len(FIG6_PROTECTS), len(FIG6_BERS),
                                     FIG6_TRIALS)
+    return params, agreement, cim_cfg, seeds
+
+
+def phase_fig6(dev, model, fi_kernel) -> dict:
+    """Fig. 6 on full-width olmo-1b through characterize_protection."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cim, resilience
+    from repro_torch.core import sweep as sweep_lib
+    params, agreement, cim_cfg, seeds = _fig6_setup(dev, model)
     res, launches = {}, {}
     for a, protect in enumerate(FIG6_PROTECTS):
         fi_kernel.reset_launch_counts()
@@ -3620,6 +3661,472 @@ def phase_codesign(dev, fi_kernel, card: str) -> dict:
     return figs
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the int8 K/V cache and the device mesh.
+# ---------------------------------------------------------------------------
+
+MESH_SPLITS = ((4, "j"), (2, "k"))   # 12576-column shards, 1024-row slabs
+MESH_ROUNDS = 2
+MESH_SEEDS = {"man": 0x1234567, "meta": 0x89ABCDE, "cw": 0x2468ACE}
+
+
+def _same_plane(a, b) -> bool:
+    """Bitwise plane equality (uint16 planes through their int16 view: CUDA
+    has no uint16 comparison)."""
+    import torch
+    if a.dtype == torch.uint16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def _mesh_flips(name, store, thr) -> int:
+    """(a) Each shard's inject_sharded planes equal the block of the
+    single-device image, under i.i.d. and each MODEL_SPECS process, and its
+    decode the block of the single-device decode (i.i.d.). Returns the
+    planes compared."""
+    import torch
+    from repro_torch.core import cim
+    compared = 0
+    for spec in (None,) + MODEL_SPECS:
+        full = cim.inject_with_seeds(store, MESH_SEEDS, thr, thr, model=spec)
+        planes = cim.plane_dict(full)
+        w_full = cim.read(full)[0] if spec is None else None
+        for n, dim in MESH_SPLITS:
+            sdim = 0 if dim == "k" else 1
+            for i in range(n):
+                shard = cim.shard_store(store, n, i, dim)
+                _check(shard.shard.sharded, f"phase 15: {name} {n}-way "
+                       f"{dim} did not split")
+                got = cim.inject_sharded(MESH_SEEDS, shard, MODEL_BER,
+                                         model=spec)
+                for pname, p in cim.plane_dict(got).items():
+                    size = planes[pname].shape[sdim] // n
+                    want = planes[pname].narrow(sdim, i * size, size)
+                    _check(_same_plane(p, want), f"phase 15: {name} "
+                           f"{n}-way {dim} shard {i} plane {pname} under "
+                           f"{spec or 'iid'} != the single-device block")
+                    compared += 1
+                if w_full is not None:
+                    w = cim.read(got)[0]
+                    size = w.shape[sdim]
+                    _check(_same_bits(w, w_full.narrow(sdim, i * size, size)),
+                           f"phase 15: {name} {n}-way {dim} shard {i} "
+                           f"decode != the single-device block")
+                del got, shard
+        del full, planes, w_full
+        torch.cuda.empty_cache()
+    return compared
+
+
+def _mesh_reads(name, store, kernel_lib, card) -> dict:
+    """(a) K1/K2 on every shard at its offsets, M = 4 and 1, static and
+    dynamic, against the plain version at the same offsets; the j slices
+    gathered and the k partials summed against the unsharded kernel; one
+    launch a shard a read; each shard read timed beside the unsharded
+    one."""
+    import torch
+    from repro_torch.core import cim
+    from repro_torch.kernels.cim_read import ops, ref
+    from repro_torch.kernels.fault_inject.ops import ber_to_threshold
+    dev = store.device
+    thr = ber_to_threshold(MODEL_BER)
+    sc = ops.make_scalars(MESH_SEEDS, thr, thr)
+    g = torch.Generator(device=dev).manual_seed(15)
+    x4 = torch.randn((BATCH, K), generator=g, device=dev)
+    injected = cim.inject_with_seeds(store, MESH_SEEDS, thr, thr)
+    wabs = {"static": cim.read(store)[0].abs(),
+            "dynamic": cim.read(injected)[0].abs()}
+    del injected
+    out, worst = {}, 0.0
+    for x in (x4, x4[:1].contiguous()):
+        m = x.shape[0]
+        whole = {"static": ops.cim_linear_store(x, store),
+                 "dynamic": ops.cim_linear_store(x, store, scalars=sc)}
+        for n, dim in MESH_SPLITS:
+            shards = [cim.shard_store(store, n, i, dim) for i in range(n)]
+            k_loc = K // n if dim == "k" else K
+            parts = {"static": [], "dynamic": []}
+            for i, shard in enumerate(shards):
+                xs = x if dim == "j" else x[:, i * k_loc:(i + 1) * k_loc] \
+                    .contiguous()
+                cols = slice(None) if dim == "k" else \
+                    slice(i * shard.shape[1], (i + 1) * shard.shape[1])
+                rows = slice(None) if dim == "j" else \
+                    slice(i * k_loc, (i + 1) * k_loc)
+                for mode, s in (("static", None), ("dynamic", sc)):
+                    got, info = ops.cim_linear_store(xs, shard, scalars=s,
+                                                     with_info=True)
+                    _check(info["used_kernel"] and info["tiles"]["kernel"]
+                           == "narrow", f"phase 15: {name} shard read "
+                           f"{info.get('tiles')}")
+                    want, _ = ref.cim_read_ref(xs, shard, s)
+                    ok, err = _close(got, want,
+                                     xs.abs() @ wabs[mode][rows, cols])
+                    _check(ok, f"phase 15: {name} {n}-way {dim} shard {i} "
+                           f"M = {m} {mode} vs plain at the same offsets "
+                           f"(max err {err:.3e})")
+                    worst = max(worst, err)
+                    parts[mode].append(got)
+            for mode in parts:
+                if dim == "j":
+                    got = torch.cat(parts[mode], dim=-1)[:, :J]
+                    bitwise = _same_bits(got, whole[mode])
+                    diff = float((got - whole[mode]).abs().nan_to_num()
+                                 .max())
+                    _check(bitwise or diff <= TOL, f"phase 15: {name} "
+                           f"gathered j slices vs unsharded ({mode}, M = {m})"
+                           f": max diff {diff:.3e}")
+                    if not bitwise:
+                        print(f"phase 15: {name} M = {m} {mode}: the gathered "
+                              f"j slices differ from the unsharded read by "
+                              f"{diff:.3e} (not bitwise: each column's K loop "
+                              f"is its shard's, so a difference comes from "
+                              f"the narrow kernel's strip state at the shard "
+                              f"offset)")
+                else:
+                    got = parts[mode][0]
+                    for p in parts[mode][1:]:
+                        got = got + p
+                    ok, err = _close(got, whole[mode],
+                                     x.abs() @ wabs[mode])
+                    _check(ok, f"phase 15: {name} k partials summed vs "
+                           f"unsharded ({mode}, M = {m}, max err {err:.3e})")
+                out.setdefault(f"{n}{dim}", {})[f"m{m}_{mode}_bitwise"] = \
+                    _same_bits(got, whole[mode]) if dim == "j" else None
+            kernel_lib.reset_launch_counts()
+            for i, shard in enumerate(shards):
+                xs = x if dim == "j" else x[:, i * k_loc:(i + 1) * k_loc] \
+                    .contiguous()
+                ops.cim_linear_store(xs, shard, scalars=sc)
+            _check(kernel_lib.launch_counts[name] == n,
+                   f"phase 15: {name} {n}-way {dim}: "
+                   f"{kernel_lib.launch_counts[name]} launches for one read")
+            if m != BATCH:
+                continue
+            figs = []
+            for i, shard in enumerate(shards):
+                xs = x if dim == "j" else x[:, i * k_loc:(i + 1) * k_loc] \
+                    .contiguous()
+                w = cim.read(shard)[0]
+                j_loc = shard.shape[1]
+                nbytes = _store_bytes(shard) + xs.numel() * 4 + m * j_loc * 4
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = 2.0 * m * xs.shape[1] * j_loc / FP32_FLOPS * 1e3
+                draws = _draws(shard)
+                hash_ms = draws * ALU_OPS_PER_DRAW / INT32_OPS * 1e3
+                figs.append({
+                    "shard": i, "shape": list(shard.shape),
+                    "offsets": list(shard.shard.offsets),
+                    "ms": _time_ms(lambda: ops.cim_linear_store(
+                        xs, shard, scalars=sc)),
+                    "static_ms": _time_ms(lambda: ops.cim_linear_store(
+                        xs, shard)),
+                    "plain_ms": _time_ms(lambda: ref.cim_read_ref(
+                        xs, shard, sc), reps=3, inner=1),
+                    "library_ms": _time_ms(lambda: torch.matmul(xs, w)),
+                    "bound_ms": max(bytes_ms, ops_ms),
+                    "bound_by": "bytes" if bytes_ms >= ops_ms
+                    else "operations",
+                    "dynamic_bound_ms": max(bytes_ms, hash_ms),
+                    "dynamic_bound_by": "bytes" if bytes_ms >= hash_ms
+                    else "operations", "bytes": nbytes, "draws": draws})
+                del w
+            row = out[f"{n}{dim}"]
+            row.update({"launches": n, "shards": figs,
+                        "unsharded_ms": _time_ms(lambda: ops.cim_linear_store(
+                            x, store, scalars=sc)),
+                        "unsharded_static_ms": _time_ms(
+                            lambda: ops.cim_linear_store(x, store))})
+            for f in figs:
+                print(f"phase 15: {name} {n}-way {dim} shard {f['shard']} "
+                      f"{f['shape']} at offsets {f['offsets']}, M = {m}: "
+                      f"{f['ms']:.4f} ms dynamic, {f['static_ms']:.4f} ms "
+                      f"static (unsharded {row['unsharded_ms']:.4f} / "
+                      f"{row['unsharded_static_ms']:.4f}); torch.matmul at "
+                      f"the shard's shape {f['library_ms']:.4f} ms, plain "
+                      f"{f['plain_ms']:.2f} ms; bound {f['bound_ms']:.4f} ms"
+                      f" static, {f['dynamic_bound_ms']:.4f} ms dynamic "
+                      f"({f['draws'] / 1e9:.3f} G draws) on {card}")
+            del shards
+    for row in out.values():
+        row["max_abs_err"] = worst
+    return out
+
+
+def _mesh_serve(model, kernel_lib) -> dict:
+    """(b) serve --mesh 1x1 --rounds 2 through a world-size-1 NCCL group:
+    arms (a) and (b) give the unsharded run's tokens, GEN launches of the
+    arm's kernel a round, every read narrow."""
+    import numpy as np
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve as serve_lib
+    mesh = mesh_lib.make_serve_mesh("1x1", "cuda")
+    launches = {}
+    try:
+        for name, (label, path, protect, inject, ber) in zip(
+                ("cim_read_matmul_one4n", "cim_read_matmul_raw"), ARMS[:2]):
+            kw = dict(batch=BATCH, prompt_len=PROMPT, gen=GEN, seed=0,
+                      cim=True, ber=ber, protect=protect, serve_path=path,
+                      inject=inject, rounds=MESH_ROUNDS, verbose=False)
+            base = serve_lib.serve(model, **kw)
+            kernel_lib.reset_launch_counts()
+            res, kernels = _kernels_of(lambda: serve_lib.serve(
+                model, mesh=mesh, **kw))
+            counts = dict(kernel_lib.launch_counts)
+            _check(counts[name] == GEN * MESH_ROUNDS == res["launches"][name],
+                   f"phase 15: mesh arm {label}: launches {counts}")
+            _check(kernels == ["narrow"] * (GEN * MESH_ROUNDS),
+                   f"phase 15: mesh arm {label}: reads {kernels}")
+            _check(np.array_equal(res["round_tokens"], base["round_tokens"]),
+                   f"phase 15: mesh arm {label}: tokens != the unsharded "
+                   f"run's")
+            _check(res["ecc"] == base["ecc"], f"phase 15: mesh arm {label}: "
+                   f"ECC {res['ecc']} != {base['ecc']}")
+            print(f"phase 15: serve --mesh 1x1 --rounds {MESH_ROUNDS} arm "
+                  f"{label}: tokens == the unsharded run's, {counts[name]} "
+                  f"narrow launches ({GEN} a round), "
+                  f"{res['tok_per_s']:.1f} tok/s aggregate "
+                  f"({res['tok_per_s_device']:.1f} a device; unsharded "
+                  f"{base['tok_per_s']:.1f}); model axis "
+                  f"{shlib.axis_size('model', mesh)}")
+            launches[name] = counts[name]
+    finally:
+        mesh_lib.destroy_world()
+    return launches
+
+
+def _mesh_trials(dev, model, fi_kernel, card) -> dict:
+    """(c) Phase 5's one4n arm, its trials as two ranks' slices one after
+    the other: the joined per-trial agreements and ECC counts equal the
+    unsharded arm's bitwise; K3 timed on a slice's trials."""
+    import numpy as np
+    from repro_torch.core import cim
+    from repro_torch.core import sweep as sweep_lib
+    from repro_torch.kernels.fault_inject import ops, ref
+    params, agreement, cim_cfg, seeds = _fig6_setup(dev, model)
+    a = FIG6_PROTECTS.index("one4n")
+    plan = sweep_lib.SweepPlan(bers=FIG6_BERS, n_trials=FIG6_TRIALS,
+                               protects=("one4n",))
+    whole = sweep_lib.SweepEngine(plan, device=dev).run_protection(
+        seeds[a:a + 1], params, agreement, cim_cfg)
+    parts, launches = [], []
+    for r in range(2):
+        fi_kernel.reset_launch_counts()
+        parts.append(sweep_lib.SweepEngine(plan, device=dev,
+                                           trial_shard=(2, r)).run_protection(
+            seeds[a:a + 1], params, agreement, cim_cfg))
+        launches.append(fi_kernel.launch_counts[fi_kernel.K3])
+    joined = sweep_lib.merge_trial_shards(parts)
+    for w, j in zip(whole, joined):
+        _check(w.accuracies == j.accuracies and
+               w.trial_corrected == j.trial_corrected and
+               w.trial_uncorrectable == j.trial_uncorrectable and
+               (w.corrected, w.uncorrectable) == (j.corrected,
+                                                  j.uncorrectable),
+               f"phase 15: trial slices at {w.ber:.0e}: {j.accuracies} "
+               f"{j.trial_corrected} vs {w.accuracies} {w.trial_corrected}")
+    want = 2 * FIG6_PLANES["one4n"] * len(FIG6_BERS)
+    _check(launches == [want, want], f"phase 15: K3 launches a slice "
+           f"{launches}, expected {want}")
+    print(f"phase 15: Fig. 6 one4n as two trial slices: per-trial agreement "
+          f"and ECC counts equal the unsharded arm's ({[r.accuracies for r in joined]}, "
+          f"corrected {[r.trial_corrected for r in joined]}); {launches} K3 "
+          f"launches a slice")
+    man = cim.deploy_pytree_impl({"unembed": params["unembed"]},
+                                 cim_cfg)[0]["unembed"].man
+    half = np.asarray(seeds[a, -1, :FIG6_TRIALS // 2], np.uint32)
+    thr = ops.ber_to_threshold(FIG6_BERS[-1])
+    figs = _fi_figures(
+        "phase 15: K3 on a trial slice",
+        lambda: ops.fault_inject_bits_batched(man, half, thr,
+                                              positions=range(10)),
+        lambda: ref.fault_inject_batched_ref(man, half, thr,
+                                             positions=range(10)),
+        man.numel(), len(half), 10)
+    figs["launches"] = launches[0]
+    print(f"phase 15: fault_inject_batched on a trial slice (T = {len(half)}"
+          f" of {FIG6_TRIALS}) at the unembed mantissa plane: "
+          f"{figs['ms']:.4f} ms, plain {figs['plain_ms']:.2f} ms, bound "
+          f"{figs['bound_ms']:.4f} ms on {card}")
+    return figs
+
+
+def _slot_run(model, cfg, tokens, steps: int, params=None):
+    """The slot-state protocol on ``model``: every slot's prompt prefilled
+    as one chunk, then ``steps`` greedy decode steps -> (slot states,
+    logits of every step, ms a decode step)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    dev = model.embed.device
+    b, s = tokens.shape
+    caches = lm.init_slot_states(cfg, b, s + steps + 1, device=dev)
+    logits = []
+    with torch.inference_mode():
+        first = torch.stack([model.prefill_chunk(caches, tokens[i], i, 0,
+                                                 params=params)[0]
+                             for i in range(b)])
+        logits.append(first)
+        cur = first.argmax(-1)[:, None]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            lg, caches = model.decode_slots(caches, cur, np.ones(b, bool),
+                                            params=params)
+            logits.append(lg)
+            cur = lg.argmax(-1)[:, None]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+    return caches, logits, ms
+
+
+def _cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for st in caches["layers"]
+               for t in st.values())
+
+
+def _int8_cache(dev, model, card) -> dict:
+    """(d) The int8 K/V cache: full-width olmo-1b's slot states, arm (c)'s
+    static image, int8 beside the compute dtype (bytes and decode ms a
+    step); reduced olmo-1b card == CPU; the engine's solo == co-batched on
+    the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import attention
+    from repro_torch.models.lm import LM
+    cfg = model.cfg
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    _, path, protect, inject, ber = ARMS[2]
+    params = serve_lib.build_params(model, cim=True, ber=ber, protect=protect,
+                                    serve_path=path, inject=inject,
+                                    verbose=False)[0]
+    toks = torch.as_tensor(MarkovLM(cfg.vocab_size, PROMPT, BATCH, seed=0)
+                           .batch(0)["tokens"], dtype=torch.int64, device=dev)
+    figs = {}
+    for tag, c in (("compute", cfg), ("int8", cfg8)):
+        caches, logits, ms = _slot_run(model, c, toks, GEN - 1, params)
+        figs[tag] = {"cache_bytes": _cache_bytes(caches), "ms_step": ms,
+                     "tokens": torch.stack([lg.argmax(-1) for lg in logits],
+                                           1).cpu().numpy()}
+        _check(all(bool(torch.isfinite(lg).all()) for lg in logits),
+               f"phase 15: {tag} cache: non-finite logits")
+        del caches, logits
+    agree = float((figs["int8"]["tokens"] == figs["compute"]["tokens"])
+                  .mean())
+    print(f"phase 15: full-width olmo-1b slot states, arm {ARMS[2][0]}: int8 "
+          f"cache {figs['int8']['cache_bytes'] / 1e6:.1f} MB, "
+          f"{figs['int8']['ms_step']:.3f} ms a decode step; compute dtype "
+          f"{figs['compute']['cache_bytes'] / 1e6:.1f} MB, "
+          f"{figs['compute']['ms_step']:.3f} ms; greedy tokens agree "
+          f"{agree:.3f} on {card}")
+    del params
+    # reduced olmo-1b: the cache on the card against the CPU's
+    red8 = dataclasses.replace(get_config("olmo-1b").reduced(),
+                               kv_cache_dtype="int8")
+    cpu = LM(red8, generator=torch.Generator().manual_seed(4), device="cpu")
+    gpu = LM(red8, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    rtoks = torch.as_tensor(MarkovLM(256, 8, 2, seed=1).batch(0)["tokens"],
+                            dtype=torch.int64)
+    (c_cpu, l_cpu, _), (c_gpu, l_gpu, _) = (
+        _slot_run(m, red8, rtoks.to(m.embed.device), 4) for m in (cpu, gpu))
+    diffs = {}
+    for layer, (a, b) in enumerate(zip(c_cpu["layers"], c_gpu["layers"])):
+        for n in ("k", "v", "k_scale", "v_scale"):
+            bb = b[n].cpu()
+            if n.endswith("scale"):
+                d = (a[n].view(torch.int16).to(torch.int32)
+                     - bb.view(torch.int16).to(torch.int32)).abs()
+            else:
+                d = (a[n].to(torch.int32) - bb.to(torch.int32)).abs()
+            diffs[f"{layer}/{n}"] = (int((d > 0).sum()), int(d.max()))
+    n_diff = sum(v[0] for v in diffs.values())
+    _check(n_diff == 0, f"phase 15: reduced int8 cache card vs CPU: "
+                        f"(values differing, largest step) {diffs}")
+    _check(all(torch.equal(a.argmax(-1).cpu(), b.argmax(-1).cpu())
+               for a, b in zip(l_cpu, l_gpu)),
+           "phase 15: reduced int8 cache: card tokens != CPU tokens")
+    rng = np.random.default_rng(0)
+    xq = torch.from_numpy((rng.standard_normal((4, 64, 8, 64)) * 3)
+                          .astype(np.float32))
+    xq[0, 0, 0] = 0.0
+    xq[0, 1, 0] = torch.linspace(-254, 254, 64)
+    qc, sc_ = attention.quant_kv(xq)
+    qg, sg = attention.quant_kv(xq.to(dev))
+    _check(torch.equal(qc, qg.cpu()) and
+           torch.equal(sc_.view(torch.int16), sg.cpu().view(torch.int16)),
+           "phase 15: quant_kv on the card != the CPU's on the same input")
+    print(f"phase 15: reduced olmo-1b int8 cache, card vs CPU: bitwise "
+          f"(values and bf16 scales of 2 layers over prefill + 4 decode "
+          f"steps), tokens equal; quant_kv bitwise on the same input")
+    # the engine on the card: solo == co-batched on the int8 cache
+    from repro_torch.launch import engine as engine_lib
+    load = engine_lib.LoadGen(n_requests=4, prompt_lens=(8, 32),
+                              gen_lens=(3, 6), vocab_size=256, seed=0)
+    reqs, max_len = load.requests(), load.max_len()
+    eparams = _engine_params(gpu, ENGINE_ARMS[0])
+    co, _ = _engine_run(gpu, eparams, reqs, max_len, collect_logits=True)
+    for rid in (0, 2):
+        solo, _ = _engine_run(gpu, eparams, [reqs[rid]], max_len,
+                              collect_logits=True)
+        _check(_same_request(co[rid], solo[rid]), f"phase 15: int8 engine "
+               f"request {rid} solo != co-batched")
+    print("phase 15: engine on the card with the int8 cache, arm "
+          f"{ENGINE_ARMS[0][0]}: solo == co-batched bitwise (rids 0, 2)")
+    figs["reduced_card_vs_cpu_diffs"] = n_diff
+    for tag in ("compute", "int8"):
+        figs[tag].pop("tokens")
+    figs["token_agreement"] = agree
+    return figs
+
+
+def phase_mesh(dev, checks: dict, kernel_lib, fi_kernel, card: str) -> dict:
+    """Phase 15: the sharded image (a), serving on a 1x1 mesh (b), the trial
+    slices of Fig. 6 (c) and the int8 K/V cache (d). Returns the K1/K2 shard
+    rows by kernel, K3's trial-slice figures and the int8 figures."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fault_inject.ops import ber_to_threshold
+    from repro_torch.models.lm import LM
+    t0 = time.perf_counter()
+    parts = {}
+    thr = ber_to_threshold(MODEL_BER)
+    out = {"mesh": {}}
+    for name in PROTECT_OF:
+        store = checks[name]["store"]
+        n = _mesh_flips(name, store, thr)
+        print(f"phase 15: {name}: {n} shard planes under i.i.d. and "
+              f"{len(MODEL_SPECS)} processes equal the single-device blocks "
+              f"bitwise; i.i.d. decodes too")
+        out["mesh"][name] = _mesh_reads(name, store, kernel_lib, card)
+    parts["a"] = time.perf_counter() - t0
+    model = LM(get_config("olmo-1b"),
+               generator=torch.Generator(device=dev).manual_seed(0),
+               device=dev)
+    t1 = time.perf_counter()
+    for name, n in _mesh_serve(model, kernel_lib).items():
+        out["mesh"][name]["serve_launches"] = n
+    parts["b"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["trial_slice"] = _mesh_trials(dev, model, fi_kernel, card)
+    parts["c"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["int8"] = _int8_cache(dev, model, card)
+    parts["d"] = time.perf_counter() - t1
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "cim_read" / "csrc").is_dir():
@@ -3640,6 +4147,18 @@ def main() -> int:
     dev = resolve_device("cuda")
     card = _card()
     t0 = time.perf_counter()
+    if sys.argv[1:] == ["--phase", "15"]:
+        phase_build({"K1+K2": kernel_lib.LIBRARY, "K3+K4": fi_kernel.LIBRARY})
+        checks = {name: {"store": _unembed_store(protect, dev)}
+                  for name, protect in PROTECT_OF.items()}
+        mesh = phase_mesh(dev, checks, kernel_lib, fi_kernel, card)
+        print(card)
+        print(json.dumps(mesh))
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
     phase_build({"K1+K2": kernel_lib.LIBRARY, "K3+K4": fi_kernel.LIBRARY,
                  "K5": bfp_kernel.LIBRARY})
     phase_sass(fi_kernel.LIBRARY.build())
@@ -3669,16 +4188,20 @@ def main() -> int:
     granite = phase_granite(dev, kernel_lib, card)
     rwkv = phase_kinds(dev, kernel_lib, card)
     codesign = phase_codesign(dev, fi_kernel, card)
+    mesh = phase_mesh(dev, checks, kernel_lib, fi_kernel, card)
     rows = phase_times(dev, checks, launches, engine_launches, card)
     for row in rows:
         row["granite"] = granite[row["name"]]
         row["rwkv6"] = rwkv[row["name"]]
+        row["mesh"] = mesh["mesh"][row["name"]]
     fi_rows = phase_fi_times(dev, checks, fig6["launches"], fi, card)
     for row in fi_rows:
         row["codesign"] = codesign[row["name"]]
+    fi_rows[0]["trial_slice"] = mesh["trial_slice"]
     rows += fi_rows
     rows.append(phase_bfp_times(dev, bfp, card))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build start")
+    print(json.dumps({"int8_cache": mesh["int8"]}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

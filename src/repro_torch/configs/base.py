@@ -2,9 +2,10 @@
 
 Declared again here because the reference's module imports ``jax.numpy``.
 The fields of every block kind are carried over (``attn``, ``local``,
-``moe``, ``rwkv``, ``rec``); left out are the reference's sharding choices
-(``attn_impl``, ``mlp_impl``) and ``kv_cache_dtype``, whose int8 cache
-waits (ROADMAP Queue 1). ``moe_dispatch="a2a"`` means the dense dispatch on
+``moe``, ``rwkv``, ``rec``), and ``kv_cache_dtype`` (``"int8"``: the
+engine's K/V rows as int8 values with a bf16 scale a token and head); left
+out are the reference's sharding choices (``attn_impl``, ``mlp_impl``).
+``moe_dispatch="a2a"`` means the dense dispatch on
 one device, as the reference falls back to it without a mesh.
 ``RunConfig`` describes one training run.
 """
@@ -36,6 +37,7 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
     moe_dispatch: str = "a2a"        # a2a (dense on one device) | sort | cumsum
+    kv_cache_dtype: str = "compute"  # compute | int8 (per-token-head scales)
     # hybrid / recurrent
     block_pattern: Tuple[str, ...] = ("attn",)   # cycled over layers
     d_rnn: int = 0

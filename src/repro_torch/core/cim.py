@@ -20,6 +20,19 @@ Seeds are explicit uint32 per-plane dicts ``{"man", "meta", "cw"}`` (Python
 ints). The reference derives them from a ``jax.random`` key
 (``cim.plane_seeds``); the port does not reimplement threefry, so a caller
 that wants the reference's streams passes the reference's seeds.
+
+Mesh shards. :func:`shard_store` cuts a store into ``n_shards`` blocks along
+``dim`` (``'j'``: output columns in whole ``row_weights`` groups; ``'k'``:
+word lines in whole exponent blocks and sign words) and returns block
+``index`` as a store whose :class:`ShardInfo` records the global image. Every
+function of a store honours it: :func:`inject_with_seeds` (and so
+:func:`inject` / :func:`inject_sharded`) draws each local word at its GLOBAL
+C-order index, the fault processes compile against the global plane shapes,
+and :func:`read_rows` decodes a column block at global coordinates, so each
+shard's flips equal the single-device image's block bit for bit. Reads and
+ECC counts of a shard are local; the combine over a mesh (gather the column
+blocks, sum the K slabs and the counts) is the caller's
+(:mod:`repro_torch.core.deployment`).
 """
 from __future__ import annotations
 
@@ -62,12 +75,50 @@ class CIMConfig:
         return SecdedCode(self.fmt.exp_bits + 1)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardInfo:
+    """Where a store's planes sit in the image they were cut from.
+
+    ``sharded`` False means the planes did not split evenly and the shard
+    holds the whole image (replicated, as the reference's placement
+    degrades). ``global_shape`` is the logical (K, J), ``global_pad`` the
+    padded (K_pad, J_pad), ``plane_shapes`` each plane's global shape."""
+
+    n_shards: int
+    index: int
+    dim: str
+    sharded: bool
+    global_shape: Tuple[int, int]
+    global_pad: Tuple[int, int]
+    plane_shapes: Tuple[Tuple[str, Tuple[int, ...]], ...]
+
+    @property
+    def sdim(self) -> int:
+        """The plane dimension that is split: 0 for ``'k'``, 1 for ``'j'``."""
+        return 0 if self.dim == "k" else 1
+
+    def plane_shape(self, name: str) -> Tuple[int, ...]:
+        return dict(self.plane_shapes)[name]
+
+    @property
+    def offsets(self) -> Tuple[int, int]:
+        """(off_k, off_j): the shard's first weight row and column."""
+        if not self.sharded:
+            return 0, 0
+        k_pad, j_pad = self.global_pad
+        if self.dim == "k":
+            return self.index * (k_pad // self.n_shards), 0
+        return 0, self.index * (j_pad // self.n_shards)
+
+
 @dataclasses.dataclass
 class CIMStore:
     """Word-packed SRAM image of one [K, J] weight matrix (see module doc).
 
     ``cache`` is the serving-only decoded fp32 matrix (``read(store)[0]``),
-    not part of the SRAM image or its accounting."""
+    not part of the SRAM image or its accounting. ``shard`` (None for a
+    whole image) places a mesh shard's block in its global image; its
+    ``shape`` is then the block's logical shape."""
 
     man: torch.Tensor
     sign: Optional[torch.Tensor]
@@ -76,6 +127,7 @@ class CIMStore:
     shape: Tuple[int, int]
     cfg: CIMConfig
     cache: Optional[torch.Tensor] = None
+    shard: Optional[ShardInfo] = None
 
     @property
     def device(self) -> torch.device:
@@ -215,11 +267,45 @@ def _elem(shape, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
 
 
+def global_elem(local_shape, global_shape, sdim: int, start: int,
+                device) -> torch.Tensor:
+    """C-order flat indices into the GLOBAL plane of ``global_shape`` for a
+    local block of ``local_shape`` whose dimension ``sdim`` starts at
+    ``start`` (the reference's ``_global_elem``)."""
+    elem = torch.zeros(local_shape, dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(global_shape))):
+        shape = [1] * len(local_shape)
+        shape[d] = local_shape[d]
+        idx = torch.arange(local_shape[d], dtype=torch.int64,
+                           device=device).reshape(shape)
+        if d == sdim:
+            idx = idx + int(start)
+        elem = elem + idx * stride
+        stride *= int(global_shape[d])
+    return elem
+
+
+def _plane_elem(store: CIMStore, name: str, words: torch.Tensor):
+    """(flat element indices, global plane shape) of one of ``store``'s
+    planes: its own C-order indices, or a shard block's global ones."""
+    sh = store.shard
+    if sh is None or not sh.sharded:
+        return _elem(words.shape, words.device), tuple(words.shape)
+    gshape = sh.plane_shape(name)
+    start = sh.index * words.shape[sh.sdim]
+    return (global_elem(words.shape, gshape, sh.sdim, start, words.device),
+            gshape)
+
+
 def counter_flip_words(words: torch.Tensor, seed: int, threshold, valid,
-                       model=None) -> torch.Tensor:
-    """Flip bits of a packed word plane per the counter-PRNG contract."""
-    elem = _elem(words.shape, words.device)
-    threshold = fm.plane_thresholds(model, threshold, elem, seed, words.shape)
+                       model=None, elem=None, shape=None) -> torch.Tensor:
+    """Flip bits of a packed word plane per the counter-PRNG contract, at
+    flat indices ``elem`` of a plane of ``shape`` (default: the plane's
+    own)."""
+    if elem is None:
+        elem, shape = _elem(words.shape, words.device), words.shape
+    threshold = fm.plane_thresholds(model, threshold, elem, seed, shape)
     return _flip_gathered(words, elem, seed, threshold, valid)
 
 
@@ -234,23 +320,35 @@ def inject_with_seeds(store: CIMStore, seeds: dict, thr_man, thr_meta,
                       model=None) -> CIMStore:
     """Flip stored bits from explicit per-plane seeds + field thresholds
     (``thr_man`` gates mantissa cells, ``thr_meta`` exponent/sign/check
-    cells; zero leaves a field untouched)."""
+    cells; zero leaves a field untouched). ``model`` is a fault process or
+    its grammar string. A shard draws at its global indices (module doc)."""
     cfg = store.cfg
-    man = counter_flip_words(store.man, seeds["man"], thr_man,
-                             (1 << cfg.fmt.man_bits) - 1, model=model)
+    model = fm.parse_fault_model(model)
+
+    def flip(name, words, seed, thr, valid):
+        elem, shape = _plane_elem(store, name, words)
+        return counter_flip_words(words, seed, thr, valid, model=model,
+                                  elem=elem, shape=shape)
+
+    man = flip("man", store.man, seeds["man"], thr_man,
+               (1 << cfg.fmt.man_bits) - 1)
     sign, exp, cw = store.sign, store.exp, store.codewords
     if cw is not None:
-        cw = counter_flip_words(cw, seeds["cw"], thr_meta,
-                                codeword_valid_masks(cfg), model=model)
+        cw = flip("cw", cw, seeds["cw"], thr_meta, codeword_valid_masks(cfg))
     else:
-        exp = counter_flip_words(exp, seeds["meta"], thr_meta,
-                                 (1 << cfg.fmt.exp_bits) - 1, model=model)
-        k_pad = store.man.shape[0]
-        sign = counter_flip_words(
-            sign, seeds["cw"], thr_meta,
-            bitpack.word_masks(k_pad, sign.shape[0])[:, None], model=model)
+        exp = flip("exp", exp, seeds["meta"], thr_meta,
+                   (1 << cfg.fmt.exp_bits) - 1)
+        sh = store.shard
+        if sh is not None and sh.sharded and sh.dim == "k":
+            # a K shard holds whole 32-row words (can_shard_store), so
+            # every lane is a stored cell: the reference's scalar mask
+            valid = M32
+        else:
+            valid = bitpack.word_masks(store.man.shape[0],
+                                       sign.shape[0])[:, None]
+        sign = flip("sign", sign, seeds["cw"], thr_meta, valid)
     return CIMStore(man=man, sign=sign, exp=exp, codewords=cw,
-                    shape=store.shape, cfg=cfg)
+                    shape=store.shape, cfg=cfg, shard=store.shard)
 
 
 def field_thresholds(ber, field: str = "full") -> Tuple[int, int]:
@@ -268,6 +366,19 @@ def inject(seeds: dict, store: CIMStore, ber, field: str = "full",
         return store
     thr_man, thr_meta = field_thresholds(ber, field)
     return inject_with_seeds(store, seeds, thr_man, thr_meta, model=model)
+
+
+def inject_sharded(seeds: dict, store: CIMStore, ber, field: str = "full",
+                   model=None) -> CIMStore:
+    """:func:`inject` of one shard of a mesh-sharded image (the reference's
+    ``inject_sharded``): every local word draws at its GLOBAL C-order index
+    and the fault process compiles against the global plane shapes, so the
+    shard equals the block of the single-device ``inject`` at the same
+    seeds, bit for bit."""
+    if store.shard is None:
+        raise ValueError("inject_sharded: the store is not a shard "
+                         "(shard_store)")
+    return inject(seeds, store, ber, field, model=model)
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +443,94 @@ def drop_row_cache(store: CIMStore) -> CIMStore:
     return dataclasses.replace(store, cache=None)
 
 
+def read_reference(store: CIMStore):
+    """Per-bit oracle for :func:`read`: unpack the packed planes to one byte
+    a bit and decode with the per-bit SECDED codecs
+    (:meth:`~repro_torch.core.ecc.SecdedCode.decode`). Kept as the
+    equivalence baseline of the packed path; never on a hot path."""
+    cfg = store.cfg
+    n = cfg.n_group
+    k_pad, j_pad = store.man.shape
+    b = k_pad // n
+    if store.codewords is not None and cfg.protect == "per_weight":
+        code = cfg.pw_code
+        cw_bits = bitpack.unpack_words(store.codewords[..., None], code.n)
+        data, status = code.decode(cw_bits)
+        eb = cfg.fmt.exp_bits
+        shifts = torch.arange(eb, dtype=torch.int64, device=store.device)
+        e_full = (data[..., :eb].to(torch.int64) << shifts).sum(-1)
+        sign = data[..., eb]
+    elif store.codewords is not None:
+        codec = cfg.codec
+        cw_bits = bitpack.unpack_words(store.codewords, codec.code.n)
+        exp_rows, signs, status = codec.decode(cw_bits)
+        e_full = torch.repeat_interleave(exp_rows.reshape(b, j_pad), n, dim=0)
+        sign = signs.permute(0, 2, 1, 3).reshape(k_pad, j_pad)
+    else:
+        e_full = torch.repeat_interleave(store.exp.to(torch.int64), n, dim=0)
+        sign = unpack_sign_plane(store.sign, k_pad)
+        status = None
+    w = bitops.fields_to_f32(sign, e_full, store.man, cfg.fmt)
+    k, j = store.shape
+    return w[:k, :j], _stats(status)
+
+
+def can_shard_store(store: CIMStore, n_shards: int, dim: str = "j") -> bool:
+    """Whether every plane splits evenly into ``n_shards`` along ``dim``:
+    ``'j'`` in whole ``row_weights`` column groups, ``'k'`` in whole
+    exponent blocks (and whole 32-row sign words for ``protect='none'``)."""
+    if n_shards == 1:
+        return True
+    k_pad, j_pad = store.man.shape
+    cfg = store.cfg
+    if dim == "j":
+        return j_pad % (n_shards * cfg.row_weights) == 0
+    if dim == "k":
+        if k_pad % (n_shards * cfg.n_group) != 0:
+            return False
+        return store.sign is None or k_pad % (n_shards * 32) == 0
+    raise ValueError(f"dim must be 'j' or 'k', got {dim!r}")
+
+
+def shard_store(store: CIMStore, n_shards: int, index: int,
+                dim: str = "j", split: bool = True) -> CIMStore:
+    """Block ``index`` of ``n_shards`` of the image along ``dim``: every
+    plane's dimension 1 (columns, column groups) for ``'j'``, dimension 0
+    (K rows, exponent blocks, sign words) for ``'k'``, as contiguous
+    copies, with a :class:`ShardInfo` of the global image. Its ``shape`` is
+    (K, J_pad / n) or (K_pad / n, J). An image that does not split evenly,
+    or any image with ``split=False`` (a store the sharded read route does
+    not take), stays whole (``ShardInfo.sharded`` False), as the
+    reference's placement leaves it replicated. A decoded-row cache is
+    rebuilt for a block."""
+    if store.shard is not None:
+        raise ValueError("shard_store: the store is already a shard")
+    if not 0 <= index < n_shards:
+        raise ValueError(f"shard_store: index {index} of {n_shards}")
+    ok = split and can_shard_store(store, n_shards, dim)
+    planes = plane_dict(store)
+    info = ShardInfo(n_shards=n_shards, index=index, dim=dim, sharded=ok,
+                     global_shape=tuple(store.shape),
+                     global_pad=tuple(store.man.shape),
+                     plane_shapes=tuple((k, tuple(v.shape))
+                                        for k, v in planes.items()))
+    if not ok:
+        return dataclasses.replace(store, shard=info)
+    sdim = info.sdim
+
+    def cut(p):
+        size = p.shape[sdim] // n_shards
+        return p.narrow(sdim, index * size, size).contiguous()
+    planes = {k: cut(v) for k, v in planes.items()}
+    k_log, j_log = store.shape
+    shape = (k_log, planes["man"].shape[1]) if dim == "j" \
+        else (planes["man"].shape[0], j_log)
+    out = CIMStore(man=planes["man"], sign=planes.get("sign"),
+                   exp=planes.get("exp"), codewords=planes.get("cw"),
+                   shape=shape, cfg=store.cfg, shard=info)
+    return build_row_cache(out) if store.cache is not None else out
+
+
 def plane_dict(store: CIMStore) -> dict:
     """The store's populated planes by name (``man``, ``sign``, ``exp``,
     ``cw``), as the reference's ``_plane_dict``."""
@@ -364,16 +563,30 @@ def read_rows(store: CIMStore, idx: torch.Tensor, seeds=None, thr_man=0,
     dev = store.device
     dyn = seeds is not None
     idx = idx.to(torch.int64)
-    cols = torch.arange(j_pad, dtype=torch.int64, device=dev)
+    # a column shard draws at global coordinates: its columns start at
+    # off_j of a J_pad-wide image (its codeword groups at off_j / rw)
+    sh = store.shard
+    off_j, gj_pad = 0, j_pad
+    if sh is not None and sh.sharded:
+        if sh.dim != "j":
+            raise NotImplementedError(
+                "read_rows of a K-sharded store: rows are whole on a column "
+                "shard only (serving places dim='j')")
+        off_j, gj_pad = sh.offsets[1], sh.global_pad[1]
+    cols = torch.arange(j_pad, dtype=torch.int64, device=dev) + off_j
+
+    def gshape(name, plane):
+        return sh.plane_shape(name) if gj_pad != j_pad else plane.shape
 
     def mthr(thr, elem_, seed_, shape_):
         return fm.plane_thresholds(model, thr, elem_, seed_, shape_)
 
     man = _rows(store.man, idx)                                  # [..., J_pad]
     if dyn:
-        elem = idx[..., None] * j_pad + cols
+        elem = idx[..., None] * gj_pad + cols
         man = _flip_gathered(man, elem, seeds["man"],
-                             mthr(thr_man, elem, seeds["man"], store.man.shape),
+                             mthr(thr_man, elem, seeds["man"],
+                                  gshape("man", store.man)),
                              (1 << cfg.fmt.man_bits) - 1)
 
     if store.codewords is not None and cfg.protect == "per_weight":
@@ -381,7 +594,7 @@ def read_rows(store: CIMStore, idx: torch.Tensor, seeds=None, thr_man=0,
         if dyn:
             cw = _flip_gathered(cw, elem, seeds["cw"],
                                 mthr(thr_meta, elem, seeds["cw"],
-                                     store.codewords.shape),
+                                     gshape("cw", store.codewords)),
                                 int(codeword_valid_masks(cfg)))
         data, _ = cfg.pw_code.decode_packed(cw[..., None])
         data = data[..., 0]
@@ -395,11 +608,13 @@ def read_rows(store: CIMStore, idx: torch.Tensor, seeds=None, thr_man=0,
         if dyn:
             s_, w_ = codec.n_segments, codec.codeword_words
             inner = torch.arange(g * s_ * w_, dtype=torch.int64,
-                                 device=dev).reshape(g, s_, w_)
-            celem = blk[..., None, None, None] * (g * s_ * w_) + inner
+                                 device=dev).reshape(g, s_, w_) \
+                + off_j // rw * s_ * w_
+            celem = blk[..., None, None, None] * (gj_pad // rw * s_ * w_) \
+                + inner
             cw = _flip_gathered(cw, celem, seeds["cw"],
                                 mthr(thr_meta, celem, seeds["cw"],
-                                     store.codewords.shape),
+                                     gshape("cw", store.codewords)),
                                 codeword_valid_masks(cfg)[None, None, :])
         exp_rows, sign_words, _ = codec.decode_packed(cw)
         e_rows = exp_rows.reshape(exp_rows.shape[:-2] + (j_pad,))
@@ -413,12 +628,12 @@ def read_rows(store: CIMStore, idx: torch.Tensor, seeds=None, thr_man=0,
         e_rows = store.exp[blk]
         sw = store.sign[idx // 32]
         if dyn:
-            eelem = blk[..., None] * j_pad + cols
+            eelem = blk[..., None] * gj_pad + cols
             e_rows = _flip_gathered(e_rows, eelem, seeds["meta"],
                                     mthr(thr_meta, eelem, seeds["meta"],
-                                         store.exp.shape),
+                                         gshape("exp", store.exp)),
                                     (1 << cfg.fmt.exp_bits) - 1)
-            selem = (idx // 32)[..., None] * j_pad + cols
+            selem = (idx // 32)[..., None] * gj_pad + cols
             svalid = M32 if k_pad % 32 == 0 else (1 << (k_pad % 32)) - 1
             # rows in a full word see all 32 lanes; the last partial word
             # only its valid lanes (the masks `inject_with_seeds` uses)
@@ -426,7 +641,7 @@ def read_rows(store: CIMStore, idx: torch.Tensor, seeds=None, thr_man=0,
             vmask = torch.where(full[..., None], M32, svalid).expand(sw.shape)
             sw = _flip_gathered(sw, selem, seeds["cw"],
                                 mthr(thr_meta, selem, seeds["cw"],
-                                     store.sign.shape), vmask)
+                                     gshape("sign", store.sign)), vmask)
         s_rows = (bitpack.widen(sw) >> (idx % 32)[..., None]) & 1
     w = bitops.fields_to_f32(s_rows, e_rows, man, cfg.fmt)
     return w[..., :store.shape[1]]

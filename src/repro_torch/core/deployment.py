@@ -14,7 +14,14 @@ params pytree; the port takes explicit per-path uint32 plane-seed dicts
 instead (``{path: {"man", "meta", "cw"}}``). Per-read dynamic seeds fold the
 base plane seeds with :func:`request_read_seeds`, exactly as the reference.
 
-Mesh placement (``.shard``) waits for ROADMAP Queue 1 item 14.
+Mesh placement. :meth:`CIMDeployment.shard` (:func:`place_stores`) keeps on
+each rank of a ``torch.distributed`` mesh (:mod:`repro_torch.launch.mesh`)
+its block of every store along ``dim`` of the ``"model"`` axis; every other
+leaf stays replicated (each rank holds it whole). ``inject`` and the
+per-read runtime then draw each block's streams at global store
+coordinates; :func:`dispatch_linear` and :func:`dispatch_read_rows` read the
+block and combine over the axis (a gather of column blocks, a sum of K
+slabs); ``stats()`` sums each block's ECC counts over the axis.
 """
 from __future__ import annotations
 
@@ -152,6 +159,7 @@ class CIMDeployment:
     ecc_stats: dict
     policy: ReliabilityPolicy
     rules: Dict[str, Optional[PolicyRule]]
+    mesh: object = None                      # the mesh it was placed on
 
     @classmethod
     def deploy(cls, leaves: Dict[str, torch.Tensor], policy: ReliabilityPolicy,
@@ -173,7 +181,18 @@ class CIMDeployment:
 
     def _replace_stores(self, stores) -> "CIMDeployment":
         return CIMDeployment(stores, dict(self.ecc_stats), self.policy,
-                             self.rules)
+                             self.rules, self.mesh)
+
+    def shard(self, mesh, *, dim: str = "j") -> "CIMDeployment":
+        """Mesh placement: this rank keeps its block of every store along
+        ``dim`` of the ``"model"`` axis (:func:`place_stores`); passthrough
+        leaves stay whole. Later ``inject`` calls draw each block at global
+        store coordinates and ``linear`` runs the sharded kernel route."""
+        if self.mesh is not None:
+            raise ValueError("CIMDeployment.shard: already placed")
+        stores = place_stores(self.stores, mesh, dim=dim)
+        return CIMDeployment(stores, dict(self.ecc_stats), self.policy,
+                             self.rules, mesh)
 
     def store_leaves(self):
         """[(path, rule, store)] of the deployed leaves."""
@@ -222,11 +241,13 @@ class CIMDeployment:
         self.ecc_stats = _add_stats(self.ecc_stats, stats)
 
     def read(self):
-        """Decode every store -> ({path: tensor}, aggregated stats)."""
+        """Decode every store -> ({path: tensor}, aggregated stats); on a
+        mesh each rank decodes its blocks and the matrices and counts are
+        combined over the axis, so every rank gets the whole."""
         out, stats = {}, {"corrected": 0, "uncorrectable": 0}
         for path, leaf in self.stores.items():
             if _is_store(leaf):
-                w, st = cim_lib.read(leaf)
+                w, st = read_placed(leaf, self.mesh)
                 out[path] = w
                 stats = _add_stats(stats, st)
             else:
@@ -235,10 +256,11 @@ class CIMDeployment:
         return out, stats
 
     def stats(self) -> dict:
-        """Aggregate ECC status counts without reconstructing weights."""
+        """Aggregate ECC status counts without reconstructing weights (a
+        sharded store's blocks summed over the mesh axis)."""
         agg = {"corrected": 0, "uncorrectable": 0}
         for _, _, s in self.store_leaves():
-            agg = _add_stats(agg, cim_lib.store_stats(s))
+            agg = _add_stats(agg, store_stats_placed(s, self.mesh))
         return agg
 
     def _leaf(self, path: str):
@@ -252,8 +274,9 @@ class CIMDeployment:
         leaf, _ = self._leaf(path)
         if not _is_store(leaf):
             return leaf.to(torch.float32)[idx]
-        return cim_lib.read_rows(leaf, idx, seeds=seeds, thr_man=thr_man,
-                                 thr_meta=thr_meta, model=model)
+        return dispatch_read_rows(leaf, idx, seeds=seeds, thr_man=thr_man,
+                                  thr_meta=thr_meta, model=model,
+                                  mesh=self.mesh)
 
     def linear(self, x, path: str, *, scalars=None, request=None, runtime=None,
                with_info: bool = False, model=None):
@@ -288,12 +311,12 @@ class CIMDeployment:
             if scalars is not None:
                 raise ValueError(f"linear({path!r}): scalars given, but the "
                                  f"rule pins serve_path='hbm'")
-            w, st = cim_lib.read(leaf)
+            w, st = read_placed(leaf, self.mesh)
             self._accumulate(st)
             out = x.to(torch.float32) @ w
             return (out, {"route": "hbm"}) if with_info else out
         return dispatch_linear(x, leaf, scalars=scalars, with_info=with_info,
-                               model=model)
+                               model=model, mesh=self.mesh)
 
     # ------------------------------------------------------------ serving
 
@@ -313,7 +336,7 @@ class CIMDeployment:
         for path, leaf in self.stores.items():
             rule = self.rules[path]
             if _is_store(leaf) and rule.serve_path == "hbm":
-                w, st = cim_lib.read(leaf)
+                w, st = read_placed(leaf, self.mesh)
                 self._accumulate(st)
                 out[path] = w
             elif (_is_store(leaf) and rule.serve_path == "fused" and row_cache
@@ -336,6 +359,66 @@ class CIMDeployment:
         return {"stored_bits": int(stored), "raw_bits": int(raw),
                 "stored_bytes": int(byts),
                 "overhead": (stored / raw - 1.0) if raw else 0.0}
+
+
+def place_stores(stores: Dict[str, object], mesh, *,
+                 dim: str = "j") -> Dict[str, object]:
+    """Mesh placement of a ``{path: leaf}`` dict: each store this rank's
+    block along ``dim`` of ``"model"`` (``cim.shard_store``) where the sharded
+    kernel route takes it (``ops.sharded_route``: one4n / none fp16 planes
+    that split evenly), else whole with a ``ShardInfo`` that says so (every
+    rank reads it whole, as the reference routes it); every other leaf as it
+    is (replicated: each rank holds it). The single placement rule behind
+    :meth:`CIMDeployment.shard` and the serve launcher's ``--mesh``."""
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.kernels.cim_read import ops as cr_ops
+    n = shlib.axis_size(shlib.MODEL_AXIS, mesh)
+    i = shlib.axis_index(shlib.MODEL_AXIS, mesh)
+    out = {}
+    for path, leaf in stores.items():
+        if _is_store(leaf):
+            leaf = cim_lib.shard_store(
+                leaf, n, i, dim, split=cr_ops.sharded_route(leaf, n, dim))
+        out[path] = leaf
+    return out
+
+
+def _placed_mesh(mesh):
+    """The mesh a placed store combines over (over its ``"model"`` axis):
+    ``mesh``, or the ambient one."""
+    if mesh is None:
+        from repro_torch.distributed import sharding as shlib
+        mesh = shlib.get_mesh()
+    if mesh is None:
+        raise ValueError("a sharded store is combined over its mesh: pass "
+                         "mesh= or set_mesh (distributed.sharding)")
+    return mesh
+
+
+def store_stats_placed(store, mesh=None) -> dict:
+    """ECC counts of a store; a sharded block's summed over ``"model"``."""
+    st = cim_lib.store_stats(store)
+    sh = store.shard
+    if sh is None or not sh.sharded:
+        return st
+    from repro_torch.distributed import sharding as shlib
+    return shlib.sum_counts(st, shlib.MODEL_AXIS, _placed_mesh(mesh))
+
+
+def read_placed(store, mesh=None):
+    """``cim.read`` of a store; a sharded block's decode is gathered (``'j'``)
+    or stacked (``'k'``) over ``"model"`` into the whole matrix, and its
+    counts summed."""
+    w, st = cim_lib.read(store)
+    sh = store.shard
+    if sh is None or not sh.sharded:
+        return w, st
+    from repro_torch.distributed import sharding as shlib
+    mesh = _placed_mesh(mesh)
+    k, j = sh.global_shape
+    w = shlib.all_gather_cat(w.contiguous(), shlib.MODEL_AXIS, mesh,
+                             dim=sh.sdim)[:k, :j]
+    return w, shlib.sum_counts(st, shlib.MODEL_AXIS, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -494,12 +577,19 @@ def request_read_seeds(seeds: dict, leaf_salt_: int, req_salt, pos) -> dict:
 
 
 def dispatch_linear(x, store, *, scalars=None, with_info: bool = False,
-                    model=None):
-    """Route ``x @ store``: a warmed decoded-row cache serves static reads as
-    a plain matmul; everything else goes to :func:`cim_linear_store` (the
-    fused kernel on the card). Dynamic ``scalars`` always bypass the
-    cache."""
+                    model=None, mesh=None):
+    """Route ``x @ store``: a store placed on a mesh (a ``ShardInfo``) goes
+    to :func:`cim_linear_store_sharded` over ``"model"`` of ``mesh`` (the
+    ambient mesh by default), as the reference sends every read on a mesh
+    to its sharded route; otherwise a warmed decoded-row cache serves
+    static reads as a plain matmul and everything else goes to
+    :func:`cim_linear_store` (the fused kernel on the card). Dynamic
+    ``scalars`` always bypass the cache."""
     from repro_torch.kernels.cim_read import ops as cr_ops
+    if store.shard is not None:
+        return cr_ops.cim_linear_store_sharded(
+            x, store, scalars=scalars, model=model, mesh=_placed_mesh(mesh),
+            with_info=with_info, device=store.device)
     if scalars is None and store.cache is not None:
         b_shape = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
@@ -513,13 +603,22 @@ def dispatch_linear(x, store, *, scalars=None, with_info: bool = False,
 
 
 def dispatch_read_rows(store, idx, *, seeds=None, thr_man=0, thr_meta=0,
-                       model=None):
+                       model=None, mesh=None):
     """Row-gather route: decode-on-read off the packed image; a warmed cache
-    serves static gathers."""
+    serves static gathers. A column shard decodes its block of the rows at
+    global coordinates and the blocks are gathered over ``"model"``."""
     if seeds is None and store.cache is not None:
-        return store.cache[idx]
-    return cim_lib.read_rows(store, idx, seeds=seeds, thr_man=thr_man,
-                             thr_meta=thr_meta, model=model)
+        rows = store.cache[idx]
+    else:
+        rows = cim_lib.read_rows(store, idx, seeds=seeds, thr_man=thr_man,
+                                 thr_meta=thr_meta, model=model)
+    sh = store.shard
+    if sh is None or not sh.sharded:
+        return rows
+    from repro_torch.distributed import sharding as shlib
+    return shlib.all_gather_cat(rows.contiguous(), shlib.MODEL_AXIS,
+                                _placed_mesh(mesh),
+                                dim=-1)[..., :sh.global_shape[1]]
 
 
 # ---------------------------------------------------------------------------

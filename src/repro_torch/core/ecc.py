@@ -1,9 +1,10 @@
 """SECDED and One4N row codes, word-packed path (port of ``repro/core/ecc.py``).
 
-Only the packed (uint32-word) API is ported: the per-bit oracle codecs of the
-reference stay there, and the parity suite holds the packed words of both
-packages against each other. The generator/parity-check tables are numpy,
-copied from the reference.
+The packed (uint32-word) API is the one every path runs. Of the reference's
+per-bit oracle codecs only the decoders are ported (``SecdedCode.decode``,
+``One4NRowCodec.decode``): :func:`repro_torch.core.cim.read_reference`
+decodes with them, as the reference's oracle does. The generator/parity-check
+tables are numpy, copied from the reference.
 
 Decode syndrome semantics (paper Fig. 4 ③): ``R == 0`` clean; overall parity
 set -> single error at ``R[6:0]``, corrected; parity clear with ``R != 0`` ->
@@ -115,6 +116,27 @@ class SecdedCode:
         """uint32 [r, code_words]: bit ``l`` of word ``w`` is in syndrome bit
         ``j`` iff bit ``j`` of its 1-based position ``32 w + l + 1`` is set."""
         return _secded_packed_tables(self.data_bits)[4]
+
+    def decode(self, code: torch.Tensor):
+        """Per-bit oracle: codeword bits [..., n] -> (data bits [..., d]
+        uint8, status [...] int64: 0 clean, 1 corrected, 2 uncorrectable)."""
+        r, n, data_idx, _, H, _ = _secded_tables(self.data_bits)
+        dev = code.device
+        body = code[..., :n].to(torch.int64)
+        overall = code[..., n].to(torch.int64)
+        syn = (body @ torch.as_tensor(H.T, dtype=torch.int64,
+                                      device=dev)) & 1
+        pos = (syn << torch.arange(r, device=dev)).sum(-1)
+        parity = (body.sum(-1) + overall) & 1
+        clean = (pos == 0) & (parity == 0)
+        single = parity == 1
+        double = (parity == 0) & (pos > 0)
+        flip = (torch.arange(1, n + 1, device=dev) == pos[..., None]) \
+            & single[..., None]
+        corrected = body ^ flip.to(torch.int64)
+        data = corrected[..., torch.as_tensor(data_idx, device=dev)]
+        status = torch.where(clean, 0, torch.where(double, 2, 1))
+        return data.to(torch.uint8), status
 
     def encode_packed(self, data_words: torch.Tensor) -> torch.Tensor:
         """data [..., data_words] -> codewords [..., code_words] (int64)."""
@@ -238,6 +260,22 @@ class One4NRowCodec:
         bits = bitpack.unpack_words(sign_words, self.sign_bits)
         return bits.reshape(bits.shape[:-1]
                             + (self.n_group, self.sign_bits_per_row))
+
+    def decode(self, codewords: torch.Tensor):
+        """Per-bit oracle: codeword bits [..., n_segments, code.n] ->
+        (exp_row [..., rw] int64, signs [..., N, rw] uint8, status [...,
+        n_segments])."""
+        data, status = self.code.decode(codewords)
+        payload = data.reshape(data.shape[:-2] + (self.padded_bits,))
+        eb, rw = self.exp_bits, self.row_weights
+        exp_bits = payload[..., :eb * rw].reshape(payload.shape[:-1]
+                                                  + (rw, eb))
+        shifts = torch.arange(eb, dtype=torch.int64, device=payload.device)
+        exp_row = (exp_bits.to(torch.int64) << shifts).sum(-1)
+        sb = self.n_group * self.sign_bits_per_row
+        signs = payload[..., eb * rw:eb * rw + sb].reshape(
+            payload.shape[:-1] + (self.n_group, self.sign_bits_per_row))
+        return exp_row, signs, status
 
     def build_payload_packed(self, exp_row: torch.Tensor,
                              sign_words: torch.Tensor):

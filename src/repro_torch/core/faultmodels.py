@@ -276,7 +276,10 @@ def plane_thresholds(model: Optional[FaultProcess], threshold, elem,
                      plane_seed, shape):
     """Full compile of ``model`` for one packed plane of ``shape``: drift's
     time scaling, then the burst/correlated mask at global indices ``elem``.
-    ``model=None`` / ``iid`` return ``threshold`` as an int."""
+    For a mesh shard ``elem`` and ``shape`` are its image's (the global
+    C-order indices and plane shape), so its masks are the single-device
+    image's block. ``model=None`` / ``iid`` return ``threshold`` as an
+    int."""
     if model is None or model.kind == "iid":
         return int(threshold) & M32
     threshold = compiled_threshold(model, threshold)

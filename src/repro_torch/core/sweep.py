@@ -25,7 +25,17 @@ How it differs from the reference's engine:
 * ``eval_fn`` runs trial by trial (one trial's decoded weights live at a
   time); the result is the ``[B, T]`` grid the reference's ``vmap``
   produces;
-* no trial or model mesh (ROADMAP Queue 1 item 14).
+* the trial mesh (``SweepEngine(plan, mesh=make_trial_mesh())``, the
+  reference's ``shard_trials``, always on when a mesh is given): each rank
+  of the ``("trial",)`` axis runs its slice of every cell's trials (K3
+  with those trials' seeds, then the decode and the eval) and the
+  per-trial accuracies and ECC counts are gathered in trial order. A
+  trial's seeds do not depend on the split, so the gathered cell equals
+  the unsharded one. A trial count the mesh does not divide runs whole on
+  every rank, as the reference replicates it.
+  ``trial_shard=(n, index)`` runs one rank's slice without a mesh and
+  :func:`merge_trial_shards` joins the slices. The 2-D (trial, model)
+  sweep mesh waits for ROADMAP Queue 1 item 14b.
 
 Parameter trees are ``{path: tensor}`` mappings in the reference's flatten
 order (:mod:`repro_torch.core.tree`); leaf ``i`` salts its streams with
@@ -65,6 +75,9 @@ class SweepResult:
     uncorrectable: float = 0.0
     stored_bits: int = 0    # the arm's deployed SRAM cells (policy sweeps)
     fault_model: str = "iid"
+    # per-trial ECC counts (their means are ``corrected`` / ``uncorrectable``)
+    trial_corrected: List[int] = dataclasses.field(default_factory=list)
+    trial_uncorrectable: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def mean(self) -> float:
@@ -300,21 +313,77 @@ def policy_inject_batched(dep, trials, ber) -> dict:
     return batched
 
 
+def trial_slice(n_trials: int, n_shards: int, index: int) -> slice:
+    """Rank ``index``'s trials of ``n_shards``: an even split, or all of
+    them when ``n_shards`` does not divide ``n_trials``."""
+    if n_shards <= 1 or n_trials % n_shards:
+        return slice(0, n_trials)
+    per = n_trials // n_shards
+    return slice(index * per, (index + 1) * per)
+
+
+def _cell(ber, field, protect, accs, corr, unc, **kw) -> SweepResult:
+    """A grid cell from its per-trial accuracies and ECC counts."""
+    return SweepResult(ber, field, protect, list(accs),
+                       float(np.mean(corr)) if len(corr) else 0.0,
+                       float(np.mean(unc)) if len(unc) else 0.0,
+                       trial_corrected=list(corr),
+                       trial_uncorrectable=list(unc), **kw)
+
+
+def merge_trial_shards(parts) -> List[SweepResult]:
+    """Join the trial slices of one grid (one result list a rank, in rank
+    order) into the unsharded grid: per-trial accuracies and counts
+    concatenated in trial order, the means taken over them."""
+    out = []
+    for cells in zip(*parts):
+        c0 = cells[0]
+        kw = dict(stored_bits=c0.stored_bits, fault_model=c0.fault_model)
+        out.append(_cell(
+            c0.ber, c0.field, c0.protect,
+            [a for c in cells for a in c.accuracies],
+            [v for c in cells for v in c.trial_corrected],
+            [v for c in cells for v in c.trial_uncorrectable], **kw))
+    return out
+
+
 class SweepEngine:
-    """Executor for characterization grids on one device.
+    """Executor for characterization grids on one device, or on one rank of
+    a ``("trial",)`` mesh (``mesh``; module doc).
 
     ``run_fields`` / ``run_protection`` map (seeds, params, ``eval_fn``) to
     :class:`SweepResult` rows in the reference's order. ``eval_fn`` takes
-    one trial's ``{path: tensor}`` params and returns a scalar accuracy."""
+    one trial's ``{path: tensor}`` params and returns a scalar accuracy.
+    ``trial_shard=(n, index)`` runs rank ``index``'s slice of ``n`` without
+    a mesh and returns it ungathered (:func:`merge_trial_shards`)."""
 
-    def __init__(self, plan: SweepPlan, device=None):
+    def __init__(self, plan: SweepPlan, device=None, mesh=None,
+                 trial_shard=None):
         if plan.backend == "xla":
             raise NotImplementedError(
                 "SweepEngine: the 'xla' backend draws jax.random streams and "
                 "is not ported (ROADMAP Queue 1 item 8); the port's engine "
                 "runs the counter-PRNG route ('pallas' / 'auto')")
+        if mesh is not None and trial_shard is not None:
+            raise ValueError("SweepEngine: mesh= or trial_shard=, not both")
         self.plan = plan
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.distributed import sharding as shlib
+            trial_shard = (shlib.axis_size("trial", mesh),
+                           shlib.axis_index("trial", mesh))
+        n, i = trial_shard or (1, 0)
+        self.trials = trial_slice(plan.n_trials, n, i)
+
+    def _gather(self, cells: List[SweepResult]) -> List[SweepResult]:
+        """This rank's cells, or (on a mesh that split the trials) every
+        rank's joined in trial order."""
+        if self.mesh is None or self.trials == slice(0, self.plan.n_trials):
+            return cells
+        from repro_torch.distributed import sharding as shlib
+        return merge_trial_shards(
+            shlib.all_gather_objects(cells, "trial", self.mesh))
 
     # ------------------------------------------------------------- plumbing
 
@@ -362,14 +431,15 @@ class SweepEngine:
             for field in plan.fields:
                 for b, ber in enumerate(plan.bers):
                     thr = fi_ops.ber_to_threshold(ber)
+                    cell_seeds = seeds[arm, b, self.trials]
                     corrupted = inject_pytree_batched(
-                        flat, seeds[arm, b], thr, field, plan.fmt, model=fp)
+                        flat, cell_seeds, thr, field, plan.fmt, model=fp)
                     accs = [float(eval_fn(trial_params(corrupted, i)))
-                            for i in range(plan.n_trials)]
+                            for i in range(len(cell_seeds))]
                     results.append(SweepResult(ber, field, "raw", accs,
                                                fault_model=fm_spec))
                 arm += 1
-        return results
+        return self._gather(results)
 
     # ------------------------------------------------------- Fig. 6 sweeps
 
@@ -391,19 +461,20 @@ class SweepEngine:
                 stores, _ = cim_lib.deploy_pytree_impl(flat, cfg)
                 for b, ber in enumerate(plan.bers):
                     thr = fi_ops.ber_to_threshold(ber)
-                    batched = cim_inject_pytree_batched(stores, seeds[arm, b],
+                    cell_seeds = seeds[arm, b, self.trials]
+                    batched = cim_inject_pytree_batched(stores, cell_seeds,
                                                         thr, model=fp)
                     stats = []
                     accs = [float(eval_fn(self._decoded(batched, i, stats)))
-                            for i in range(plan.n_trials)]
+                            for i in range(len(cell_seeds))]
                     del batched
-                    results.append(SweepResult(
+                    results.append(_cell(
                         ber, "exponent_sign+mantissa", protect, accs,
-                        float(np.mean([s["corrected"] for s in stats])),
-                        float(np.mean([s["uncorrectable"] for s in stats])),
+                        [s["corrected"] for s in stats],
+                        [s["uncorrectable"] for s in stats],
                         fault_model=fm_spec))
                 arm += 1
-        return results
+        return self._gather(results)
 
     # ------------------------------------------------- policy (mixed) sweeps
 
@@ -451,17 +522,18 @@ class SweepEngine:
             dep = dep_lib.CIMDeployment.deploy(flat, policy)
             arm_bits = dep.bit_cost()["stored_bits"]
             for b, ber in enumerate(plan.bers):
-                batched = policy_inject_batched(dep, seeds[arm][b], ber)
+                cell_seeds = seeds[arm][b][self.trials]
+                batched = policy_inject_batched(dep, cell_seeds, ber)
                 accs, stats = [], []
-                for i in range(n_t):
+                for i in range(len(cell_seeds)):
                     restored, st = dep._replace_stores(
                         trial_params(batched, i)).read()
                     stats.append(st)
                     accs.append(float(eval_fn(restored)))
                 del batched
-                results.append(SweepResult(
+                results.append(_cell(
                     ber, "policy", name, accs,
-                    float(np.mean([s["corrected"] for s in stats])),
-                    float(np.mean([s["uncorrectable"] for s in stats])),
+                    [s["corrected"] for s in stats],
+                    [s["uncorrectable"] for s in stats],
                     stored_bits=arm_bits))
-        return results
+        return self._gather(results)

@@ -4,6 +4,11 @@ The library is built at first use by :class:`repro_torch.kernels.nvcc.
 CudaLibrary` (nvcc, ``sm_90a``, into the git-ignored ``build/repro_torch/``).
 A refused argument set or a non-zero ``cudaGetLastError()`` raises.
 
+``store_j`` / ``store_g`` / ``store_k`` are the padded dims of the image
+the planes were cut from (a mesh shard's global image, else the planes'
+own): the kernels compute each dynamic draw's element index against them,
+at the shard offsets in the scalars' ``OFF_K`` / ``OFF_J`` slots.
+
 Each launch wrapper adds one to :data:`launch_counts` where it launches its
 kernel, and nowhere else; each of K1's and K2's two kernels (the narrow one
 for M <= 8, the tile above it) counts under its function's name.

@@ -18,6 +18,14 @@ directly. The route follows the tensors' device:
 
 ``info['used_kernel']`` says whether a kernel launched, ``info['tiles']``
 which kernel and geometry.
+
+A mesh shard (a store with a :class:`~repro_torch.core.cim.ShardInfo`,
+``cim.shard_store``) reads its block at global coordinates: the kernels take
+its offsets in the ``SCALAR_OFF_K`` / ``SCALAR_OFF_J`` slots and the global
+padded dims as ``store_k`` / ``store_j`` / ``store_g`` (the reference's
+``global_dims``), and the plain version draws through the same
+``ShardInfo``. :func:`cim_linear_store_sharded` combines the shards' reads
+over the mesh's ``"model"`` axis.
 """
 from __future__ import annotations
 
@@ -200,11 +208,39 @@ def _one4n_args(cfg) -> dict:
 _STATIC = make_scalars()
 
 
+def _global_pad(store) -> tuple:
+    """(K_pad, J_pad) of the image a store's planes index: its own, or its
+    shard's global image."""
+    sh = store.shard
+    return tuple(sh.global_pad) if sh is not None and sh.sharded \
+        else tuple(store.man.shape)
+
+
+def _with_offsets(scalars, store):
+    """``scalars`` with the store's shard offsets in their slots (a copy;
+    ``None`` stays ``None``). Offsets that a caller set must agree."""
+    sh = store.shard
+    if sh is None or not sh.sharded:
+        off = (0, 0)
+    else:
+        off = sh.offsets
+    if scalars is None:
+        return None
+    got = (int(scalars[ref.SCALAR_OFF_K]), int(scalars[ref.SCALAR_OFF_J]))
+    if any(got) and got != off:
+        raise ValueError(f"cim_linear_store: scalars carry shard offsets "
+                         f"{got}, the store's ShardInfo {off}")
+    sc = np.array(scalars, dtype=np.uint32)
+    sc[ref.SCALAR_OFF_K], sc[ref.SCALAR_OFF_J] = off
+    return sc
+
+
 def _kernel_call(x2: torch.Tensor, store, scalars, tiles: dict,
                  model=None) -> torch.Tensor:
     cfg = store.cfg
     k_log, j_log = store.shape
-    k_pad, j_pad = store.man.shape
+    # a shard's draws index the global image (the reference's global_dims)
+    k_pad, j_pad = _global_pad(store)
     dynamic = scalars is not None
     sc = scalars if dynamic else _STATIC
     fmt = cfg.fmt
@@ -290,12 +326,8 @@ def cim_linear_store(x: torch.Tensor, store, *, scalars=None, model=None,
         raise ValueError(f"cim_linear_store: x has K={x.shape[-1]}, store "
                          f"{store.shape}")
     x2 = x.reshape(-1, k_log).to(torch.float32).contiguous()
-    if scalars is not None and (int(scalars[ref.SCALAR_OFF_K])
-                                or int(scalars[ref.SCALAR_OFF_J])):
-        raise NotImplementedError("shard offsets wait for the sharded twin "
-                                  "(ROADMAP Queue 1 item 14)")
     if scalars is not None:
-        scalars = model_scalars_of(scalars, model)
+        scalars = model_scalars_of(_with_offsets(scalars, store), model)
 
     kernel_route = cfg.protect in ("one4n", "none") and cfg.fmt.name == "fp16"
     if kernel_route and dev.type == "cuda":
@@ -307,3 +339,74 @@ def cim_linear_store(x: torch.Tensor, store, *, scalars=None, model=None,
         info = {"used_kernel": False, "route": "plain"}
     out = out.reshape(*b_shape, j_log)
     return (out, info) if with_info else out
+
+
+def sharded_route(store, n_shards: int, dim: str = "j") -> bool:
+    """Whether a read of ``store`` split ``n_shards`` ways along ``dim``
+    goes through the sharded kernel route: the reference's rule (a one4n
+    or none fp16 store, planes that split evenly, and for ``'k'`` no
+    padded word lines, since a K shard must hold whole slabs of x). Other
+    stores are read whole on every rank (``sharded=False``)."""
+    from repro_torch.core import cim as cim_lib
+    cfg = store.cfg
+    k_log = store.shape[0]
+    return cfg.protect in ("one4n", "none") and cfg.fmt.name == "fp16" \
+        and cim_lib.can_shard_store(store, n_shards, dim) \
+        and (dim == "j" or k_log == store.man.shape[0])
+
+
+def cim_linear_store_sharded(x: torch.Tensor, store, *, scalars=None,
+                             model=None, mesh=None, with_info: bool = False,
+                             device=None):
+    """Mesh-sharded fused linear layer: each rank on the ``"model"`` axis of
+    ``mesh`` (default: the ambient mesh, ``distributed.sharding.get_mesh``)
+    reads only ITS block of the packed image, at its global offsets, and
+    the blocks are combined:
+
+    * ``dim='j'``: the rank's [M, J/n] output slice; the slices are
+      all-gathered over the axis (each column's K loop is the unsharded
+      one's, so the result is the unsharded kernel's, bit for bit);
+    * ``dim='k'``: the rank contracts its K slab of ``x``; the partial
+      products are all-reduced (another summation order: fp32 tolerance).
+
+    ``store`` is the rank's placed shard (``deployment.place_stores``, the
+    one placement rule; a store without a ``ShardInfo`` raises). A store
+    the route does not take (:func:`sharded_route`: per_weight, non-fp16,
+    uneven planes, a K shard over padded rows) was placed whole: every rank
+    reads it whole and ``info['sharded']`` is False, the reference's rule.
+    Each rank's x holds its own batch rows: the data axis splits requests,
+    not this read."""
+    from repro_torch.distributed import sharding as shlib
+    axis = shlib.MODEL_AXIS
+    mesh = mesh if mesh is not None else shlib.get_mesh()
+    if mesh is None or axis not in shlib.axis_names(mesh):
+        raise ValueError(f"cim_linear_store_sharded: no mesh with a "
+                         f"{axis!r} axis (pass mesh= or set_mesh)")
+    sh = store.shard
+    if sh is None:
+        raise ValueError("cim_linear_store_sharded: the store is not placed "
+                         "(deployment.place_stores)")
+    if not sh.sharded:
+        out = cim_linear_store(x, store, scalars=scalars, model=model,
+                               with_info=with_info, device=device)
+        if with_info:
+            out, info = out
+            return out, dict(info, sharded=False)
+        return out
+    k_glob, j_glob = sh.global_shape
+    if sh.dim == "k":
+        off_k = sh.offsets[0]
+        x = x[..., off_k:off_k + store.shape[0]]
+    out = cim_linear_store(x, store, scalars=scalars, model=model,
+                           with_info=with_info, device=device)
+    info = None
+    if with_info:
+        out, info = out
+    if sh.dim == "j":
+        out = shlib.all_gather_cat(out, axis, mesh, dim=-1)[..., :j_glob]
+    else:
+        out = shlib.all_reduce_sum(out, axis, mesh)
+    if with_info:
+        return out, dict(info, sharded=True)
+    return out
+

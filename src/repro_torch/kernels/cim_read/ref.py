@@ -6,6 +6,10 @@ with :func:`repro_torch.core.cim.inject_with_seeds` (when ``scalars`` carry
 nonzero thresholds), decode the whole matrix with :func:`cim.read`, then run
 one fp32 matmul. The CPU tests run it in place of the kernels, and
 ``chip_smoke.py`` holds the kernels against it on the card.
+
+A mesh shard's read draws at the shard's global coordinates through its
+:class:`~repro_torch.core.cim.ShardInfo` (``inject_with_seeds`` honours it):
+the offsets and global dims the kernels take from ``ops``.
 """
 from __future__ import annotations
 

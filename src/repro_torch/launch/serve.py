@@ -74,7 +74,22 @@ decoded once and restacked) before the embed/unembed deploy, and
       --device cpu --expert-cim --cim --ber 1e-3 --engine --slots 2 \\
       --chunk 8 --requests 4 --engine-json /tmp/e.json
 
-``--mesh`` and ``--rounds`` wait (ROADMAP Queue 1 item 14).
+``--rounds R`` serves R successive MarkovLM batches (round r's prompts are
+``MarkovLM.batch(r)``). ``--mesh DxM`` serves them on a ``("data",
+"model")`` mesh of D x M ranks (:mod:`repro_torch.launch.mesh`, one process
+a card): each data rank serves its rows of the batch (the whole batch when
+D does not divide it), every CIM store is column-sharded over "model"
+(``CIMDeployment.shard``; each rank reads its block through the fused
+kernel at its global offsets and the blocks are gathered), block weights
+and norms stay whole on every rank. The report gives aggregate and
+per-device tok/s and the ECC totals over the whole image; only rank 0
+prints. Under ``torchrun``, or 1x1 without it:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1x2 \
+      --rounds 2 --cim --ber 1e-4 --inject dynamic
+
+``--engine --mesh`` and ``--fleet --mesh`` wait for ROADMAP Queue 1 item
+14b and raise.
 """
 from __future__ import annotations
 
@@ -94,9 +109,11 @@ from repro_torch.core import deployment as dep_lib
 from repro_torch.core import faultmodels as fm_lib
 from repro_torch.data.synthetic import MarkovLM
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shlib
 from repro_torch.kernels.cim_read import kernel as kernel_lib
 from repro_torch.launch import engine as engine_lib
 from repro_torch.launch import fleet as fleet_lib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import scrub as scrub_lib
 from repro_torch.models.lm import LM
 
@@ -222,20 +239,28 @@ def serving_kw(*, ber: float, dynamic_seeds: dict, inject_mode: str,
                 model=(fault_model or None) if dynamic else None)
 
 
-def fused_report(params: dict) -> dict:
-    """Image bytes and ECC status counts of the packed leaves."""
+def fused_report(params: dict, mesh=None) -> dict:
+    """Image bytes and ECC status counts of the packed leaves; on a mesh
+    over the whole image (a sharded store's blocks summed over
+    ``"model"``)."""
     rep = {"stores": 0, "cached": 0, "packed_bytes": 0, "fp16_bytes": 0,
            "corrected": 0, "uncorrectable": 0}
+    blocks = {"packed_bytes": 0, "corrected": 0, "uncorrectable": 0}
     for leaf in params.values():
         if isinstance(leaf, cim_lib.CIMStore):
+            sh = leaf.shard
+            split = sh is not None and sh.sharded
+            k, j = sh.global_shape if sh is not None else leaf.shape
             rep["stores"] += 1
             rep["cached"] += leaf.cache is not None
-            rep["packed_bytes"] += leaf.stored_bytes
-            rep["fp16_bytes"] += 2 * leaf.shape[0] * leaf.shape[1]
-            st = cim_lib.store_stats(leaf)
-            rep["corrected"] += st["corrected"]
-            rep["uncorrectable"] += st["uncorrectable"]
-    return rep
+            rep["fp16_bytes"] += 2 * k * j
+            st = dict(cim_lib.store_stats(leaf),
+                      packed_bytes=leaf.stored_bytes)
+            for key in blocks:
+                (blocks if split else rep)[key] += st[key]
+    if mesh is not None:
+        blocks = shlib.sum_counts(blocks, shlib.MODEL_AXIS, mesh)
+    return {key: v + blocks.get(key, 0) for key, v in rep.items()}
 
 
 def _sync(device: torch.device) -> None:
@@ -248,11 +273,14 @@ def build_params(model: LM, *, seed: int = 0, cim: bool = False,
                  index: int = 2, serve_path: str = "fused",
                  inject: str = "static", field: str = "full",
                  static_seeds=None, dynamic_seeds=None, fault_model: str = "",
-                 extra=None, verbose: bool = True):
+                 extra=None, verbose: bool = True, mesh=None):
     """The serving params of a launch -> (params or None for the model's own
     weights, ECC counts of the deployed image, fused report or None).
     ``extra`` (reference-layout leaves, e.g. :func:`expert_deploy`'s
-    restacked experts) rides in the params."""
+    restacked experts) rides in the params. On a ``mesh`` the fused
+    deployment is column-sharded over ``"model"`` after its static faults
+    (the reference's order); the hbm path's decoded leaves stay whole on
+    every rank."""
     dep_lib.check_enum("serve_path", serve_path, dep_lib.VALID_SERVE_PATHS,
                        "serve")
     dep_lib.check_enum("inject", inject, dep_lib.VALID_INJECTS, "serve")
@@ -269,10 +297,12 @@ def build_params(model: LM, *, seed: int = 0, cim: bool = False,
                                   n_group=n_group, index=index,
                                   seeds=static_seeds, inject_mode=inject,
                                   field=field, fault_model=fault_model)
+            if mesh is not None:
+                dep = dep.shard(mesh, dim="j")
             params = dep.serving_params(**serving_kw(
                 ber=ber, dynamic_seeds=dynamic_seeds, inject_mode=inject,
                 field=field, fault_model=fault_model))
-            report = fused_report(params)
+            report = fused_report(params, mesh)
             ecc = {k: report[k] for k in ecc}
             if verbose:
                 print(f"CIM fused serve: {report['stores']} weight matrices "
@@ -299,51 +329,91 @@ def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
           protect: str = "one4n", n_group: int = 8, index: int = 2,
           serve_path: str = "fused", inject: str = "static",
           field: str = "full", static_seeds=None, dynamic_seeds=None,
-          fault_model: str = "", extra=None, verbose: bool = True) -> dict:
-    """Lock-step serve of one MarkovLM batch. Returns the generated tokens
-    [B, gen], the prefill logits, ECC counts, timings and the kernel launches
-    of the run. ``fault_model`` (grammar string) shapes the static
-    injection and the dynamic runtime."""
+          fault_model: str = "", extra=None, verbose: bool = True,
+          rounds: int = 1, mesh=None) -> dict:
+    """Lock-step serve of ``rounds`` MarkovLM batches (round r's prompts
+    are ``batch(r)``). Returns the last round's generated tokens [B, gen]
+    and prefill logits, every round's tokens [rounds, B, gen], ECC counts,
+    timings and the kernel launches of the run. ``fault_model`` (grammar
+    string) shapes the static injection and the dynamic runtime.
+
+    On a ``("data", "model")`` ``mesh`` each data rank serves its rows of
+    the batch (all of it when the data axis does not divide it), the CIM
+    stores are column-sharded over ``"model"``, and the rows are gathered
+    back, so every rank returns the whole batch; ECC counts cover the whole
+    image and ``launches`` are this rank's."""
+    if rounds < 1:
+        raise ValueError(f"rounds must be >= 1, got {rounds}")
     cfg = model.cfg
     device = model.embed.device
     params, ecc, report = build_params(
         model, seed=seed, cim=cim, ber=ber, protect=protect, n_group=n_group,
         index=index, serve_path=serve_path, inject=inject, field=field,
         static_seeds=static_seeds, dynamic_seeds=dynamic_seeds,
-        fault_model=fault_model, extra=extra, verbose=verbose)
+        fault_model=fault_model, extra=extra, mesh=mesh,
+        verbose=verbose and _is_rank0())
+    n_data = shlib.axis_size("data", mesh)
+    rows = slice(None)
+    if n_data > 1 and batch % n_data == 0:
+        per = batch // n_data
+        d = shlib.axis_index("data", mesh)
+        rows = slice(d * per, (d + 1) * per)
+
+    def gather(t):
+        return t if rows == slice(None) \
+            else shlib.all_gather_cat(t.contiguous(), "data", mesh, dim=0)
 
     data = MarkovLM(cfg.vocab_size, prompt_len, batch, seed=seed)
-    prompts = torch.as_tensor(data.batch(0)["tokens"], dtype=torch.int64,
-                              device=device)
     before = dict(kernel_lib.launch_counts)
-    with torch.inference_mode():
-        _sync(device)
-        t0 = time.perf_counter()
-        first_logits, caches = model.prefill(prompts, params,
-                                             max_len=prompt_len + gen)
-        _sync(device)
-        prefill_s = time.perf_counter() - t0
-        toks = first_logits.argmax(-1)[:, None]
-        out = [toks]
-        t1 = time.perf_counter()
-        for _ in range(gen - 1):
-            logits, caches = model.decode(caches, toks, params)
-            toks = logits.argmax(-1)[:, None]
-            out.append(toks)
-        _sync(device)
-        decode_s = time.perf_counter() - t1
+    prefill_s = decode_s = 0.0
+    all_tokens = []
+    with torch.inference_mode(), shlib.use_mesh(mesh):
+        for r in range(rounds):
+            prompts = torch.as_tensor(data.batch(r)["tokens"][rows],
+                                      dtype=torch.int64, device=device)
+            _sync(device)
+            t0 = time.perf_counter()
+            first_logits, caches = model.prefill(prompts, params,
+                                                 max_len=prompt_len + gen)
+            _sync(device)
+            prefill_s += time.perf_counter() - t0
+            toks = first_logits.argmax(-1)[:, None]
+            out = [toks]
+            t1 = time.perf_counter()
+            for _ in range(gen - 1):
+                logits, caches = model.decode(caches, toks, params)
+                toks = logits.argmax(-1)[:, None]
+                out.append(toks)
+            _sync(device)
+            decode_s += time.perf_counter() - t1
+            all_tokens.append(gather(torch.cat(out, dim=1)).cpu().numpy())
+        first_logits = gather(first_logits)
     launches = {k: v - before[k] for k, v in kernel_lib.launch_counts.items()}
-    n_tok = batch * (gen - 1)
-    res = {"tokens": torch.cat(out, dim=1).cpu().numpy(),
+    n_tok = rounds * batch * (gen - 1)
+    tok_per_s = n_tok / max(decode_s, 1e-9)
+    n_dev = 1 if mesh is None else mesh.size()
+    res = {"tokens": all_tokens[-1], "round_tokens": np.stack(all_tokens),
            "prefill_logits": first_logits, "ecc": ecc, "report": report,
            "prefill_s": prefill_s, "decode_s": decode_s,
-           "tok_per_s": n_tok / max(decode_s, 1e-9), "launches": launches}
-    if verbose:
-        print(f"prefill: {batch}x{prompt_len} in "
-              f"{prefill_s * 1e3:.1f} ms; decode: {res['tok_per_s']:.1f} "
-              f"tok/s; kernel launches {launches}; "
+           "tok_per_s": tok_per_s, "tok_per_s_device": tok_per_s / n_dev,
+           "launches": launches}
+    if verbose and _is_rank0():
+        msg = (f"prefill: {rounds}x{batch}x{prompt_len} in "
+               f"{prefill_s * 1e3:.1f} ms; decode: {tok_per_s:.1f} tok/s")
+        if mesh is not None:
+            msg += (f" aggregate / {res['tok_per_s_device']:.1f} tok/s/device "
+                    f"(mesh {n_data}x{shlib.axis_size('model', mesh)} data x "
+                    f"model, {n_dev} devices; ECC over the image: corrected="
+                    f"{ecc['corrected']} uncorrectable="
+                    f"{ecc['uncorrectable']})")
+        print(msg + f"; kernel launches {launches}; "
               f"sample: {res['tokens'][0, :16].tolist()}")
     return res
+
+
+def _is_rank0() -> bool:
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _parse_range(spec: str) -> tuple:
@@ -521,6 +591,14 @@ def main(argv=None):
                          "drift[:drift_rate=,tick=]")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve on a (data, model) mesh of D x M ranks, one "
+                         "process a device (torchrun; 1x1 without it): "
+                         "request rows split over 'data', CIM stores "
+                         "column-shard over 'model' (NCCL on cuda, gloo on "
+                         "cpu)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="number of successive request batches to serve")
     # continuous-batching engine mode (repro_torch.launch.engine)
     ap.add_argument("--engine", action="store_true",
                     help="serve a synthetic request stream through the "
@@ -582,6 +660,18 @@ def main(argv=None):
                          "own per-expert CIM store (static faults, decode-"
                          "once restack; per-expert ECC in the artifact)")
     args = ap.parse_args(argv)
+    if args.rounds < 1:
+        raise ValueError("--rounds must be >= 1")
+    if args.mesh and (args.engine or args.fleet > 0):
+        raise NotImplementedError(
+            "--mesh with --engine or --fleet: the engine and the fleet on a "
+            "mesh wait for ROADMAP Queue 1 item 14b")
+    mesh = None
+    if args.mesh:
+        # the mesh first: under torchrun it binds this process to its card
+        mesh = mesh_lib.make_serve_mesh(
+            args.mesh, "cuda" if torch.device(args.device).type == "cuda"
+            else "cpu")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -603,12 +693,17 @@ def main(argv=None):
         return _main_fleet(args, model)
     if args.engine:
         return _main_engine(args, model)
-    return serve(model, batch=args.batch, prompt_len=args.prompt_len,
-                 gen=args.gen, seed=args.seed, cim=args.cim, ber=args.ber,
-                 protect=args.protect, n_group=args.n_group, index=args.index,
-                 serve_path=args.serve_path, inject=args.inject,
-                 field=args.field, fault_model=args.fault_model,
-                 extra=args.extra)
+    try:
+        return serve(model, batch=args.batch, prompt_len=args.prompt_len,
+                     gen=args.gen, seed=args.seed, cim=args.cim, ber=args.ber,
+                     protect=args.protect, n_group=args.n_group,
+                     index=args.index, serve_path=args.serve_path,
+                     inject=args.inject, field=args.field,
+                     fault_model=args.fault_model, extra=args.extra,
+                     rounds=args.rounds, mesh=mesh)
+    finally:
+        if mesh is not None:
+            mesh_lib.destroy_world()
 
 
 

@@ -4,8 +4,14 @@ the ``attn_impl='cp'`` path; above ``attn_chunk_threshold`` the query axis
 runs in chunks of ``attn_chunk_q``, as the reference's ``_q_chunked``).
 
 Written as plain einsum + softmax rather than a fused attention call, so the
-parity suite compares like with like against the reference. The int8 K/V
-cache (``kv_cache_dtype``) waits (ROADMAP Queue 1).
+parity suite compares like with like against the reference.
+
+``kv_cache_dtype="int8"`` makes :func:`init_kv_cache` (the engine's K/V
+rows) int8 values with one bf16 scale a (token, kv head): a decode write
+quantizes the new rows (:func:`quant_kv`) and the read dequantizes the whole
+cache (:func:`dequant_kv`), as the reference's ``decode_attention``. The
+prefill's K/V rows and the local-window ring keep the compute dtype there,
+and so here.
 """
 from __future__ import annotations
 
@@ -65,19 +71,50 @@ def _q_chunked(q, k, v, positions, window: int, chunk: int):
     return torch.cat(outs, dim=1)
 
 
-def init_kv_cache(cfg, batch: int, max_len: int, *, device=None, dtype=None):
-    dt = dtype or cfg.cdtype()
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+def _zero_kv(cfg, batch: int, rows: int, dt, device) -> dict:
+    shape = (batch, rows, cfg.n_kv_heads, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, *, device=None, dtype=None):
+    """Zero K/V rows [batch, max_len, n_kv_heads, head_dim]; under
+    ``kv_cache_dtype="int8"`` int8 values plus bf16 ``k_scale`` /
+    ``v_scale`` [batch, max_len, n_kv_heads, 1]."""
+    if cfg.kv_cache_dtype == "int8":
+        cache = _zero_kv(cfg, batch, max_len, torch.int8, device)
+        shape = (batch, max_len, cfg.n_kv_heads, 1)
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape, dtype=torch.bfloat16,
+                                      device=device)
+        return cache
+    return _zero_kv(cfg, batch, max_len, dtype or cfg.cdtype(), device)
+
+
+def quant_kv(x):
+    """[..., hd] -> (int8 values, bf16 scale [..., 1]): the scale is
+    max|x| / 127 in float32, floored at 1e-8; the quotient is taken in
+    float32 against that float32 scale, rounded half to even and clipped
+    to +-127 before the cast (so it cannot wrap); the scale is rounded to
+    bf16 only for storage."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+    scale = torch.clamp_min(scale, 1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequant_kv(q, scale, dt):
+    return q.to(dt) * scale.to(dt)
 
 
 def init_local_cache(cfg, batch: int, window: int, *, device=None,
                      dtype=None):
     """Rolling-window ring for local attention: O(window) rows whatever the
     decode length; ring slot ``pos % window`` is overwritten and each slot's
-    absolute position (``-1``: empty) drives the mask."""
-    ring = init_kv_cache(cfg, batch, window, device=device, dtype=dtype)
+    absolute position (``-1``: empty) drives the mask. The ring keeps the
+    compute dtype under ``kv_cache_dtype="int8"``, as the reference's."""
+    ring = _zero_kv(cfg, batch, window, dtype or cfg.cdtype(), device)
     ring["pos"] = torch.full((batch, window), -1, dtype=torch.int64,
                              device=device)
     return ring
@@ -149,12 +186,22 @@ class Attention(Leaves):
         q, k_new, v_new = self.project_qkv(x, positions, over)
         q = q.reshape(b, s, kh, h // kh, hd)
         rows = torch.arange(b, device=x.device)[:, None]
-        cache["k"][rows, positions] = k_new.to(cache["k"].dtype)
-        cache["v"][rows, positions] = v_new.to(cache["v"].dtype)
+        if "k_scale" in cache:
+            new = dict(zip(("k", "k_scale"), quant_kv(k_new)))
+            new.update(zip(("v", "v_scale"), quant_kv(v_new)))
+        else:
+            new = {"k": k_new, "v": v_new}
+        for name, val in new.items():
+            cache[name][rows, positions] = val.to(cache[name].dtype)
+        if "k_scale" in cache:
+            ck = dequant_kv(cache["k"], cache["k_scale"], q.dtype)
+            cv = dequant_kv(cache["v"], cache["v_scale"], q.dtype)
+        else:
+            ck, cv = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
         t = cache["k"].shape[1]
         k_pos = torch.arange(t, dtype=torch.int64, device=x.device)[None]
         mask = _causal_mask(positions, k_pos)[:, None, None]
-        out = _attend(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask)
+        out = _attend(q, ck, cv, mask)
         return self._out(out, x, over), cache
 
     def advance_local(self, x, ring, pos, length=None, over: Mapping = {}):

@@ -618,7 +618,9 @@ def engine_capacity_coupled(cfg, tokens: int) -> bool:
 def init_slot_state(cfg, kind: str, batch: int, max_len: int, *,
                     device=None) -> dict:
     """One block's zero slot state: K/V rows ``{"k", "v"}`` [batch,
-    max_len, n_kv_heads, head_dim] for ``attn``/``moe``, a ring of
+    max_len, n_kv_heads, head_dim] for ``attn``/``moe`` (int8, with bf16
+    ``k_scale`` / ``v_scale`` [batch, max_len, n_kv_heads, 1], under
+    ``kv_cache_dtype="int8"``), a ring of
     ``min(local_window, max_len)`` slots for ``local``, the RWKV state
     ``{"s", "x_tmix", "x_cmix"}`` or the RG-LRU state ``{"h", "conv"}``."""
     slot_state_spec(kind)
@@ -647,7 +649,8 @@ def extract_state_chunk(cfg, caches, slot: int, pos: int,
                         length: int) -> dict:
     """One slot's state contribution of the chunk that prefilled rows
     [pos, pos + length), by each layer's ``cache_unit``: a copy of the K/V
-    rows it wrote (``'rows'``) or of the whole post-chunk state
+    rows it wrote, an int8 cache's scales with them (``'rows'``: every leaf
+    carries the position at axis 1), or of the whole post-chunk state
     (``'state'``: a ring, a fold), which :func:`inject_state_chunk` writes
     back."""
     check_engine_kinds(cfg)

@@ -7,7 +7,7 @@ per expert, run through per-expert SwiGLU products and gathered back.
 ``moe_dispatch="a2a"`` is the reference's all-to-all under a mesh; without
 one (as here) it falls back to the sort dispatch, as the reference does.
 The mesh's all-to-all waits for the multi-GPU slice (ROADMAP Queue 1 item
-14).
+14b).
 
 Ordering follows the reference: ``jax.lax.top_k`` puts the lower index
 first among equal gates and ``jnp.argsort`` is stable, so the top-k here is
@@ -57,7 +57,7 @@ def dispatch(cfg, mesh=None) -> str:
         raise ValueError(f"moe_dispatch {cfg.moe_dispatch!r}")
     if cfg.moe_dispatch == "a2a" and mesh is not None:
         raise NotImplementedError("the all-to-all MoE dispatch over a mesh "
-                                  "waits (ROADMAP Queue 1 item 14)")
+                                  "waits (ROADMAP Queue 1 item 14b)")
     return "cumsum" if cfg.moe_dispatch == "cumsum" else "sort"
 
 

@@ -32,7 +32,7 @@ How it differs from the reference: ``PolicySearch`` takes ``seeds`` (an
 int) in place of a ``jax.random`` key and draws evaluation ``k``'s seed as
 ``fold_seed(seeds, k)``, so a search is reproducible; ``Finetuner`` runs
 on one device (``mesh='auto'`` and ``None`` mean one device; a mesh waits
-for ROADMAP Queue 1 item 14); weights and evaluations are ``{path:
+for ROADMAP Queue 1 item 14b); weights and evaluations are ``{path:
 tensor}`` trees on ``device`` (default ``cuda``).
 
 ``python -m repro_torch.training.codesign --quick --json out.json`` runs the
@@ -94,7 +94,7 @@ class Finetuner:
                                  f"Mesh, got {self.mesh!r}")
         elif self.mesh is not None:
             raise NotImplementedError("Finetuner on a device mesh waits for "
-                                      "ROADMAP Queue 1 item 14")
+                                      "ROADMAP Queue 1 item 14b")
 
     def _run_cfg(self, **kw) -> RunConfig:
         base = dict(policy=self.policy, learning_rate=self.learning_rate,

@@ -19,7 +19,7 @@ has its cursor saved beside the state and restored with it, so the resumed
 run consumes the batches the interrupted one would have.
 
 What waits, and raises rather than being skipped: a device mesh (ROADMAP
-Queue 1 item 14). The reference draws the Fig. 7 faults from
+Queue 1 item 14b). The reference draws the Fig. 7 faults from
 ``jax.random``; the port's are the counter PRNG's, so the two agree in
 rates, not in bits.
 """
@@ -137,7 +137,7 @@ def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
     a step's timing (simulated host slowness, for the watchdog)."""
     if mesh is not None:
         raise NotImplementedError("training on a device mesh waits for "
-                                  "ROADMAP Queue 1 item 14")
+                                  "ROADMAP Queue 1 item 14b")
     corrupt = make_fault_schedule(run)
     step_fn = steps_lib.make_train_step(cfg, run)
     loader = batches if isinstance(batches, CheckpointableLoader) else None
