@@ -257,18 +257,38 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    CPU's bitwise (tokens equal; ``quant_kv`` bitwise on the same input); the engine's solo ==
    co-batched on the card. The phase's wall time by part.
 
-Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 12, 13, 14, 15, 7. Prints
-the card's name and power limit, then one ``{"kernels": [...]}`` line (each
-K1/K2 row carries its granite figures under ``"granite"``, its rwkv6
+16. the MoE all-to-all, data-parallel training and the co-design loop on
+   meshes, on the one card. (a) qwen3-moe's MoE layer at its published
+   widths (d_model 4096, 128 experts, top-8, d_ff_expert 1536; 9.66 GB of
+   fp32 experts) over 4 x 256 tokens, its 4 "model" ranks emulated in one
+   process (``moe_a2a.apply_moe_a2a_local``), at the config's capacity
+   factor 1.25 (local capacity 20 binds) and at 8.0: drop sets bitwise the
+   dense dispatch's on each rank's slice, the output and the input, router
+   and expert gradients of sum(out * r) + aux within 1e-4 of the largest;
+   forward + backward timed with CUDA events beside the per-slice and the
+   global dense dispatch. (b) ``run_training`` on a 1x1 NCCL mesh: 2
+   aligned steps of full-width olmo-1b at 8 x 128 under the Fig. 7
+   schedule at BER 1e-4, metrics and every parameter bitwise the same
+   steps without the mesh from one state, K4 launching phase 14's 24 a
+   step. (c) ``Finetuner(mesh=1x1)`` and ``PolicySearch.select`` through a
+   one-rank trial mesh (``SweepEngine(plan, mesh=make_trial_mesh())``):
+   phase 14's losses and parameters bitwise, its choice, accuracies and
+   trace, its K3 launches. The phase's wall time by part.
+
+Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 12, 13, 14, 15, 16, 7.
+Prints the card's name and power limit, then one ``{"kernels": [...]}`` line
+(each K1/K2 row carries its granite figures under ``"granite"``, its rwkv6
 figures under ``"rwkv6"`` and its shard reads under ``"mesh"``; K3's and
-K4's rows their co-design path's launches and times under ``"codesign"``,
-K3's its trial-slice figures under ``"trial_slice"``), and as its last line
-``{"ok": true, "device": {...}}``; the int8 cache's figures come on a
-``{"int8_cache": ...}`` line before the card's name.
+K4's rows their co-design path's launches and times under ``"codesign"``
+and their mesh path's under ``"mesh_train"``, K3's its trial-slice figures
+under ``"trial_slice"``), and as its last line ``{"ok": true, "device":
+{...}}``; the int8 cache's figures come on a ``{"int8_cache": ...}`` line
+and the all-to-all's on a ``{"moe_a2a": ...}`` line before the card's name.
 
 ``python3 chip_smoke.py --phase 15`` builds the kernels and runs phase 15
 alone on phase 2's stores (a quick check while working on the mesh); it
-prints no contract line.
+prints no contract line. ``python3 chip_smoke.py --phase 16`` builds K3/K4
+and runs phase 16 alone, its one-device references run in the phase.
 """
 from __future__ import annotations
 
@@ -3383,6 +3403,128 @@ def _fi_figures(what: str, fn, plain, n: int, t: int, n_pos: int) -> dict:
             "bytes": nbytes, "hashes": hashes}
 
 
+def _k4_chunk_figures(params: dict, fi_kernel):
+    """K4 at one counter chunk of the largest leaf's fp16 plane, 10 bit
+    positions at CODESIGN_BER (:func:`_fi_figures`) -> ((path, leaf), rows,
+    figures)."""
+    from repro_torch.core import bitops
+    from repro_torch.kernels.fault_inject import ops as fi_ops
+    from repro_torch.kernels.fault_inject import ref as fi_ref
+    chunk = max(((p, w) for p, w in params.items() if w.ndim >= 2),
+                key=lambda pw: pw[1].numel())
+    plane = bitops.to_bits(chunk[1].reshape(-1, chunk[1].shape[-1]))
+    rows = min(plane.shape[0], fi_kernel.MAX_COUNTER_ELEMENTS
+               // plane.shape[1])
+    plane = plane[:rows]
+    return chunk, rows, _fi_figures(
+        "K4", lambda: fi_ops.fault_inject_bits(plane, seed=7, ber=CODESIGN_BER,
+                                         positions=range(10)),
+        lambda: fi_ref.fault_inject_ref(plane, seed=7, ber=CODESIGN_BER,
+                                        positions=range(10)),
+        plane.numel(), 1, 10)
+
+
+def _k3_embed_figures(params: dict):
+    """K3 at the embed's One4N mantissa plane, T = 2 trials, 10 bit
+    positions at SEARCH_BER (:func:`_fi_figures`) -> (plane, figures)."""
+    from repro_torch.core.cim import field_thresholds
+    from repro_torch.core.deployment import CIMDeployment, ReliabilityPolicy
+    from repro_torch.kernels.fault_inject import ops as fi_ops
+    from repro_torch.kernels.fault_inject import ref as fi_ref
+    man = None
+    for _, _, s in CIMDeployment.deploy(
+            {"embed": params["embed"]}, ReliabilityPolicy()).store_leaves():
+        man = s.man
+    seeds = [1, 2]
+    thr = field_thresholds(SEARCH_BER)[0]
+    return man, _fi_figures(
+        "K3", lambda: fi_ops.fault_inject_bits_batched(man, seeds, thr,
+                                                 positions=range(10)),
+        lambda: fi_ref.fault_inject_batched_ref(man, seeds, thr,
+                                                positions=range(10)),
+        man.numel(), 2, 10)
+
+
+def _finetune_full(dev, fi_kernel, mesh=None):
+    """The Finetuner on full-width olmo-1b (2 reshape steps, 2 aligned
+    steps under the Fig. 7 schedule at CODESIGN_BER through K4), on one
+    device or ``mesh`` -> (finetuner, result, K4 launches, wall s, peak
+    GiB)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.deployment import ReliabilityPolicy
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.training import codesign
+    cfg = get_config("olmo-1b")
+    data = MarkovLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    ft = codesign.Finetuner(cfg, ReliabilityPolicy(), ber=CODESIGN_BER,
+                            reshape_steps=2, aligned_steps=2, device=dev,
+                            mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    fi_kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = ft.run(iter(data))
+    wall = time.perf_counter() - t0
+    k4 = fi_kernel.launch_counts[fi_kernel.K4]
+    _check(fi_kernel.launch_counts[fi_kernel.K3] == 0,
+           "the Finetuner launched K3")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return ft, res, k4, wall, peak
+
+
+def _select_full(cfg, params, data, dev, fi_kernel, engine=None):
+    """PolicySearch.select of the smoke's two arms at SEARCH_BER, 2
+    trials, on ``params``, scored against their own greedy predictions on
+    two MarkovLM batches; ``engine`` (a trial-mesh SweepEngine) or the
+    default one -> (result, search, the engine's cells, K3 launches,
+    seconds, the embeddings' largest |w| an evaluation, the eval)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.training import codesign
+    shell = lm.shell(cfg)
+    evals = []
+    with torch.no_grad():
+        for i in range(2):
+            toks = data.batch(9000 + i)["tokens"]
+            pred = lm.forward(shell, params, torch.as_tensor(
+                toks, dtype=torch.int64, device=dev)).argmax(-1)
+            evals.append({"tokens": toks, "labels": pred.cpu().numpy()})
+    del shell, pred
+    accuracy = codesign.lm_accuracy_eval(cfg, evals)
+    largest = []        # the embeddings' largest |w|, an evaluation
+
+    def eval_fn(p):
+        largest.append(tuple(float(p[k].abs().max())
+                             for k in ("embed", "unembed")))
+        return accuracy(p)
+    search = codesign.PolicySearch(
+        params, eval_fn, codesign.AccuracySLO(ber=SEARCH_BER, max_drop=0.05),
+        n_trials=2, device=dev, engine=engine)
+    cells = []          # the engine's SweepResults, for their ECC counts
+    run_policies = search.engine.run_policies
+
+    def recorded(*args):
+        out = run_policies(*args)
+        cells.extend(out)
+        return out
+    search.engine.run_policies = recorded
+    fi_kernel.reset_launch_counts()
+    t = time.perf_counter()
+    sel = search.select(codesign.smoke_candidates())
+    select_s = time.perf_counter() - t
+    k3 = fi_kernel.launch_counts[fi_kernel.K3]
+    _check(fi_kernel.launch_counts[fi_kernel.K4] == 0,
+           "the search launched K4")
+    return sel, search, cells, k3, select_s, largest, accuracy
+
+
+def _select_result(sel, search) -> tuple:
+    """What a select decides and reports: the choice, its accuracy, bits
+    and SLO, and the trace of every arm."""
+    return (sel.name, sel.accuracy, sel.stored_bits, sel.slo_met,
+            search.trace)
+
+
 def _codesign_full(dev, fi_kernel, card: str) -> dict:
     """(b) The co-design loop on full-width olmo-1b: the Finetuner (2
     reshape steps, 2 aligned steps under the Fig. 7 schedule at BER 1e-4,
@@ -3392,26 +3534,12 @@ def _codesign_full(dev, fi_kernel, card: str) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import bitops
-    from repro_torch.core.cim import field_thresholds
-    from repro_torch.core.deployment import CIMDeployment, ReliabilityPolicy
+    from repro_torch.core.deployment import CIMDeployment
     from repro_torch.data.synthetic import MarkovLM
-    from repro_torch.kernels.fault_inject import ops as fi_ops
-    from repro_torch.kernels.fault_inject import ref as fi_ref
-    from repro_torch.models import lm
     from repro_torch.training import codesign, loop
     cfg = get_config("olmo-1b")
     data = MarkovLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
-    ft = codesign.Finetuner(cfg, ReliabilityPolicy(), ber=CODESIGN_BER,
-                            reshape_steps=2, aligned_steps=2, device=dev)
-    torch.cuda.reset_peak_memory_stats()
-    fi_kernel.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = ft.run(iter(data))
-    wall = time.perf_counter() - t0
-    k4 = fi_kernel.launch_counts[fi_kernel.K4]
-    _check(fi_kernel.launch_counts[fi_kernel.K3] == 0,
-           "phase 14: the Finetuner launched K3")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ft, res, k4, wall, peak = _finetune_full(dev, fi_kernel)
     stage1 = res.info["reshape"]["history"]
     losses = [h["loss"] for h in stage1 + res.history]
     _check(len(losses) == 4 and all(math.isfinite(x) for x in losses),
@@ -3462,19 +3590,7 @@ def _codesign_full(dev, fi_kernel, card: str) -> dict:
     _profile_arm(dev, lambda: corrupt(params, seed0), corrupt_ms / 1e3,
                  label="phase 14: the schedule's profile")
     step_ms = [h["step_time"] * 1e3 for h in res.history]
-    chunk = max(((p, w) for p, w in params.items() if w.ndim >= 2),
-                key=lambda pw: pw[1].numel())
-    plane = bitops.to_bits(chunk[1].reshape(-1, chunk[1].shape[-1]))
-    rows = min(plane.shape[0], fi_kernel.MAX_COUNTER_ELEMENTS
-               // plane.shape[1])
-    plane = plane[:rows]
-    k4_fig = _fi_figures(
-        "K4", lambda: fi_ops.fault_inject_bits(plane, seed=7, ber=CODESIGN_BER,
-                                         positions=range(10)),
-        lambda: fi_ref.fault_inject_ref(plane, seed=7, ber=CODESIGN_BER,
-                                        positions=range(10)),
-        plane.numel(), 1, 10)
-    del plane
+    chunk, rows, k4_fig = _k4_chunk_figures(params, fi_kernel)
     print(f"phase 14: Finetuner on full-width olmo-1b: 4 steps in "
           f"{wall:.1f} s of wall; losses finite; ecc_stats: "
           f"{stats['stored_bits']} stored bits ({stats['overhead']:+.1%}); "
@@ -3494,41 +3610,9 @@ def _codesign_full(dev, fi_kernel, card: str) -> dict:
         f"bitwise; {split} == its plain version chunk by chunk, bitwise")
     # PolicySearch.select on the fine-tuned weights (K3), scored against
     # the clean model's own greedy predictions, so that faults can move it
-    shell = lm.shell(cfg)
-    evals = []
-    with torch.no_grad():
-        for i in range(2):
-            toks = data.batch(9000 + i)["tokens"]
-            pred = lm.forward(shell, params, torch.as_tensor(
-                toks, dtype=torch.int64, device=dev)).argmax(-1)
-            evals.append({"tokens": toks, "labels": pred.cpu().numpy()})
-    del shell, pred
-    accuracy = codesign.lm_accuracy_eval(cfg, evals)
-    largest = []        # the embeddings' largest |w|, an evaluation
-
-    def eval_fn(p):
-        largest.append(tuple(float(p[k].abs().max())
-                             for k in ("embed", "unembed")))
-        return accuracy(p)
-    search = codesign.PolicySearch(
-        params, eval_fn, codesign.AccuracySLO(ber=SEARCH_BER, max_drop=0.05),
-        n_trials=2, device=dev)
-    cells = []          # the engine's SweepResults, for their ECC counts
-    run_policies = search.engine.run_policies
-
-    def recorded(*args):
-        out = run_policies(*args)
-        cells.extend(out)
-        return out
-    search.engine.run_policies = recorded
-    fi_kernel.reset_launch_counts()
-    t = time.perf_counter()
-    sel = search.select(codesign.smoke_candidates())
-    select_s = time.perf_counter() - t
+    sel, search, cells, k3, select_s, largest, accuracy = _select_full(
+        cfg, params, data, dev, fi_kernel)
     ecc = {r.protect: (r.corrected, r.uncorrectable) for r in cells}
-    k3 = fi_kernel.launch_counts[fi_kernel.K3]
-    _check(fi_kernel.launch_counts[fi_kernel.K4] == 0,
-           "phase 14: the search launched K4")
     planes, overhead, read_acc = {}, {}, {}
     for name, policy in codesign.smoke_candidates().items():
         dep = CIMDeployment.deploy(params, policy)
@@ -3556,25 +3640,19 @@ def _codesign_full(dev, fi_kernel, card: str) -> dict:
           f"{sel.clean_accuracy:.4f}, floor {sel.floor:.4f}), slo_met "
           f"{sel.slo_met}, stored_bits {sel.stored_bits} (overhead "
           f"{sel.overhead:+.2%}), {sel.evals} evals in {select_s:.1f} s")
-    man = None
-    for _, _, s in CIMDeployment.deploy(
-            {"embed": params["embed"]}, ReliabilityPolicy()).store_leaves():
-        man = s.man
-    seeds = [1, 2]
-    thr = field_thresholds(SEARCH_BER)[0]
-    k3_fig = _fi_figures(
-        "K3", lambda: fi_ops.fault_inject_bits_batched(man, seeds, thr,
-                                                 positions=range(10)),
-        lambda: fi_ref.fault_inject_batched_ref(man, seeds, thr,
-                                                positions=range(10)),
-        man.numel(), 2, 10)
+    man, k3_fig = _k3_embed_figures(params)
     print(f"phase 14: K3 at the embed's mantissa plane {tuple(man.shape)}, "
           f"T = 2: {k3_fig['ms']:.4f} ms (plain {k3_fig['plain_ms']:.2f} ms)"
           f", bound {k3_fig['bound_ms']:.4f} ms ({k3_fig['bound_by']}) on "
           f"{card}")
+    ref = {"losses": losses, "params": {p: w.cpu() for p, w in
+                                        params.items()},
+           "select": _select_result(sel, search), "k3": k3,
+           "k4_a_step": want}
     del res, params, search
     torch.cuda.empty_cache()
-    return {"fault_inject": {"launches": want, "launches_2_steps": k4,
+    return {"reference": ref,
+            "fault_inject": {"launches": want, "launches_2_steps": k4,
                              "shape": [rows, int(chunk[1].shape[-1])],
                              "corrupt_ms": corrupt_ms, "step_ms": step_ms,
                              **k4_fig},
@@ -4127,6 +4205,269 @@ def phase_mesh(dev, checks: dict, kernel_lib, fi_kernel, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the MoE all-to-all, data-parallel training and the co-design
+# loop on meshes.
+# ---------------------------------------------------------------------------
+
+QWEN = "qwen3-moe-235b-a22b"
+A2A_RANKS, A2A_TOKENS = 4, 256       # emulated "model" ranks, tokens a rank
+A2A_FACTORS = (None, 8.0)            # the config's 1.25, then never binding
+MOE_LEAVES = ("router", "moe_wgate", "moe_win", "moe_wout")
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+
+
+def _a2a_layer(dev, card: str) -> dict:
+    """(a) qwen3-moe's MoE layer at its published widths (d_model 4096, 128
+    experts, top-8, d_ff_expert 1536, fp32) over 4 x 256 tokens, the 4
+    "model" ranks of the all-to-all emulated in this process, against the
+    dense dispatch of each rank's slice: drop sets bitwise, outputs and the
+    input, router and expert gradients of sum(out * r) + aux within 1e-4
+    of the largest, then forward + backward timed with CUDA events beside
+    the per-slice and the global dense dispatch."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, moe_a2a
+    base = get_config(QWEN)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    layer = moe.MoE(base, generator=gen, device=dev)
+    weights = tuple(getattr(layer, n) for n in MOE_LEAVES)
+    n_tok = A2A_RANKS * A2A_TOKENS
+    x = torch.randn(1, n_tok, base.d_model, generator=gen, device=dev)
+    x.requires_grad_(True)
+    r = torch.randn(x.shape, generator=gen, device=dev)
+    gbytes = sum(w.numel() for w in weights) * 4 / 1e9
+    out = {"experts_gb": gbytes, "tokens": [A2A_RANKS, A2A_TOKENS]}
+    for cf in A2A_FACTORS:
+        cfg = base if cf is None else dataclasses.replace(
+            base, capacity_factor=cf)
+
+        def a2a():
+            o, aux, keeps = moe_a2a.apply_moe_a2a_local(weights, cfg, x, 1,
+                                                        A2A_RANKS)
+            return o, aux, keeps[0]
+
+        def sliced():
+            outs, auxes, keeps = [], [], []
+            for m in range(A2A_RANKS):
+                o, a, k = moe.dense_dispatch(
+                    weights, cfg, x[0, m * A2A_TOKENS:(m + 1) * A2A_TOKENS])
+                outs.append(o)
+                auxes.append(a)
+                keeps.append(k)
+            return torch.cat(outs)[None], torch.stack(auxes).mean(), keeps
+
+        def whole():
+            o, a, k = moe.dense_dispatch(weights, cfg, x[0])
+            return o[None], a, [k]
+
+        def fwd_bwd(fn):
+            o, aux, keeps = fn()
+            grads = torch.autograd.grad((o * r).sum() + aux,
+                                        (x,) + weights)
+            return o.detach(), aux.detach(), keeps, grads
+        a_out, a_aux, a_keep, a_g = fwd_bwd(a2a)
+        d_out, d_aux, d_keep, d_g = fwd_bwd(sliced)
+        _check(all(torch.equal(p, q) for p, q in zip(a_keep, d_keep)),
+               f"phase 16: the all-to-all's drop set differs from the "
+               f"per-slice dense dispatch's (capacity factor "
+               f"{cfg.capacity_factor})")
+        drops = sum(int((~k).sum()) for k in d_keep)
+        errs = {"out": _rel_err(a_out, d_out),
+                "aux": _rel_err(a_aux, d_aux)}
+        for name, g, h in zip(("x",) + MOE_LEAVES, a_g, d_g):
+            errs[name] = _rel_err(g, h)
+        del a_g, d_g, a_out, d_out
+        bad = {k: v for k, v in errs.items() if not v <= TOL}
+        _check(not bad, f"phase 16: all-to-all vs per-slice dense at "
+               f"capacity factor {cfg.capacity_factor}: {bad}")
+        torch.cuda.synchronize()
+        step = {}
+        for name, fn in (("a2a", a2a), ("dense_slices", sliced),
+                         ("dense_global", whole)):
+            step[name] = _time_ms(lambda: fwd_bwd(fn), reps=3, inner=2)
+        c = moe.capacity(cfg, A2A_TOKENS)
+        out[f"cf{cfg.capacity_factor:g}"] = {
+            "capacity": c, "drops": drops, "errors": errs, "ms": step}
+        print(f"phase 16: (a) {QWEN} MoE layer at published widths "
+              f"({gbytes:.2f} GB of fp32 experts), {A2A_RANKS} ranks x "
+              f"{A2A_TOKENS} tokens, capacity factor {cfg.capacity_factor:g}"
+              f" (local capacity {c}): {drops} of "
+              f"{n_tok * cfg.top_k} assignments dropped, drop sets == the "
+              f"per-slice dense dispatch's bitwise; max error over max "
+              f"(<= {TOL:g}): " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                            errs.items())
+              + f"; forward + backward {step['a2a']:.2f} ms all-to-all (4 "
+              f"ranks in turn) against {step['dense_slices']:.2f} ms dense "
+              f"by slice and {step['dense_global']:.2f} ms dense over all "
+              f"{n_tok} tokens (CUDA events) on {card}")
+    del layer, weights, x, r
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_train(dev, fi_kernel, mesh, ref, card: str) -> dict:
+    """(b) run_training on the 1x1 mesh: 2 aligned steps of full-width
+    olmo-1b at TRAIN_BATCH x TRAIN_SEQ under the Fig. 7 schedule at
+    CODESIGN_BER, bitwise the same steps without the mesh from one state;
+    K4's launches a step drawn leaves x fields x counter chunks, and
+    phase 14's (``ref``) where it ran."""
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.deployment import ReliabilityPolicy
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.training import loop, steps
+    cfg = get_config("olmo-1b")
+    run = RunConfig(steps=2, checkpoint_dir="", learning_rate=1e-3,
+                    warmup_steps=0, policy=ReliabilityPolicy(),
+                    ber=CODESIGN_BER, inject="dynamic")
+
+    def train(on):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = steps.init_train_state(gen, cfg, run, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        fi_kernel.reset_launch_counts()
+        res = loop.run_training(cfg, run, iter(MarkovLM(
+            cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)), state=state,
+            mesh=on)
+        return (res, fi_kernel.launch_counts[fi_kernel.K4],
+                torch.cuda.max_memory_allocated() / 2 ** 30)
+    base, k4_base, peak_base = train(None)
+    want = _k4_launches_expected(base.state.params,
+                                 loop.make_fault_schedule(run).rates)
+    hist = base.history
+    params = {p: w.cpu() for p, w in base.state.params.items()}
+    del base
+    torch.cuda.empty_cache()
+    res, k4, peak = train(mesh)
+    for h, g in zip(hist, res.history):
+        diff = {k: (h[k], g[k]) for k in h if k != "step_time"
+                and h[k] != g[k]}
+        _check(not diff, f"phase 16: mesh step {h['step']} metrics {diff}")
+    same = all(torch.equal(w, res.state.params[p].cpu())
+               for p, w in params.items())
+    _check(same, "phase 16: the 1x1 mesh's parameters differ from the "
+           "unmeshed run's")
+    _check(k4 == k4_base == 2 * want and want == (ref or {}).get(
+        "k4_a_step", want), f"phase 16: K4 launched {k4} times on the "
+           f"mesh, {k4_base} without, expected {want} a step (phase 14: "
+           f"{(ref or {}).get('k4_a_step')})")
+    chunk, rows, k4_fig = _k4_chunk_figures(res.state.params, fi_kernel)
+    ms = [h["step_time"] * 1e3 for h in res.history]
+    base_ms = [h["step_time"] * 1e3 for h in hist]
+    del res
+    torch.cuda.empty_cache()
+    print(f"phase 16: (b) run_training on a 1x1 NCCL mesh, full-width "
+          f"olmo-1b {TRAIN_BATCH} x {TRAIN_SEQ}, 2 aligned steps under the "
+          f"schedule at BER {CODESIGN_BER:g}: losses "
+          + ", ".join(f"{h['loss']:.6f}" for h in hist)
+          + f", metrics and every parameter bitwise the unmeshed run's; K4 "
+          f"{want} launches a step; steps "
+          + ", ".join(f"{x:.1f}" for x in ms) + " ms (unmeshed "
+          + ", ".join(f"{x:.1f}" for x in base_ms) + f" ms, host clock, "
+          f"synchronized); peak {peak:.2f} GiB (unmeshed {peak_base:.2f}); "
+          f"K4 at the {chunk[0]} chunk [{rows}, {chunk[1].shape[-1]}]: "
+          f"{k4_fig['ms']:.4f} ms, bound {k4_fig['bound_ms']:.4f} ms on "
+          f"{card}")
+    return {"launches": k4, "launches_a_step": want, "step_ms": ms,
+            "peak_gib": peak, **k4_fig}
+
+
+def _mesh_codesign(dev, fi_kernel, mesh, ref, card: str) -> dict:
+    """(c) the Finetuner on the 1x1 mesh and PolicySearch.select through a
+    one-rank trial mesh, each equal to its one-device run (phase 14's, or
+    run here first when ``ref`` is None): losses and parameters bitwise,
+    the same choice, accuracies and trace, the same K3 launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import sweep
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.launch import mesh as mesh_lib
+    cfg = get_config("olmo-1b")
+    data = MarkovLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+
+    def finetune(on):
+        _, res, k4, wall, peak = _finetune_full(dev, fi_kernel, mesh=on)
+        losses = [h["loss"] for h in res.info["reshape"]["history"]
+                  + res.history]
+        return res.state.params, losses, k4, wall
+
+    def select(params, engine):
+        sel, search, _, k3, secs, _, _ = _select_full(
+            cfg, params, data, dev, fi_kernel, engine)
+        return _select_result(sel, search), k3, secs
+    if ref is None:
+        params, losses, _, _ = finetune(None)
+        chosen, k3, _ = select(params, None)
+        ref = {"losses": losses, "params": {p: w.cpu() for p, w in
+                                            params.items()},
+               "select": chosen, "k3": k3}
+        del params
+    params, losses, k4, wall = finetune(mesh)
+    _check(losses == ref["losses"], f"phase 16: Finetuner on the mesh: "
+           f"losses {losses} != {ref['losses']}")
+    _check(all(torch.equal(w, params[p].cpu()) for p, w in
+               ref["params"].items()),
+           "phase 16: Finetuner on the mesh: parameters differ")
+    trial = mesh_lib.make_trial_mesh(1, "cuda")
+    engine = sweep.SweepEngine(sweep.SweepPlan(bers=(SEARCH_BER,),
+                                               n_trials=2), device=dev,
+                               mesh=trial)
+    chosen, k3, secs = select(params, engine)
+    _check(chosen == ref["select"], f"phase 16: select on the trial mesh "
+           f"{chosen[:4]} != {ref['select'][:4]}")
+    _check(k3 == ref["k3"], f"phase 16: select on the trial mesh launched "
+           f"K3 {k3} times, one device {ref['k3']}")
+    man, k3_fig = _k3_embed_figures(params)
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 16: (c) Finetuner on the 1x1 mesh: losses "
+          + ", ".join(f"{x:.6f}" for x in losses) + f" and every parameter"
+          f" bitwise the one-device run's, K4 {k4} launches, {wall:.1f} s "
+          f"of wall; PolicySearch.select on a one-rank trial mesh: "
+          f"{chosen[0]} at accuracy {chosen[1]:.4f}, the one-device choice,"
+          f" trace and K3 launches ({k3}), {secs:.1f} s; K3 at the embed's "
+          f"mantissa plane {tuple(man.shape)}, T = 2: {k3_fig['ms']:.4f} "
+          f"ms, bound {k3_fig['bound_ms']:.4f} ms on {card}")
+    return {"finetune_k4": k4, "launches": k3, **k3_fig}
+
+
+def phase_mesh_train(dev, fi_kernel, card: str, ref=None) -> dict:
+    """Phase 16: the MoE all-to-all (a), data-parallel training on a 1x1
+    mesh (b) and the co-design loop on one-rank meshes (c). ``ref`` is
+    phase 14's one-device Finetuner and select. Returns K3's and K4's
+    figures on this path by kernel (the kernels line carries them under
+    ``"mesh_train"``) and the all-to-all's."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    t0 = time.perf_counter()
+    parts = {}
+    out = {"a2a": _a2a_layer(dev, card)}
+    parts["a"] = time.perf_counter() - t0
+    mesh = mesh_lib.make_host_mesh(1, "cuda")
+    try:
+        t1 = time.perf_counter()
+        out["fault_inject"] = _mesh_train(dev, fi_kernel, mesh, ref, card)
+        parts["b"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        out["fault_inject_batched"] = _mesh_codesign(dev, fi_kernel, mesh,
+                                                     ref, card)
+        out["fault_inject"]["finetune_launches"] = \
+            out["fault_inject_batched"].pop("finetune_k4")
+        parts["c"] = time.perf_counter() - t1
+    finally:
+        mesh_lib.destroy_world()
+    torch.cuda.empty_cache()
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return out
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "cim_read" / "csrc").is_dir():
@@ -4147,6 +4488,12 @@ def main() -> int:
     dev = resolve_device("cuda")
     card = _card()
     t0 = time.perf_counter()
+    if sys.argv[1:] == ["--phase", "16"]:
+        phase_build({"K3+K4": fi_kernel.LIBRARY})
+        mesh_train = phase_mesh_train(dev, fi_kernel, card)
+        print(card)
+        print(json.dumps(mesh_train))
+        return 0
     if sys.argv[1:] == ["--phase", "15"]:
         phase_build({"K1+K2": kernel_lib.LIBRARY, "K3+K4": fi_kernel.LIBRARY})
         checks = {name: {"store": _unembed_store(protect, dev)}
@@ -4189,6 +4536,8 @@ def main() -> int:
     rwkv = phase_kinds(dev, kernel_lib, card)
     codesign = phase_codesign(dev, fi_kernel, card)
     mesh = phase_mesh(dev, checks, kernel_lib, fi_kernel, card)
+    mesh_train = phase_mesh_train(dev, fi_kernel, card,
+                                  codesign.pop("reference"))
     rows = phase_times(dev, checks, launches, engine_launches, card)
     for row in rows:
         row["granite"] = granite[row["name"]]
@@ -4197,11 +4546,13 @@ def main() -> int:
     fi_rows = phase_fi_times(dev, checks, fig6["launches"], fi, card)
     for row in fi_rows:
         row["codesign"] = codesign[row["name"]]
+        row["mesh_train"] = mesh_train[row["name"]]
     fi_rows[0]["trial_slice"] = mesh["trial_slice"]
     rows += fi_rows
     rows.append(phase_bfp_times(dev, bfp, card))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build start")
     print(json.dumps({"int8_cache": mesh["int8"]}))
+    print(json.dumps({"moe_a2a": mesh_train["a2a"]}))
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

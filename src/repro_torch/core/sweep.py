@@ -35,7 +35,7 @@ How it differs from the reference's engine:
   every rank, as the reference replicates it.
   ``trial_shard=(n, index)`` runs one rank's slice without a mesh and
   :func:`merge_trial_shards` joins the slices. The 2-D (trial, model)
-  sweep mesh waits for ROADMAP Queue 1 item 14b.
+  sweep mesh waits for ROADMAP Queue 1 item 14b-2.
 
 Parameter trees are ``{path: tensor}`` mappings in the reference's flatten
 order (:mod:`repro_torch.core.tree`); leaf ``i`` salts its streams with

@@ -59,7 +59,7 @@ scrubber (:mod:`repro_torch.launch.scrub`) ages and rewrites the image from:
 ``refresh_params(force=True)`` swaps the params with requests in flight and
 ``record_scrub`` logs a scrub. ``replica``, ``drain``, ``start`` and
 ``depth`` serve the fleet router (:mod:`repro_torch.launch.fleet`). The
-mesh waits for ROADMAP Queue 1 item 14b.
+mesh waits for ROADMAP Queue 1 item 14b-2.
 """
 from __future__ import annotations
 

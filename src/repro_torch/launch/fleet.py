@@ -33,7 +33,7 @@ busiest one's time would be the fleet's, while here the router steps them
 in turn.
 
 Per-replica device meshes (``make_fleet_meshes``) wait for ROADMAP Queue 1
-item 14b.
+item 14b-2.
 """
 from __future__ import annotations
 
@@ -49,7 +49,7 @@ from repro_torch.distributed.elastic import ElasticCoordinator
 from repro_torch.launch.engine import Engine, Request, RequestResult
 
 MESHES_WAIT = ("per-replica device meshes wait for the multi-GPU slice "
-               "(ROADMAP Queue 1 item 14b)")
+               "(ROADMAP Queue 1 item 14b-2)")
 
 
 class FleetError(RuntimeError):

@@ -12,7 +12,7 @@ quietly covers fewer ranks or falls back to the CPU.
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1x2 ...
 
 ``make_sweep_mesh`` (the 2-D (trial, model) sweep) and
-``make_production_mesh`` wait for ROADMAP Queue 1 item 14b.
+``make_production_mesh`` wait for ROADMAP Queue 1 item 14b-2.
 """
 from __future__ import annotations
 

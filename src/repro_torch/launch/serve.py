@@ -89,7 +89,7 @@ prints. Under ``torchrun``, or 1x1 without it:
       --rounds 2 --cim --ber 1e-4 --inject dynamic
 
 ``--engine --mesh`` and ``--fleet --mesh`` wait for ROADMAP Queue 1 item
-14b and raise.
+14b-2 and raise.
 """
 from __future__ import annotations
 
@@ -341,7 +341,9 @@ def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
     the batch (all of it when the data axis does not divide it), the CIM
     stores are column-sharded over ``"model"``, and the rows are gathered
     back, so every rank returns the whole batch; ECC counts cover the whole
-    image and ``launches`` are this rank's."""
+    image and ``launches`` are this rank's. A MoE layer dispatches through
+    the all-to-all over ``"model"`` where the reference's conditions hold
+    (prefill), and its dense dispatch gathers the global batch (decode)."""
     if rounds < 1:
         raise ValueError(f"rounds must be >= 1, got {rounds}")
     cfg = model.cfg
@@ -352,12 +354,7 @@ def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
         static_seeds=static_seeds, dynamic_seeds=dynamic_seeds,
         fault_model=fault_model, extra=extra, mesh=mesh,
         verbose=verbose and _is_rank0())
-    n_data = shlib.axis_size("data", mesh)
-    rows = slice(None)
-    if n_data > 1 and batch % n_data == 0:
-        per = batch // n_data
-        d = shlib.axis_index("data", mesh)
-        rows = slice(d * per, (d + 1) * per)
+    rows = shlib.batch_rows(batch, mesh) if mesh is not None else slice(None)
 
     def gather(t):
         return t if rows == slice(None) \
@@ -367,7 +364,8 @@ def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
     before = dict(kernel_lib.launch_counts)
     prefill_s = decode_s = 0.0
     all_tokens = []
-    with torch.inference_mode(), shlib.use_mesh(mesh):
+    with torch.inference_mode(), shlib.use_mesh(mesh), shlib.split_rows(
+            mesh if rows != slice(None) else None):
         for r in range(rounds):
             prompts = torch.as_tensor(data.batch(r)["tokens"][rows],
                                       dtype=torch.int64, device=device)
@@ -665,7 +663,7 @@ def main(argv=None):
     if args.mesh and (args.engine or args.fleet > 0):
         raise NotImplementedError(
             "--mesh with --engine or --fleet: the engine and the fleet on a "
-            "mesh wait for ROADMAP Queue 1 item 14b")
+            "mesh wait for ROADMAP Queue 1 item 14b-2")
     mesh = None
     if args.mesh:
         # the mesh first: under torchrun it binds this process to its card

@@ -29,6 +29,19 @@ and at the end; a run pointed at a directory that holds a checkpoint
 resumes from its latest step and consumes the batches the interrupted run
 would have. ``--grad-compression`` compresses the gradient to int8 with
 error feedback.
+
+``--mesh DxM`` trains data-parallel over a ``("data", "model")`` mesh of
+D x M ranks, one process a rank (``run_training(mesh=)``: replicated
+state, the batch split over "data" when D divides it), with the mesh set
+as the ambient one, so a MoE's all-to-all runs over "model" where the
+reference's conditions hold; rank 0 prints and writes checkpoints::
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --reduced \
+      --steps 3 --device cpu --mesh 2x2     # gloo ranks on the CPU
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 4x1 \
+      --rel-mode cim --ber 1e-4 --inject dynamic --batch 32   # four cards
+
+``--mesh 1x1`` runs without torchrun (a world-size-1 group).
 """
 from __future__ import annotations
 
@@ -36,11 +49,15 @@ import argparse
 import dataclasses
 import json
 
+import torch
+
 from repro_torch.configs import RunConfig, get_config
 from repro_torch.core.deployment import PolicyRule, ReliabilityPolicy
 from repro_torch.data.synthetic import (ArchBatches, CheckpointableLoader,
                                         MarkovLM)
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shlib
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import lm
 from repro_torch.training.loop import run_training
 
@@ -71,12 +88,22 @@ def build_argparser():
                     help="int8 error-feedback gradient compression")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu for the plain versions")
+    ap.add_argument("--mesh", default="", metavar="DxM",
+                    help="data-parallel over a D x M ('data', 'model') mesh "
+                         "(under torchrun; the MoE all-to-all over 'model')")
     return ap
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    mesh = None
+    if args.mesh:
+        # the mesh first: under torchrun it binds this process to its card
+        mesh = mesh_lib.make_serve_mesh(
+            args.mesh, "cuda" if args.device is None
+            or torch.device(args.device).type == "cuda" else "cpu")
     dev = resolve_device(args.device)
+    lead = mesh is None or torch.distributed.get_rank() == 0
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -111,19 +138,23 @@ def main(argv=None):
     logf = open(args.log_jsonl, "a") if args.log_jsonl else None
 
     def log(step, metrics):
-        if step % 10 == 0 or step == run.steps - 1:
+        if lead and (step % 10 == 0 or step == run.steps - 1):
             print(f"step {step:5d} loss {metrics['loss']:.4f} "
                   f"acc {metrics['accuracy']:.3f} "
                   f"gnorm {metrics['grad_norm']:.2f} "
                   f"{metrics['step_time']*1e3:.0f} ms")
-        if logf:
+        if logf and lead:
             logf.write(json.dumps(metrics) + "\n")
 
     try:
-        res = run_training(cfg, run, batches, log_fn=log, device=dev)
+        with shlib.use_mesh(mesh):
+            res = run_training(cfg, run, batches, log_fn=log, device=dev,
+                               mesh=mesh)
     finally:
         if logf:
             logf.close()
+    if not lead:
+        return res
     n = lm.param_count(res.state.params)
     print(f"done: {len(res.history)} steps, {n/1e6:.2f}M params, "
           f"resumed_from={res.info['resumed_from']}, "

@@ -10,10 +10,13 @@ import torch
 IGNORE = -100
 
 
-def lm_loss(logits: torch.Tensor, labels: torch.Tensor):
-    """logits [B, S, V], labels [B, S] int (IGNORE masked) -> (loss,
-    metrics). A prediction counts as correct iff the label's logit equals
-    the row max, as in the reference (a NaN row scores no hit)."""
+def lm_loss_sums(logits: torch.Tensor, labels: torch.Tensor):
+    """logits [B, S, V], labels [B, S] int (IGNORE masked) -> (the masked
+    NLL sum, the hits, the unmasked tokens): :func:`lm_loss` before its
+    division, for a caller that sums them over more rows first (a
+    data-parallel step: an IGNORE-masked batch does not split evenly). A
+    prediction counts as correct iff the label's logit equals the row max,
+    as in the reference (a NaN row scores no hit)."""
     mask = labels != IGNORE
     safe = torch.where(mask, labels, torch.zeros_like(labels)).to(torch.int64)
     x = logits.to(torch.float32)
@@ -21,10 +24,17 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor):
     lse = m + torch.log(torch.exp(x - m[..., None]).sum(dim=-1))
     picked = torch.gather(x, -1, safe[..., None])[..., 0]
     nll = lse - picked
-    denom = mask.sum().clamp(min=1)
-    loss = (nll * mask).sum() / denom
-    acc = ((picked >= m) & mask).sum() / denom
-    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}
+    return (nll * mask).sum(), ((picked >= m) & mask).sum(), mask.sum()
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor):
+    """logits [B, S, V], labels [B, S] int (IGNORE masked) -> (loss,
+    metrics): the mean masked NLL and the accuracy over the unmasked
+    tokens (:func:`lm_loss_sums`)."""
+    nll, hits, tokens = lm_loss_sums(logits, labels)
+    denom = tokens.clamp(min=1)
+    loss = nll / denom
+    return loss, {"loss": loss, "accuracy": hits / denom, "tokens": denom}
 
 
 # Co-design fine-tuning stage 1: alignment forces every N-block onto one

@@ -1,13 +1,18 @@
-"""Mixture-of-Experts layer, dense dispatch (port of ``repro/models/moe.py``
-on one device).
+"""Mixture-of-Experts layer (port of ``repro/models/moe.py``).
 
-Assignments are ranked per expert (by a stable sort, or by the one-hot
-``cumsum`` baseline), scattered into an ``[E, C, D]`` buffer of capacity C
-per expert, run through per-expert SwiGLU products and gathered back.
-``moe_dispatch="a2a"`` is the reference's all-to-all under a mesh; without
-one (as here) it falls back to the sort dispatch, as the reference does.
-The mesh's all-to-all waits for the multi-GPU slice (ROADMAP Queue 1 item
-14b).
+The dense dispatch: assignments are ranked per expert (by a stable sort, or
+by the one-hot ``cumsum`` baseline), scattered into an ``[E, C, D]`` buffer
+of capacity C per expert, run through per-expert SwiGLU products and
+gathered back. ``moe_dispatch="a2a"`` routes through the expert-parallel
+all-to-all (:mod:`repro_torch.models.moe_a2a`) exactly where the reference
+does: under an ambient mesh with a ``"model"`` axis that divides the
+experts, batch axes that divide the global batch and ``"model"`` dividing
+the sequence. Everywhere else (no mesh, decode's S = 1) it falls back to
+the sort dispatch, as the reference does. Where activations hold only this
+rank's rows (``sharding.split_rows``: data parallelism), the dense
+dispatch gathers the global batch over the batch axes first, so capacity,
+drop set and aux are the global batch's, as GSPMD computes them in the
+reference; each rank keeps its own rows of the output.
 
 Ordering follows the reference: ``jax.lax.top_k`` puts the lower index
 first among equal gates and ``jnp.argsort`` is stable, so the top-k here is
@@ -23,6 +28,7 @@ from typing import Mapping, Tuple
 import torch
 from torch import nn
 
+from repro_torch.distributed import sharding as shlib
 from repro_torch.models.common import Leaves, dense_init
 
 # the stacked per-expert weights ([E, D, F] a block, [G, E, D, F] stacked
@@ -49,15 +55,12 @@ def drop_free(cfg, tokens: int) -> bool:
     return all(capacity(cfg, t) >= t for t in range(1, tokens + 1))
 
 
-def dispatch(cfg, mesh=None) -> str:
-    """The ranking a MoE layer uses: ``"cumsum"``, or the sort dispatch
-    (``"sort"``, and ``"a2a"`` without a mesh, as the reference falls
-    back). The all-to-all over a mesh waits for the multi-GPU slice."""
+def dispatch(cfg) -> str:
+    """The ranking the dense dispatch uses: ``"cumsum"``, or the sort
+    dispatch (``"sort"``, and ``"a2a"`` where the all-to-all does not run,
+    as the reference falls back)."""
     if cfg.moe_dispatch not in ("a2a", "sort", "cumsum"):
         raise ValueError(f"moe_dispatch {cfg.moe_dispatch!r}")
-    if cfg.moe_dispatch == "a2a" and mesh is not None:
-        raise NotImplementedError("the all-to-all MoE dispatch over a mesh "
-                                  "waits (ROADMAP Queue 1 item 14b)")
     return "cumsum" if cfg.moe_dispatch == "cumsum" else "sort"
 
 
@@ -86,6 +89,76 @@ def ranks(flat_ids, n_experts: int, how: str):
     return rank
 
 
+def route_tokens(router, xt, cfg):
+    """Top-k routing of tokens [T, D] -> (gates, ids [T, k], the Switch
+    aux loss E * sum_e f_e * p_e over these tokens)."""
+    e, k = cfg.n_experts, cfg.top_k
+    logits = (xt @ router.to(xt.dtype)).to(torch.float32)        # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    gates, ids = top_k(probs, k)
+    gates = gates / gates.sum(-1, keepdim=True)
+    me = probs.mean(0)
+    ce = torch.nn.functional.one_hot(ids, e).to(torch.float32).sum(1).mean(0)
+    return gates, ids, cfg.router_aux_coef * e * (me * ce).sum()
+
+
+def pack(xt, ids, cfg, ep: int = 1, how: str = "sort"):
+    """Each kept assignment's token row at slot ``id * C + rank`` of
+    ``[E * C, D]`` (C = :func:`capacity` over these T tokens), split by
+    owner ``e // (E / ep)`` -> (slots [ep, E / ep * C, D], keep, dest, C)."""
+    t, d = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    c = capacity(cfg, t)
+    flat_ids = ids.reshape(t * k)
+    rank = ranks(flat_ids, e, how)
+    keep = rank < c
+    dest = torch.where(keep, flat_ids * c + rank,
+                       torch.full_like(flat_ids, e * c))       # drop slot
+    src = xt.repeat_interleave(k, dim=0)                       # [T*k, D]
+    buf = xt.new_zeros((e * c + 1, d)).index_add_(0, dest, src)[:e * c]
+    return buf.reshape(ep, (e // ep) * c, d), keep, dest, c
+
+
+def run_experts(slots, w_gate, w_in, w_out, c: int):
+    """Slots [ep, E_loc * C, D] from ep senders through the E_loc experts'
+    SwiGLU (``w_*`` [E_loc, ...]) -> the results in the same layout."""
+    ep, _, d = slots.shape
+    e_loc = w_gate.shape[0]
+    dt = slots.dtype
+    buf = slots.reshape(ep, e_loc, c, d).transpose(0, 1) \
+        .reshape(e_loc, ep * c, d)                         # senders merged
+    h = torch.nn.functional.silu(torch.bmm(buf, w_gate.to(dt))) \
+        * torch.bmm(buf, w_in.to(dt))
+    out = torch.bmm(h, w_out.to(dt))
+    return out.reshape(e_loc, ep, c, d).transpose(0, 1) \
+        .reshape(ep, e_loc * c, d)
+
+
+def combine(slots, keep, dest, gates, c: int, cfg):
+    """Result slots [ep, E / ep * C, D] -> out [T, D]: the kept
+    assignments' rows, weighted by their gates, summed over the k."""
+    e, k = cfg.n_experts, cfg.top_k
+    d = slots.shape[-1]
+    out_buf = slots.reshape(e * c, d)
+    gathered = torch.where(keep[:, None],
+                           out_buf[torch.clamp(dest, max=e * c - 1)],
+                           torch.zeros((), dtype=slots.dtype,
+                                       device=slots.device))
+    weighted = gathered * gates.reshape(-1, 1).to(slots.dtype)
+    return weighted.reshape(-1, k, d).sum(1)
+
+
+def dense_dispatch(weights, cfg, xt):
+    """The dense dispatch of tokens [T, D] over these tokens alone:
+    ``weights`` ``(router, moe_wgate, moe_win, moe_wout)`` -> (out [T, D],
+    aux, keep [T * k]). It is the all-to-all's stages on one rank."""
+    router, w_gate, w_in, w_out = weights
+    gates, ids, aux = route_tokens(router, xt, cfg)
+    slots, keep, dest, c = pack(xt, ids, cfg, 1, dispatch(cfg))
+    out = run_experts(slots, w_gate, w_in, w_out, c)
+    return combine(out, keep, dest, gates, c, cfg), aux, keep
+
+
 class MoE(Leaves):
     """Router [D, E] and per-expert SwiGLU weights [E, D, F] / [E, F, D]
     (the reference's ``init_moe``); every method takes ``over``, leaves that
@@ -103,43 +176,20 @@ class MoE(Leaves):
 
     def forward(self, x, over: Mapping = {}
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x [B,S,D] -> (out [B,S,D], the aux load-balancing loss)."""
-        cfg = self.cfg
+        """x [B,S,D] -> (out [B,S,D], the aux load-balancing loss): the
+        all-to-all where :func:`moe_a2a.route` picks it, else the dense
+        dispatch over the global batch."""
+        from repro_torch.models import moe_a2a
+        weights = tuple(self.w(n, over) for n in
+                        ("router", "moe_wgate", "moe_win", "moe_wout"))
+        if moe_a2a.route(self.cfg, x.shape[0], x.shape[1]):
+            return moe_a2a.apply_moe_a2a(weights, self.cfg, x)
+        rows = shlib.rows_mesh()
+        mine = slice(None)
+        if rows is not None and shlib.batch_ranks(rows) > 1:
+            mine = shlib.batch_rows(x.shape[0] * shlib.batch_ranks(rows),
+                                    rows)
+            x = shlib.gather_rows(x, rows)
         b, s, d = x.shape
-        e, k = cfg.n_experts, cfg.top_k
-        t = b * s
-        dt = x.dtype
-        W = lambda name: self.w(name, over).to(dt)      # noqa: E731
-        xt = x.reshape(t, d)
-        logits = (xt @ W("router")).to(torch.float32)             # [T, E]
-        probs = torch.softmax(logits, dim=-1)
-        gates, ids = top_k(probs, k)
-        gates = gates / gates.sum(-1, keepdim=True)
-
-        # aux loss (Switch-style): E * sum_e f_e * p_e
-        me = probs.mean(0)
-        ce = torch.nn.functional.one_hot(ids, e).to(torch.float32).sum(1) \
-            .mean(0)
-        aux = cfg.router_aux_coef * e * (me * ce).sum()
-
-        flat_ids = ids.reshape(t * k)
-        rank = ranks(flat_ids, e, dispatch(cfg))
-        c = capacity(cfg, t)
-        keep = rank < c
-        dest = torch.where(keep, flat_ids * c + rank,
-                           torch.full_like(flat_ids, e * c))   # drop slot
-
-        # dispatch: each kept assignment owns one row of [E*C(+1), D]
-        src = xt.repeat_interleave(k, dim=0)                       # [T*k, D]
-        buf = xt.new_zeros((e * c + 1, d)).index_add_(0, dest, src)
-        buf = buf[:e * c].reshape(e, c, d)
-        h = torch.nn.functional.silu(torch.bmm(buf, W("moe_wgate"))) \
-            * torch.bmm(buf, W("moe_win"))
-        out_buf = torch.bmm(h, W("moe_wout")).reshape(e * c, d)
-
-        # combine: gather + gate-weighted sum over the k assignments
-        gathered = torch.where(keep[:, None],
-                               out_buf[torch.clamp(dest, max=e * c - 1)],
-                               torch.zeros((), dtype=dt, device=x.device))
-        weighted = gathered * gates.reshape(t * k, 1).to(dt)
-        return weighted.reshape(t, k, d).sum(1).reshape(b, s, d), aux
+        out, aux, _ = dense_dispatch(weights, self.cfg, x.reshape(b * s, d))
+        return out.reshape(b, s, d)[mine], aux

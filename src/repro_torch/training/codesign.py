@@ -30,10 +30,17 @@ resilience-aware fine-tuning and automatic reliability-policy search.
 
 How it differs from the reference: ``PolicySearch`` takes ``seeds`` (an
 int) in place of a ``jax.random`` key and draws evaluation ``k``'s seed as
-``fold_seed(seeds, k)``, so a search is reproducible; ``Finetuner`` runs
-on one device (``mesh='auto'`` and ``None`` mean one device; a mesh waits
-for ROADMAP Queue 1 item 14b); weights and evaluations are ``{path:
-tensor}`` trees on ``device`` (default ``cuda``).
+``fold_seed(seeds, k)``, so a search is reproducible; weights and
+evaluations are ``{path: tensor}`` trees on ``device`` (default ``cuda``).
+
+On a mesh: ``Finetuner(mesh=...)`` runs both stages data-parallel through
+``run_training(mesh=)`` (replicated state; :mod:`repro_torch.training.
+loop`). ``mesh='auto'`` builds ``make_host_mesh(model_axis=1)`` over the
+world when torchrun's environment names more than one rank, and otherwise
+stays on one device without starting a process group. ``PolicySearch(
+engine=SweepEngine(plan, mesh=make_trial_mesh()))`` splits each
+evaluation's trials over the ranks (``SweepEngine.run_policies``), every
+rank gets every result, so every rank takes the same moves.
 
 ``python -m repro_torch.training.codesign --quick --json out.json`` runs the
 smoke: a short fine-tune of reduced olmo-1b plus a 2-candidate policy
@@ -43,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -87,14 +95,21 @@ class Finetuner:
     mesh: object = "auto"
     device: object = None
 
-    def _check_mesh(self) -> None:
-        if isinstance(self.mesh, str):
-            if self.mesh != "auto":
-                raise ValueError(f"Finetuner: mesh must be 'auto', None or a "
-                                 f"Mesh, got {self.mesh!r}")
-        elif self.mesh is not None:
-            raise NotImplementedError("Finetuner on a device mesh waits for "
-                                      "ROADMAP Queue 1 item 14b")
+    def _mesh(self):
+        """None, the given mesh, or for ``"auto"`` the host mesh over the
+        world when torchrun's environment names more than one rank (made
+        before the device resolves: it binds the process to its card)."""
+        if not isinstance(self.mesh, str):
+            return self.mesh
+        if self.mesh != "auto":
+            raise ValueError(f"Finetuner: mesh must be 'auto', None or a "
+                             f"Mesh, got {self.mesh!r}")
+        if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+            return None
+        from repro_torch.launch.mesh import make_host_mesh
+        kind = "cuda" if self.device is None \
+            else torch.device(self.device).type
+        return make_host_mesh(model_axis=1, device_type=kind)
 
     def _run_cfg(self, **kw) -> RunConfig:
         base = dict(policy=self.policy, learning_rate=self.learning_rate,
@@ -109,7 +124,7 @@ class Finetuner:
         return iter(batches)
 
     def _stage(self, run: RunConfig, seed: int, batches, params,
-               log_fn) -> TrainResult:
+               log_fn, mesh) -> TrainResult:
         """One stage of ``run_training`` from ``params``. The state goes
         straight in: ``run_training`` holds its only reference, so a step
         frees the weights and moments it replaces."""
@@ -118,27 +133,28 @@ class Finetuner:
         return run_training(self.cfg, run, self._batches(batches),
                             log_fn=log_fn, state=steps_lib.init_train_state(
                                 gen, self.cfg, run, params=params,
-                                device=dev))
+                                device=dev), mesh=mesh)
 
-    def _reshape(self, batches, params, log_fn):
+    def _reshape(self, batches, params, log_fn, mesh):
         """Stage 1: (its params, its history). Its moments die here."""
         run1 = self._run_cfg(steps=self.reshape_steps, ber=0.0,
                              exp_reg_coef=self.exp_reg_coef,
                              exp_reg_margin=self.exp_reg_margin,
                              freeze_exponents=False)
-        res = self._stage(run1, self.seed, batches, params, log_fn)
+        res = self._stage(run1, self.seed, batches, params, log_fn, mesh)
         return res.state.params, res.history
 
     def run(self, batches, params=None,
             log_fn: Optional[Callable] = None) -> TrainResult:
-        self._check_mesh()
+        mesh = self._mesh()
         reshape_hist: List[Dict] = []
         if self.reshape_steps > 0:
-            params, reshape_hist = self._reshape(batches, params, log_fn)
+            params, reshape_hist = self._reshape(batches, params, log_fn,
+                                                 mesh)
         run2 = self._run_cfg(steps=self.aligned_steps, ber=self.ber,
                              inject="dynamic", freeze_exponents=True)
         res2 = self._stage(run2, cim_lib.fold_seed(self.seed, 1), batches,
-                           params, log_fn)
+                           params, log_fn, mesh)
         res2.info["reshape"] = {"steps": self.reshape_steps,
                                 "history": reshape_hist}
         return res2

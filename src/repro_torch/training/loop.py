@@ -1,4 +1,4 @@
-"""The training loop (port of ``repro/training/loop.py``, single device).
+"""The training loop (port of ``repro/training/loop.py``).
 
 ``run_training`` trains for ``run.steps`` steps with the straggler watchdog
 and returns a :class:`TrainResult`. Modes: ``off`` (plain training) and
@@ -18,10 +18,26 @@ resumes from the latest saved step (``info["resumed_from"]``). A
 has its cursor saved beside the state and restored with it, so the resumed
 run consumes the batches the interrupted one would have.
 
-What waits, and raises rather than being skipped: a device mesh (ROADMAP
-Queue 1 item 14b). The reference draws the Fig. 7 faults from
-``jax.random``; the port's are the counter PRNG's, so the two agree in
-rates, not in bits.
+A device mesh (``mesh=``, a ``("data", "model")`` mesh of
+:mod:`repro_torch.launch.mesh`) makes the run data-parallel with the state
+replicated, as the reference's: every rank holds the same state (checked
+bitwise once, at the start), draws the same global batch from ``batches``
+(so a :class:`CheckpointableLoader`'s cursor is the same on every rank)
+and keeps its rows when the batch axes divide the batch, else runs it
+whole; the step sums the gradient over the mesh
+(:func:`repro_torch.training.steps.make_train_step`), so AdamW, the
+projection and the Fig. 7 schedule run identically on every rank and each
+rank's faulty weights are bitwise the one-device run's. The loop does not
+set the ambient mesh (nor does the reference's): a MoE layer takes the
+dense dispatch over the global batch unless the caller sets it
+(``sharding.use_mesh``), which routes it through the all-to-all over
+``"model"``; otherwise ``"model"`` replicates. Checkpoints: rank 0 writes,
+every rank waits for the last write at a barrier, and every rank restores.
+Sharding the state over the mesh (ZeRO-3) waits for ROADMAP Queue 1 item
+14b-1b.
+
+The reference draws the Fig. 7 faults from ``jax.random``; the port's are
+the counter PRNG's, so the two agree in rates, not in bits.
 """
 from __future__ import annotations
 
@@ -40,6 +56,7 @@ from repro_torch.core.deployment import training_fault_schedule
 from repro_torch.data.synthetic import CheckpointableLoader
 from repro_torch.device import resolve_device
 from repro_torch.distributed import checkpoint as ckpt_lib
+from repro_torch.distributed import sharding as shlib
 from repro_torch.distributed.elastic import StragglerWatchdog
 from repro_torch.training import steps as steps_lib
 
@@ -119,6 +136,13 @@ def _checkpoint_tree(state: steps_lib.TrainState, loader) -> dict:
     return tree
 
 
+def _state_tensors(state: steps_lib.TrainState) -> list:
+    trees = (state.params, state.opt["m"], state.opt["v"],
+             {"step": state.opt["step"]}, state.exps, state.signs,
+             state.ef_error or {})
+    return [t for tree in trees for t in tree.values() if t is not None]
+
+
 def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
                  log_fn: Optional[Callable[[int, Dict], None]] = None,
                  state: Optional[steps_lib.TrainState] = None,
@@ -134,13 +158,17 @@ def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
     History entries hold ``loss``, ``accuracy``, ``tokens``, ``grad_norm``,
     ``lr``, ``aux_loss``, ``step`` and ``step_time`` (seconds, after a
     device synchronize). ``sleep_injector(step)`` seconds are slept inside
-    a step's timing (simulated host slowness, for the watchdog)."""
-    if mesh is not None:
-        raise NotImplementedError("training on a device mesh waits for "
-                                  "ROADMAP Queue 1 item 14b")
+    a step's timing (simulated host slowness, for the watchdog). ``mesh``
+    makes the run data-parallel (module doc)."""
+    if mesh is not None and tuple(getattr(mesh, "mesh_dim_names", None)
+                                  or ()) != ("data", "model"):
+        raise ValueError(f"run_training: mesh must be a ('data', 'model') "
+                         f"DeviceMesh (launch.mesh.make_host_mesh), got "
+                         f"{mesh!r}")
     corrupt = make_fault_schedule(run)
-    step_fn = steps_lib.make_train_step(cfg, run)
+    step_fn = steps_lib.make_train_step(cfg, run, mesh)
     loader = batches if isinstance(batches, CheckpointableLoader) else None
+    writer = mesh is None or torch.distributed.get_rank() == 0
     start_step, checkpointer = 0, None
     if run.checkpoint_dir:
         os.makedirs(run.checkpoint_dir, exist_ok=True)
@@ -161,11 +189,16 @@ def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
                     f"{'asks for' if run.grad_compression else 'turns off'}")
             if loader is not None and "data" in tree:
                 loader.load_state_dict(tree["data"])
-        checkpointer = ckpt_lib.AsyncCheckpointer(run.checkpoint_dir)
+        if writer:
+            checkpointer = ckpt_lib.AsyncCheckpointer(run.checkpoint_dir)
     if state is None:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(run.seed)
         state = steps_lib.init_train_state(gen, cfg, run, device=dev)
+    if mesh is not None and not shlib.same_on_every_rank(
+            _state_tensors(state), mesh):
+        raise ValueError("run_training on a mesh: the state differs between "
+                         "ranks (data parallelism replicates it)")
     dev = next(iter(state.params.values())).device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
@@ -204,6 +237,8 @@ def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
     finally:
         if checkpointer:
             checkpointer.close()
+    if mesh is not None and run.checkpoint_dir:
+        shlib.barrier(mesh)     # rank 0's last write is on disk for all
     info = {"stragglers_flagged": stragglers, "resumed_from": start_step,
             "ewma_step_time": watchdog.ewma}
     return TrainResult(state=state, history=history, info=info, cfg=cfg,

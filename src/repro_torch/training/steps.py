@@ -8,6 +8,18 @@ parameters are a ``{path: tensor}`` tree in the reference's layout and
 flatten order, so each gradient, moment, frozen exponent and frozen sign
 matches one leaf of the reference one to one.
 
+Data parallelism (``mesh``): every rank holds the same state and the same
+global batch, keeps its rows when the batch axes divide the batch (else
+runs the whole batch) and differentiates its share of the global loss, so
+that the gradient summed over the mesh's ranks is the one-device gradient
+of the one-device loss: the masked NLL sum over the global token count
+(:func:`lm_loss_sums`, the counts summed over the batch axes), weighted
+by one over the ranks that hold the same rows; the MoE aux (global, or
+each rank's local aux under the all-to-all) and the regularizer weighted
+by one over every rank. The sum runs over the whole mesh before the clip
+and the compression, so AdamW, the projection and the next step's faults
+are identical on every rank.
+
 Memory: the step owns its gradients and scales them in place when it
 clips. AdamW builds new parameter and moment trees beside the old ones, so
 the state a caller passed stays as it was; its temporaries and the
@@ -22,9 +34,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core import align as align_lib
+from repro_torch.distributed import sharding as shlib
 from repro_torch.distributed.compression import compress_decompress
 from repro_torch.models import lm
-from repro_torch.models.losses import exponent_compression_penalty, lm_loss
+from repro_torch.models.losses import (exponent_compression_penalty,
+                                       lm_loss_sums)
 from repro_torch.optim import adamw
 
 @dataclasses.dataclass
@@ -64,14 +78,17 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
                       exps=exps, signs=signs, ef_error=ef)
 
 
-def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
+def make_train_step(cfg: ModelConfig, run: RunConfig,
+                    mesh=None) -> Callable:
     """-> ``train_step(state, batch) -> (state, metrics)``. ``batch`` holds
     ``tokens`` and ``labels`` [B, S] tensors on the parameters' device (and
     a stub modality's ``vision_embeds`` or ``embeds``, :func:`batches_for`);
     metrics are 0-dim tensors (``loss``, ``accuracy``, ``tokens``,
     ``grad_norm``, ``lr``, ``aux_loss``, and ``exp_penalty`` with the
     regularizer). A state with ``ef_error`` compresses its clipped gradient
-    (int8 with error feedback) before AdamW."""
+    (int8 with error feedback) before AdamW. With a ``("data", "model")``
+    ``mesh`` the step is data-parallel (module doc): ``batch`` is the
+    global batch on every rank, and the metrics are the global batch's."""
     rel = run.rel
     project = rel.enabled() and run.freeze_exponents
     reg_policy = rel.policy if run.exp_reg_coef > 0 else None
@@ -89,23 +106,43 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
             return p.to(cdt)
         return p
 
-    def loss_fn(params, batch):
+    ranks = 1 if mesh is None else mesh.size()
+
+    def loss_fn(params, batch, rows_mesh, replicas):
+        """This rank's share of the loss (module doc; the loss itself on
+        one device: dividing by one is exact)."""
         params_c = {k: _cast(v) for k, v in params.items()}
         logits, aux = lm.forward(model, params_c, batch, with_aux=True)
-        loss, metrics = lm_loss(logits, batch["labels"])
+        nll, hits, tokens = lm_loss_sums(logits, batch["labels"])
         del logits
+        total = nll.detach()
+        if rows_mesh is not None:       # the global batch's sums
+            hits, tokens = shlib.sum_over_batch(torch.stack([hits, tokens]),
+                                                rows_mesh)
+            total = shlib.sum_over_batch(total, rows_mesh)
+        denom = tokens.clamp(min=1)
+        loss = nll / denom / replicas
+        metrics = {"loss": total / denom, "accuracy": hits / denom,
+                   "tokens": denom}
         if reg_policy is not None:
             pen = exponent_compression_penalty(params, reg_policy,
                                                margin=run.exp_reg_margin)
-            loss = loss + run.exp_reg_coef * pen
+            loss = loss + run.exp_reg_coef * pen / ranks
             metrics = dict(metrics, exp_penalty=pen)
-        return loss + aux, (metrics, aux)
+        return loss + aux / ranks, (metrics, aux)
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        rows = shlib.batch_rows(batch["tokens"].shape[0], mesh) \
+            if mesh is not None else slice(None)
+        split = rows != slice(None)
+        if split:
+            batch = {k: v[rows] for k, v in batch.items()}
+        replicas = ranks // shlib.batch_ranks(mesh) if split else ranks
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
-        with torch.enable_grad():
-            total, (metrics, aux) = loss_fn(leaves, batch)
+        with torch.enable_grad(), shlib.split_rows(mesh if split else None):
+            total, (metrics, aux) = loss_fn(leaves, batch,
+                                            mesh if split else None, replicas)
             # an audio_stub batch leaves the embed unread: its gradient is
             # zero, as jax.grad's
             grads = torch.autograd.grad(total, list(leaves.values()),
@@ -113,6 +150,9 @@ def make_train_step(cfg: ModelConfig, run: RunConfig) -> Callable:
         grads = {p: torch.zeros_like(w) if g is None else g
                  for (p, w), g in zip(leaves.items(), grads)}
         del total, leaves
+        if ranks > 1:
+            for g in grads.values():
+                shlib.all_reduce_mesh(g, mesh)
         metrics = {k: v.detach() for k, v in metrics.items()}
         aux = aux.detach()
         grads, gnorm = adamw.clip_by_global_norm(grads, opt_cfg.grad_clip)

@@ -533,7 +533,9 @@ def test_finetuner_smoke_trains_through_deployment():
                           aligned_steps=1, mesh="auto",
                           device="cpu").run(iter(data))
     assert res2.info["reshape"]["history"] == []
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # a mesh trains data-parallel (tests/test_torch_mesh_train.py); a mesh
+    # that is not ("data", "model") is refused
+    with pytest.raises(ValueError, match="'data', 'model'"):
         t_cd.Finetuner(cfg, t_dep.ReliabilityPolicy(), mesh=object(),
                        device="cpu").run(iter(data))
     with pytest.raises(ValueError, match="mesh"):

@@ -607,8 +607,13 @@ def test_guards(port, monkeypatch):
     assert t_lm.check_engine_kinds(rwkv) == (t_lm.SLOT_STATE_SPECS["rwkv"],)
     moe = get_config("qwen3-moe-235b-a22b").reduced()
     assert t_moe.dispatch(moe) == "sort"        # a2a without a mesh
-    with pytest.raises(NotImplementedError, match=r"item 14"):
-        t_moe.dispatch(moe, mesh=object())
+    from repro_torch.models import moe_a2a
+    assert not moe_a2a.route(moe, 2, 8)         # no mesh: the dense dispatch
+    # the MoE's all-to-all over a mesh has landed; the engine on a mesh
+    # still waits
+    with pytest.raises(NotImplementedError, match=r"item 14b-2"):
+        t_serve.main(["--engine", "--reduced", "--device", "cpu", "--mesh",
+                      "1x1"])
     with pytest.raises(ValueError, match="allowed"):
         t_lm.slot_state_spec("conv")
     with pytest.raises(ValueError, match="allowed"):

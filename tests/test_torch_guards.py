@@ -47,7 +47,8 @@ def test_sources_import_no_jax_and_no_reference_package():
 def test_every_module_imports_with_jax_blocked():
     mods = list(_modules())
     for m in ("repro_torch.models.rwkv6", "repro_torch.models.rglru",
-              "repro_torch.models.moe", "repro_torch.configs.rwkv6_1_6b",
+              "repro_torch.models.moe", "repro_torch.models.moe_a2a",
+              "repro_torch.configs.rwkv6_1_6b",
               "repro_torch.configs.recurrentgemma_9b",
               "repro_torch.configs.qwen3_moe_235b_a22b",
               "repro_torch.configs.dbrx_132b",

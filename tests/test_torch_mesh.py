@@ -344,10 +344,10 @@ _WORKER = textwrap.dedent('''
 ''')
 
 
-def _spawn(payload, tmp_path, world=4):
-    """Start ``_WORKER`` on ``world`` gloo ranks with torchrun's environment
-    -> a function that waits for them and returns rank 0's result (the
-    caller computes the reference meanwhile)."""
+def _spawn(payload, tmp_path, world=4, worker=None):
+    """Start ``worker`` (default ``_WORKER``) on ``world`` gloo ranks with
+    torchrun's environment -> a function that waits for them and returns
+    rank 0's result (the caller computes the reference meanwhile)."""
     src, dst = tmp_path / "in.pt", tmp_path / "out.pt"
     torch.save(payload, src)
     port = t_mesh._free_port()
@@ -359,7 +359,8 @@ def _spawn(payload, tmp_path, world=4):
                    PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH",
                                                                 ""))
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", _WORKER, str(src), str(dst)], env=env,
+            [sys.executable, "-c", worker or _WORKER, str(src), str(dst)],
+            env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
 
     def result():
