@@ -275,20 +275,44 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    phase 14's losses and parameters bitwise, its choice, accuracies and
    trace, its K3 launches. The phase's wall time by part.
 
-Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 12, 13, 14, 15, 16, 7.
+17. the training state sharded over a mesh (ZeRO-3), on the one card. (a)
+   K4 at shard offsets: a uint16 plane of granite-3-8b's stacked w_gate
+   shape [40, 4096, 12800] (16 counter chunks) cut into the blocks of its
+   spec at 4x1 and 2x2, each block drawn at its offsets
+   (``fault.draw_block_bits``: a launch a run of rows in one chunk) and
+   held bitwise to its region of the one-device draw, every chunk drawn;
+   one 4x1 block timed against its bound (draws x 10 ALU-pipe ops) and
+   its plain version. (b) the ZeRO-3 step with 4 "data" ranks emulated in
+   one process (``zero3.emulate_step``: the program's sharded step, a
+   thread a rank, its gathers, reduce-scatters and all-reduces in-process
+   exchanges) on full-width olmo-1b at 8 x 128: each rank's init
+   blocks (drawn leaf by leaf) bitwise the one-device init's; remat on
+   and off bitwise on one device; one clean aligned step held to the
+   one-device step at ``tests/test_torch_train_kinds.py``'s tolerances;
+   2 aligned steps under the Fig. 7 schedule at BER 1e-4, step 0's faulty
+   blocks bitwise the one-device flips, K4's launches at the blocks'
+   offsets counted, the deviations from the one-device steps reported;
+   the row-split witness: on the same faulty weights, the one-device
+   forward of the 8 rows against four forwards of 2 rows (the ranks'
+   shapes), whose loss the emulated step 0's must equal; step ms, the
+   gathered bytes and the peak.
+
+Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 12, 13, 14, 15, 16, 17,
+7.
 Prints the card's name and power limit, then one ``{"kernels": [...]}`` line
 (each K1/K2 row carries its granite figures under ``"granite"``, its rwkv6
 figures under ``"rwkv6"`` and its shard reads under ``"mesh"``; K3's and
 K4's rows their co-design path's launches and times under ``"codesign"``
 and their mesh path's under ``"mesh_train"``, K3's its trial-slice figures
-under ``"trial_slice"``), and as its last line ``{"ok": true, "device":
+under ``"trial_slice"``, K4's its shard-offset figures under ``"zero3"``), and as its last line ``{"ok": true, "device":
 {...}}``; the int8 cache's figures come on a ``{"int8_cache": ...}`` line
 and the all-to-all's on a ``{"moe_a2a": ...}`` line before the card's name.
 
 ``python3 chip_smoke.py --phase 15`` builds the kernels and runs phase 15
 alone on phase 2's stores (a quick check while working on the mesh); it
 prints no contract line. ``python3 chip_smoke.py --phase 16`` builds K3/K4
-and runs phase 16 alone, its one-device references run in the phase.
+and runs phase 16 alone, its one-device references run in the phase;
+``--phase 17`` does the same for phase 17.
 """
 from __future__ import annotations
 
@@ -469,9 +493,10 @@ def phase_sass(lib_path) -> None:
     timing shape) both hash multiplies are IMADs, i.e. they issue on the FMA
     pipe beside the ALU work; print the compiled per-draw census."""
     from collections import Counter
-    # <uint16, 8, MODEL_IID>: the i.i.d. instantiation (the burst and
-    # correlated ones hash their units beside the draws)
-    bodies = _sass_hash_bodies(lib_path, "fault_inject_batched_kernelItLi8ELi0EE")
+    # <uint16, 8, MODEL_IID, at offsets false>: the i.i.d. instantiation
+    # (the burst and correlated ones hash their units beside the draws)
+    bodies = _sass_hash_bodies(lib_path,
+                               "fault_inject_batched_kernelItLi8ELi0ELb0EE")
     _check(len(bodies) > 0, "K3 SASS: no hash body found")
     census = Counter()
     for body in bodies:
@@ -4468,6 +4493,453 @@ def phase_mesh_train(dev, fi_kernel, card: str, ref=None) -> dict:
     return out
 
 
+ZERO3_LEAF = (40, 4096, 12800)        # granite-3-8b's stacked w_gate [L, D, F]
+ZERO3_SPLITS = ((4, 1), (2, 2))
+ZERO3_RANKS = 4                       # (b)'s emulated "data" ranks
+F64_RATIO = 2.0     # (b): the emulated gradient's float64 error against one
+                    # device's, leaf by leaf
+
+
+def _k4_offsets(dev, fi_kernel, card: str) -> dict:
+    """(a) K4 at shard offsets on a plane of granite-3-8b's stacked MLP
+    shape: every block of the leaf's spec at 4x1 and 2x2 drawn at its
+    offsets, bitwise its region of the one-device draw (16 counter chunks;
+    every block, every chunk); one block's draw timed against its bound
+    and its plain version."""
+    import torch
+    from repro_torch.core import fault
+    from repro_torch.core.cim import fold_seed
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.kernels.fault_inject import ref as fi_ref
+    from repro_torch.launch import specs
+    shape, path = ZERO3_LEAF, "groups/blk0/mlp/w_gate"
+    positions, seed, ber = tuple(range(10)), 0x5EED, CODESIGN_BER
+    gen = torch.Generator(device=dev).manual_seed(17)
+    plane = torch.randint(-2 ** 15, 2 ** 15, shape, generator=gen,
+                          dtype=torch.int16, device=dev).view(torch.uint16)
+    flat = plane.view(-1, shape[-1])
+    n_chunks = len(fault.counter_chunks(*flat.shape))
+    whole = fault.draw_bits(flat, seed, ber, positions).view(shape)
+    meta = torch.empty(shape, device="meta")
+    blocks, chunks, timed = 0, set(), None
+    for dims in ZERO3_SPLITS:
+        for rank in shlib.ranks_of(("data", "model"), dims):
+            lay = shlib.layout_of(specs.leaf_spec(rank, path, meta), shape,
+                                  rank)
+            _check(not lay.whole, f"phase 17: {lay} is not a block")
+            blk = lay.cut(plane).contiguous().view(-1, lay.block[-1])
+            got = fault.draw_block_bits(blk, lay, seed, ber, positions)
+            want = lay.cut(whole).contiguous().view(-1, lay.block[-1])
+            _check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                   f"phase 17: K4 at the offsets of {dims} block "
+                   f"{lay.offsets} differs from the one-device draw")
+            runs = fault.block_runs(lay)
+            chunks |= {k for _, _, k, _ in runs}
+            blocks += 1
+            if timed is None and dims == (4, 1) and lay.offsets[1]:
+                timed = (blk, lay, runs)
+            del got, want
+            if timed is None or timed[0] is not blk:
+                del blk
+    _check(chunks == set(range(n_chunks)), f"phase 17: the blocks drew "
+           f"chunks {sorted(chunks)} of {n_chunks}")
+    del plane, whole
+    blk, lay, runs = timed
+    col_off, width = lay.offsets[-1], lay.shape[-1]
+
+    def plain():
+        out = torch.empty_like(blk).view(torch.int16)
+        for r0, r1, k, row_off in runs:
+            out[r0:r1] = fi_ref.fault_inject_ref(
+                blk[r0:r1], seed=fold_seed(seed, k), ber=ber,
+                positions=positions,
+                at=(row_off, col_off, width)).view(torch.int16)
+        return out.view(torch.uint16)
+    fig = _fi_figures("K4 at offsets", lambda: fault.draw_block_bits(
+        blk, lay, seed, ber, positions), plain, blk.numel(), 1,
+        len(positions))
+    print(f"phase 17: (a) K4 at shard offsets: {blocks} blocks of a "
+          f"{list(shape)} plane (granite-3-8b's w_gate) at 4x1 and 2x2, "
+          f"{n_chunks} counter chunks, each bitwise its region of the "
+          f"one-device draw; one 4x1 block {list(lay.block)} at offset "
+          f"{lay.offsets[1]} ({len(runs)} launches): {fig['ms']:.4f} ms, "
+          f"plain {fig['plain_ms']:.2f} ms, bound {fig['bound_ms']:.4f} ms "
+          f"({fig['bound_by']}, {fig['hashes'] / 1e9:.3f} G draws) on {card}")
+    del blk
+    torch.cuda.empty_cache()
+    return {"shape": list(shape), "blocks": blocks, "chunks": n_chunks,
+            "block": list(lay.block), "block_launches": len(runs), **fig}
+
+
+def _k4_block_launches(states, rates) -> int:
+    """One K4 launch a (rank, drawn leaf, field, run of a block's rows)
+    (a whole leaf: a counter chunk)."""
+    from repro_torch.core import fault
+    n = 0
+    for s in states:
+        for path, w in s.params.items():
+            k = sum(1 for r in rates(path, w) if r > 0)
+            lay = s.shards.params[path]
+            if k:
+                n += k * (len(fault.counter_chunks(
+                    w.numel() // w.shape[-1], w.shape[-1])) if lay.whole
+                    else len(fault.block_runs(lay)))
+    return n
+
+
+def _held_zero3(got_metrics, want_metrics, leaves) -> dict:
+    """The deviations ``tests/test_torch_train_kinds.py``'s tolerances
+    bound: metrics relative (within 1e-4 holds); gradients (AdamW's first
+    moment / 0.1) as their excess over allclose(1e-4, 1e-5 of the leaf's
+    largest) in units of that atol (<= 1 holds); parameters in fp16 ulps
+    where the gradient exceeds 1e-6 (<= 1 holds). ``leaves`` yields (path,
+    param got, param want, m got, m want). -> the worst of each, where,
+    and ``ok``."""
+    import torch
+    rel = {k: abs(float(got_metrics[k]) - float(want_metrics[k]))
+           / (abs(float(want_metrics[k])) or 1.0)
+           for k in ("loss", "accuracy", "grad_norm", "tokens")}
+    out = {"metrics": max(rel.values()),
+           "metric_values": {k: [float(got_metrics[k]),
+                                 float(want_metrics[k])] for k in rel},
+           "gradient_excess_over_atol": 0.0, "param_fp16_ulps": 0,
+           "worst_gradient_leaf": None, "worst_param_leaf": None}
+    for path, pg, pw, mg, mw in leaves:
+        g, h = mg / 0.1, mw / 0.1
+        scale = float(h.abs().max()) or 1.0
+        excess = float((((g - h).abs() - LOSS_RTOL * h.abs())
+                        / (1e-5 * scale)).max())
+        if excess > out["gradient_excess_over_atol"]:
+            out.update(gradient_excess_over_atol=excess,
+                       worst_gradient_leaf=path)
+        ulps = (pg.to(torch.float16).view(torch.int16).to(torch.int32)
+                - pw.to(torch.float16).view(torch.int16).to(torch.int32)
+                ).abs()[h.abs() > GRAD_FLOOR]
+        u = int(ulps.max()) if ulps.numel() else 0
+        if u > out["param_fp16_ulps"]:
+            out.update(param_fp16_ulps=u, worst_param_leaf=path)
+    out["ok"] = out["metrics"] <= LOSS_RTOL and \
+        out["gradient_excess_over_atol"] <= 1 and out["param_fp16_ulps"] <= 1
+    return out
+
+
+def _f64_clipped_gradient(cfg, params: dict, batch, dev) -> dict:
+    """The clipped gradient of the global batch's loss in float64 (weights,
+    activations and the loss; the norms and rotary angles compute in
+    float32 inside, as they do in every step): the reference the fp32
+    steps' gradients are measured against."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.losses import IGNORE
+    c64 = dataclasses.replace(cfg, compute_dtype="float64",
+                              param_dtype="float64")
+    leaves = {p: w.to(dev, torch.float64).requires_grad_(True)
+              for p, w in params.items()}
+    with torch.enable_grad():
+        logits, _ = lm.forward_blocks(lm.shell(c64), leaves, batch,
+                                      remat=True)
+        labels = batch["labels"]
+        mask = labels != IGNORE
+        safe = torch.where(mask, labels, torch.zeros_like(labels))
+        m = logits.amax(-1)
+        lse = m + torch.log(torch.exp(logits - m[..., None]).sum(-1))
+        nll = ((lse - torch.gather(logits, -1, safe[..., None])[..., 0])
+               * mask).sum() / mask.sum().clamp(min=1)
+        grads = torch.autograd.grad(nll, list(leaves.values()))
+    norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    scale = torch.clamp(1.0 / torch.clamp(norm, min=1e-12), max=1.0)
+    return {p: g * scale for p, g in zip(leaves, grads)}
+
+
+def _f64_error(g64, first) -> float:
+    """max |m / 0.1 - g64| / max |g64| of one leaf's first moment after one
+    step (0.1 of the clipped gradient)."""
+    import torch
+    scale = float(g64.abs().max()) or 1.0
+    return float((first.to(g64.device, torch.float64) / 0.1 - g64).abs()
+                 .max()) / scale
+
+
+def _row_witness(cfg, run, params: dict, batch, dev, ranks: int) -> dict:
+    """The forward of the whole batch on one device against ``ranks``
+    forwards of its rows split as the emulated ranks hold them, on the same
+    weights (cast and differentiable as in the step): the largest
+    difference of a row's logits over the logits' largest, and the loss of
+    the batch from each (the NLL sums added in rank order, as the step's
+    sum over the batch axes)."""
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.losses import lm_loss_sums
+    model, cdt = lm.shell(cfg), cfg.cdtype()
+    leaves = {p: w.to(dev).requires_grad_(w.is_floating_point())
+              for p, w in params.items()}
+    leaves = {p: w.to(cdt) if w.ndim >= 2 and w.is_floating_point() else w
+              for p, w in leaves.items()}
+
+    def forward(rows):
+        part = {k: v[rows] for k, v in batch.items()}
+        with torch.enable_grad():
+            logits, _ = lm.forward_blocks(model, leaves, part,
+                                          remat=run.remat)
+        logits = logits.detach()
+        nll, _, tokens = lm_loss_sums(logits, part["labels"])
+        return logits, nll, tokens
+    whole, nll, tokens = forward(slice(None))
+    per = whole.shape[0] // ranks
+    diff, nll_split = 0.0, None
+    for r in range(ranks):
+        logits, part, _ = forward(slice(r * per, (r + 1) * per))
+        diff = max(diff, float((logits - whole[r * per:(r + 1) * per])
+                               .abs().max()))
+        nll_split = part if nll_split is None else nll_split + part
+        del logits
+    scale = float(whole.abs().max())
+    denom = tokens.clamp(min=1)
+    return {"logits_max_abs": scale, "row_split_max_abs_diff": diff,
+            "row_split_rel_diff": diff / (scale or 1.0),
+            "loss_whole": float(nll / denom),
+            "loss_split": float(nll_split / denom)}
+
+
+def _zero3_run(dev, fi_kernel, ber: float, n_steps: int,
+               first: bool) -> dict:
+    """Full-width olmo-1b at TRAIN_BATCH x TRAIN_SEQ, ``n_steps`` aligned
+    steps (under the Fig. 7 schedule at ``ber`` when it is nonzero) on one
+    device, then the same steps with the state sharded over ZERO3_RANKS
+    emulated "data" ranks (``zero3.emulate_step``: the program's step, a
+    thread a rank, with in-process collectives). The ranks' init blocks and
+    step 0's faulty blocks are held bitwise to the one-device state's and
+    flips' regions; each step's gathered state is measured against the
+    one-device step's (:func:`_held_zero3`); step 0's weights go through
+    :func:`_row_witness`. With ``first``, also one step with remat on and
+    off, held bitwise on one device."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.core.deployment import ReliabilityPolicy
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.launch import specs
+    from repro_torch.training import loop, steps, zero3
+    cfg = get_config("olmo-1b")
+    run = RunConfig(steps=n_steps, checkpoint_dir="", learning_rate=1e-3,
+                    warmup_steps=0, policy=ReliabilityPolicy(), ber=ber,
+                    inject="dynamic")
+    corrupt = loop.make_fault_schedule(run)
+    data = MarkovLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [loop._on_device(data.batch(i), dev) for i in range(n_steps)]
+
+    def host(tree):
+        return {p: None if t is None else t.cpu() for p, t in tree.items()}
+    whole = steps.init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                   cfg, run, device=dev)
+    init = {f: host(getattr(whole, f)) for f in ("params", "exps", "signs")}
+    if first:
+        outs = []
+        for remat in (True, False):
+            r = dataclasses.replace(run, remat=remat)
+            new, met = steps.make_train_step(cfg, r)(whole, batches[0])
+            outs.append((new.params, met))
+            del new
+        (pa, ma), (pb, mb) = outs
+        _check(all(torch.equal(ma[k], mb[k]) for k in ma) and all(
+            torch.equal(pa[p].view(torch.int32), pb[p].view(torch.int32))
+            for p in pa), "phase 17: remat on and off differ on one device")
+        del outs, pa, pb
+        torch.cuda.empty_cache()
+    step = steps.make_train_step(cfg, run)
+    snaps, one_ms, faulty0 = [], [], None
+    for i, batch in enumerate(batches):
+        if corrupt is not None:
+            whole = dataclasses.replace(whole, params=corrupt(
+                whole.params, loop.step_seed(run, i)))
+            if i == 0:
+                faulty0 = host(whole.params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole, met = step(whole, batch)
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+        snaps.append((met, host(whole.params), host(whole.opt["m"])))
+    del whole
+    torch.cuda.empty_cache()
+    # step 0's gradient in float64, from the weights it saw
+    w0 = init["params"] if faulty0 is None else faulty0
+    witness = _row_witness(cfg, run, w0, batches[0], dev, ZERO3_RANKS)
+    g64 = _f64_clipped_gradient(cfg, w0, batches[0], dev)
+    del w0
+    f64 = {"one_device": {p: _f64_error(g, snaps[0][2][p])
+                          for p, g in g64.items()}}
+    torch.cuda.empty_cache()
+    meshes = shlib.thread_ranks(("data", "model"), (ZERO3_RANKS, 1))
+    states = [steps.init_train_state(
+        torch.Generator(device=dev).manual_seed(0), cfg, run, device=dev,
+        mesh=m) for m in meshes]
+    for s in states:
+        for f, tree in init.items():
+            lay = getattr(s.shards, f)
+            for p, t in getattr(s, f).items():
+                _check((t is None) == (tree[p] is None) and (
+                    t is None or torch.equal(t, lay[p].cut(tree[p]).to(dev))),
+                       f"phase 17: the init block of {f} {p} differs from "
+                       f"the one-device init's")
+    del init
+    fi_kernel.reset_launch_counts()
+    want_k4 = 0 if corrupt is None else \
+        n_steps * _k4_block_launches(states, corrupt.rates)
+    emu_ms, held, gathered = [], [], 0
+    torch.cuda.reset_peak_memory_stats()
+    for i, batch in enumerate(batches):
+        if corrupt is not None:
+            states = [dataclasses.replace(s, params=corrupt(
+                s.params, loop.step_seed(run, i), s.shards.params))
+                for s in states]
+        if faulty0 is not None:
+            for s in states:
+                for p, t in s.params.items():
+                    _check(torch.equal(t.view(torch.int32), s.shards
+                                       .params[p].cut(faulty0[p]).to(dev)
+                                       .contiguous().view(torch.int32)),
+                           f"phase 17: the faulty block of {p} at "
+                           f"{s.shards.params[p].offsets} differs from the "
+                           f"one-device flips")
+            faulty0 = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, met = zero3.emulate_step(cfg, run, states, meshes, batch)
+        torch.cuda.synchronize()
+        emu_ms.append((time.perf_counter() - t0) * 1e3)
+        gathered = float(met["gathered_bytes"])
+        if i == 0:
+            witness["loss_emulated"] = float(met["loss"])
+        want_met, want_p, want_m = snaps[i]
+
+        def leaves():
+            for p in want_p:
+                lays = [s.shards.params[p] for s in states]
+                yield (p, specs.assemble([s.params[p] for s in states],
+                                         lays), want_p[p].to(dev),
+                       specs.assemble([s.opt["m"][p] for s in states], lays),
+                       want_m[p].to(dev))
+        held.append(_held_zero3(met, want_met, leaves()))
+        if g64 is not None and i == 0:
+            f64["emulated"] = {p: _f64_error(g, specs.assemble(
+                [s.opt["m"][p] for s in states],
+                [s.shards.params[p] for s in states]))
+                for p, g in g64.items()}
+            del g64
+            g64 = None
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    k4 = fi_kernel.launch_counts[fi_kernel.K4]
+    _check(k4 == want_k4, f"phase 17: K4 launched {k4} times on the "
+           f"emulated ranks' blocks, expected {want_k4}")
+    del states
+    torch.cuda.empty_cache()
+    witness["loss_one_device"] = float(snaps[0][0]["loss"])
+    return {"ber": ber, "launches": k4, "step_ms": emu_ms,
+            "one_device_step_ms": one_ms, "gathered_bytes": gathered,
+            "losses": [float(s[0]["loss"]) for s in snaps], "held": held,
+            "f64": f64, "peak_gib": peak, "witness": witness}
+
+
+def _zero3_step(dev, fi_kernel, card: str) -> dict:
+    """(b) the ZeRO-3 step with ZERO3_RANKS "data" ranks emulated in this
+    process on full-width olmo-1b at TRAIN_BATCH x TRAIN_SEQ
+    (:func:`_zero3_run`): one clean aligned step, its metrics and
+    parameters held to the one-device step at ``tests/
+    test_torch_train_kinds.py``'s tolerances and its gradient, leaf by
+    leaf, to within F64_RATIO times the one-device gradient's distance
+    from the float64 gradient (at full width the two fp32 gradients, each
+    summed in its own order over 1024 tokens, differ by more than that
+    file's atol: PERF.md §6), remat on and off bitwise; then 2
+    aligned steps under the Fig. 7 schedule at CODESIGN_BER, the faulty
+    blocks bitwise, K4's launches counted, the deviations from the
+    one-device steps and both gradients' distance from float64 reported
+    (the random model under the schedule trains at losses in the
+    thousands: no tolerance of a well-conditioned step applies). In both,
+    step 0's loss must equal that of the forward of its rows on one device
+    at the same split: the one-device step's the 8-row forward's, the
+    emulated step's the four 2-row forwards' (:func:`_row_witness`, whose
+    logits' difference shows what the row count alone changes). -> the
+    emulated path's K4 figures."""
+    clean = _zero3_run(dev, fi_kernel, 0.0, 1, True)
+    sched = _zero3_run(dev, fi_kernel, CODESIGN_BER, 2, False)
+    h, f64 = clean["held"][0], clean.pop("f64")
+    # as close to the float64 gradient as the one-device step, leaf by
+    # leaf (or within the tolerance's atol, 1e-5 of the leaf's largest)
+    ratio = {p: f64["emulated"][p] / max(e, 1e-12)
+             for p, e in f64["one_device"].items()}
+    worst = max(ratio, key=ratio.get)
+    far = [p for p, e in f64["emulated"].items()
+           if e > max(F64_RATIO * f64["one_device"][p], 1e-5)]
+    clean["f64"] = {"worst_leaf": worst, "emulated": f64["emulated"][worst],
+                    "one_device": f64["one_device"][worst],
+                    "max_emulated": max(f64["emulated"].values()),
+                    "max_one_device": max(f64["one_device"].values())}
+    sf = sched["f64"]
+    sched["f64"] = {"max_emulated": max(sf["emulated"].values()),
+                    "max_one_device": max(sf["one_device"].values())}
+    _check(not far and h["metrics"] <= LOSS_RTOL and
+           h["param_fp16_ulps"] <= 1, f"phase 17: the clean sharded step "
+           f"against one device: {h}; against float64 {clean['f64']}, "
+           f"leaves beyond {F64_RATIO}x the one-device error: {far}")
+    print(f"phase 17: (b) the ZeRO-3 step, {ZERO3_RANKS} data ranks "
+          f"emulated in one process, full-width olmo-1b {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}: init blocks bitwise the one-device init's; remat on"
+          f" and off bitwise on one device; a clean aligned step: metrics "
+          f"and parameters within the tolerances of one device, its "
+          f"gradients beside one device's {h} and against float64 "
+          f"{clean['f64']}, "
+          f"{clean['step_ms'][0]:.1f} ms emulated against "
+          f"{clean['one_device_step_ms'][0]:.1f} ms on one device (host "
+          f"clock, synchronized); 2 aligned steps under the schedule at BER "
+          f"{CODESIGN_BER:g}: step 0's faulty blocks bitwise the one-device "
+          f"flips, K4 {sched['launches']} launches at the blocks' offsets, "
+          f"losses " + ", ".join(f"{x:.6f}" for x in sched["losses"])
+          + f" one device, deviations {sched['held']}, step 0's "
+          f"gradients against float64 {sched['f64']} (the random model "
+          f"under the schedule is ill-conditioned); emulated steps "
+          + ", ".join(f"{x:.1f}" for x in sched["step_ms"]) + " ms (one "
+          "device " + ", ".join(f"{x:.1f}" for x in
+                                sched["one_device_step_ms"])
+          + f" ms); {sched['gathered_bytes'] / 1e9:.3f} GB gathered by a "
+          f"rank's forward a step; peak {sched['peak_gib']:.2f} GiB on "
+          f"{card}")
+    for tag, r in (("clean", clean), ("schedule", sched)):
+        w = r["witness"]
+        print(f"phase 17: (b) row-split witness, {tag} step 0 on one device:"
+              f" the 8-row forward's logits against four 2-row forwards' "
+              f"differ by {w['row_split_max_abs_diff']:.6g} (of "
+              f"{w['logits_max_abs']:.6g}, {w['row_split_rel_diff']:.3g}); "
+              f"loss {w['loss_whole']!r} from 8 rows (the one-device step's "
+              f"{w['loss_one_device']!r}), {w['loss_split']!r} from the "
+              f"2-row forwards (the emulated step's {w['loss_emulated']!r})")
+        _check(w["loss_whole"] == w["loss_one_device"] and
+               w["loss_split"] == w["loss_emulated"],
+               f"phase 17: the {tag} step 0's loss differs from the forward "
+               f"of its rows at the same split: {w}")
+    return {"launches": sched["launches"], "clean": clean,
+            "schedule": sched}
+
+
+def phase_zero3(dev, fi_kernel, card: str) -> dict:
+    """Phase 17: K4 at shard offsets (a) and the ZeRO-3 step with its data
+    ranks emulated on the one card (b). Returns K4's figures on this path
+    (the kernels line carries them under ``"zero3"``)."""
+    import torch
+    t0 = time.perf_counter()
+    fig = _k4_offsets(dev, fi_kernel, card)
+    t1 = time.perf_counter()
+    step = _zero3_step(dev, fi_kernel, card)
+    torch.cuda.empty_cache()
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s (a {t1 - t0:.1f} s, "
+          f"b {time.perf_counter() - t1:.1f} s)")
+    return {"fault_inject": {**fig, "launches": step.pop("launches"),
+                             "max_abs_err": 0.0, "library_ms": None,
+                             "step": step}}
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "cim_read" / "csrc").is_dir():
@@ -4493,6 +4965,12 @@ def main() -> int:
         mesh_train = phase_mesh_train(dev, fi_kernel, card)
         print(card)
         print(json.dumps(mesh_train))
+        return 0
+    if sys.argv[1:] == ["--phase", "17"]:
+        phase_build({"K3+K4": fi_kernel.LIBRARY})
+        zero3 = phase_zero3(dev, fi_kernel, card)
+        print(card)
+        print(json.dumps(zero3))
         return 0
     if sys.argv[1:] == ["--phase", "15"]:
         phase_build({"K1+K2": kernel_lib.LIBRARY, "K3+K4": fi_kernel.LIBRARY})
@@ -4538,6 +5016,7 @@ def main() -> int:
     mesh = phase_mesh(dev, checks, kernel_lib, fi_kernel, card)
     mesh_train = phase_mesh_train(dev, fi_kernel, card,
                                   codesign.pop("reference"))
+    zero3 = phase_zero3(dev, fi_kernel, card)
     rows = phase_times(dev, checks, launches, engine_launches, card)
     for row in rows:
         row["granite"] = granite[row["name"]]
@@ -4547,6 +5026,8 @@ def main() -> int:
     for row in fi_rows:
         row["codesign"] = codesign[row["name"]]
         row["mesh_train"] = mesh_train[row["name"]]
+        if row["name"] in zero3:
+            row["zero3"] = zero3[row["name"]]
     fi_rows[0]["trial_slice"] = mesh["trial_slice"]
     rows += fi_rows
     rows.append(phase_bfp_times(dev, bfp, card))

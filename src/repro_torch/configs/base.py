@@ -127,10 +127,16 @@ class RunConfig:
     its latest step; ``grad_compression`` compresses the gradient to int8
     with error feedback.
 
+    ``remat`` (default True, as the reference's) recomputes each layer
+    group's forward in the backward instead of keeping its activations
+    and, on a sharded state, its gathered leaves
+    (:func:`repro_torch.models.lm.forward_blocks`); the step is bitwise the
+    same either way.
+
     Left out: the reference's deprecated ``reliability=`` surface, the
     descriptive ``arch`` and ``shape`` (the model comes as a ModelConfig),
-    and ``remat``, ``multi_pod`` and ``seq_shard``, which come back with the
-    slices that act on them.
+    and ``multi_pod`` and ``seq_shard``, which come back with the slices
+    that act on them.
     """
 
     steps: int = 100
@@ -149,6 +155,7 @@ class RunConfig:
     exp_reg_coef: float = 0.0
     exp_reg_margin: float = 1.0
     freeze_exponents: bool = True
+    remat: bool = True
 
     def __post_init__(self):
         if self.policy is not None:

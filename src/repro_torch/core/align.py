@@ -192,6 +192,28 @@ def project_pytree_policy(params: Mapping, exps: Mapping, signs: Mapping,
 
 
 @torch.no_grad()
+def project_in_place(params: Mapping, exps: Mapping, signs: Mapping,
+                     policy) -> Mapping:
+    """:func:`project_pytree_policy` written into the leaves of ``params``
+    (the training step's fresh weights, or a ZeRO-3 rank's blocks, which
+    hold whole exponent groups), a stacked leaf one layer at a time, so the
+    temporaries are one layer's. -> ``params``."""
+    for path, w in params.items():
+        e = exps.get(path)
+        if e is None or not is_alignable(path, w):
+            continue
+        sg = signs.get(path)
+        cfg = policy.rule_for(path).align_cfg
+        for r in (range(w.shape[0]) if w.ndim >= 3 else (None,)):
+            def pick(t):
+                return t if r is None or t is None else t[r]
+            wr = pick(w)
+            wr.copy_(project_to_block_exponent(wr, pick(e), pick(sg),
+                                               _leaf_cfg(cfg, wr)))
+    return params
+
+
+@torch.no_grad()
 def project_pytree(params: Mapping, exps: Mapping, signs: Mapping,
                    cfg: AlignmentConfig, predicate=is_alignable) -> dict:
     """Post-update projection over a ``{path: tensor}`` tree (see

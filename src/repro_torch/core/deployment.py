@@ -660,7 +660,12 @@ def training_fault_schedule(rel) -> Optional[Callable]:
     flatten order draws from ``fold_seed(fold_seed(step_seed, f), i)``.
     The reference draws ``jax.random`` streams here, so the port holds it
     to its rates, not its bits. ``corrupt.rates(path, leaf)`` gives a
-    leaf's (exponent/sign, mantissa) rates, 0 where it is not drawn."""
+    leaf's (exponent/sign, mantissa) rates, 0 where it is not drawn.
+    ``corrupt(blocks, step_seed, layouts)`` corrupts the blocks of a
+    sharded tree (``{path: Layout}``) in place, each with exactly the
+    flips of its region of the one-device draw (:func:`repro_torch.core.
+    fault.inject_block`: K4 at the block's offsets, a run of rows at a
+    time); a sharded state is the step's to consume."""
     from repro_torch.core import fault as fault_lib
     if rel.mode != "cim" or rel.ber <= 0 or rel.inject != "dynamic":
         return None
@@ -678,15 +683,21 @@ def training_fault_schedule(rel) -> Optional[Callable]:
                 if rule.field in ("full", "exponent_sign") else 0.0,
                 b if rule.field in ("full", "mantissa") else 0.0)
 
-    def corrupt(params, step_seed: int) -> dict:
+    def corrupt(params, step_seed: int, layouts=None) -> dict:
         seeds = [cim_lib.fold_seed(step_seed, f)
                  for f in range(len(_SCHEDULE_FIELDS))]
         out = {}
         for i, (path, leaf) in enumerate(params.items()):
             for f, ber in enumerate(rates(path, leaf)):
-                leaf = fault_lib.inject(cim_lib.fold_seed(seeds[f], i), leaf,
-                                        ber, _SCHEDULE_FIELDS[f],
-                                        policy.rule_for(path).fmt)
+                seed = cim_lib.fold_seed(seeds[f], i)
+                fmt = policy.rule_for(path).fmt
+                if layouts is None:
+                    leaf = fault_lib.inject(seed, leaf, ber,
+                                            _SCHEDULE_FIELDS[f], fmt)
+                else:
+                    leaf = fault_lib.inject_block(
+                        seed, leaf, layouts[path], ber, _SCHEDULE_FIELDS[f],
+                        fmt, in_place=True)
             out[path] = leaf
         return out
 

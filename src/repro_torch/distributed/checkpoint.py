@@ -202,8 +202,10 @@ def restore(target, directory: str, step: Optional[int] = None, *,
             raise ValueError(f"checkpoint step {step}: saved leaves "
                              f"{sorted(have - want)} and target leaves "
                              f"{sorted(want - have)} differ")
+    # memory-mapped: a restore that keeps only blocks of the leaves (a
+    # ZeRO-3 rank's, training.loop) pages in only those
     tensors = torch.load(os.path.join(stepdir, "tensors.pt"),
-                         map_location="cpu", weights_only=True)
+                         map_location="cpu", weights_only=True, mmap=True)
     return _decode(manifest["tree"], tensors, torch.device(device)), step
 
 
@@ -241,10 +243,12 @@ class AsyncCheckpointer:
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
-    def save_async(self, state, step: int) -> None:
+    def save_async(self, state, step: int, copy: bool = True) -> None:
+        """Queue ``state`` for step ``step``: a host copy of it, or (``copy
+        False``) the tree itself, whose tensors the caller hands over."""
         if self._exc:
             raise self._exc
-        self._q.put((_host_copy(state), step))
+        self._q.put((_host_copy(state) if copy else state, step))
 
     def _run(self):
         while True:

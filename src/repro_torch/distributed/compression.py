@@ -15,10 +15,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (int8 codes, float32 scale): scale = max(max|x|, 1e-12) / 127,
-    codes = clip(round_half_even(x / scale), -127, 127)."""
-    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+    codes = clip(round_half_even(x / scale), -127, 127). ``amax`` stands in
+    for ``max|x|`` (a block's: the whole leaf's max)."""
+    amax = x.abs().max() if amax is None else amax
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -28,16 +31,20 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def compress_decompress(grads: Dict[str, Optional[torch.Tensor]],
-                        ef_error: Dict[str, Optional[torch.Tensor]]):
+                        ef_error: Dict[str, Optional[torch.Tensor]],
+                        max_fn=None):
     """grads + EF residual -> int8 round trip -> (decompressed grads, new
-    EF residual), leaf by leaf (``None`` leaves pass through)."""
+    EF residual), leaf by leaf (``None`` leaves pass through). On blocks of
+    sharded leaves ``max_fn(path, max|x| of the block)`` gives the leaf's
+    max, so the scale is the whole leaf's."""
     new_g, new_e = {}, {}
     for path, g in grads.items():
         if g is None:
             new_g[path], new_e[path] = None, ef_error.get(path)
             continue
         x = g.to(torch.float32) + ef_error[path]
-        deq = dequantize_int8(*quantize_int8(x))
+        amax = None if max_fn is None else max_fn(path, x.abs().max())
+        deq = dequantize_int8(*quantize_int8(x, amax))
         new_g[path] = deq.to(g.dtype)
         new_e[path] = x - deq
     return new_g, new_e

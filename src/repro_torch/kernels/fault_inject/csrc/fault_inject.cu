@@ -16,6 +16,12 @@
 // reference's _fault_kernel_batched compiles it; the i.i.d. instantiation
 // keeps the code above, and burst takes fault_inject_burst_kernel, which
 // draws for its live elements alone.
+// At shard offsets (fault_inject_at, K4 on a block of a sharded leaf): the
+// plane is a [rows, cols] block of a global plane `width` words wide, its
+// element (r, c) drawn at the counter (row_off + r)*width + col_off + c of
+// the global counter chunk it lies in, so each block draws exactly the
+// flips of its region of the one-device draw. The i.i.d. kernel takes a
+// compile-time flag for it; without the flag its code is the one above.
 //
 // Bound on this card: integer throughput. Each (trial, element, position)
 // costs one murmur3 finalizer and its compare: 10 instructions on the ALU
@@ -60,6 +66,13 @@ struct Model {
   int axis;
 };
 
+// A block's place in its global plane (fault_inject_at): its first row's
+// offset in the counter chunk, its first column, the global row width and
+// its own column count.
+struct At {
+  uint32_t row_off, col_off, width, cols;
+};
+
 // The process key of each element of the chunk at e0: its burst unit, or
 // its correlated column group, from its row e / width and its macro-column
 // unit (e % width) / col_div.
@@ -82,12 +95,12 @@ __device__ __forceinline__ void chunk_keys(uint32_t (&key)[VEC], uint32_t e0, co
 // differs from the previous element's. Burst takes this kernel on the row
 // axis only, where a warp's 32 chunks lie in one row and so in one unit:
 // its warps draw in full or not at all.
-template <typename W, int VEC, int KIND>
+template <typename W, int VEC, int KIND, bool AT = false>
 __global__ void __launch_bounds__(NT)
 fault_inject_batched_kernel(const W* __restrict__ bits, W* __restrict__ out,
                             const uint32_t* __restrict__ seeds, int n_trials,
                             uint32_t n, uint32_t lanes, uint32_t threshold,
-                            Model md) {
+                            Model md, At at) {
   const uint32_t n_chunks = n / VEC;         // VEC divides n (host checks)
   const int lo = __ffs(lanes) - 1;           // -1 when no lane is set
   const int hi = 31 - __clz(lanes);
@@ -97,6 +110,15 @@ fault_inject_batched_kernel(const W* __restrict__ bits, W* __restrict__ out,
     const Pack<W, VEC> in = *reinterpret_cast<const Pack<W, VEC>*>(bits + e0);
     uint32_t key[KIND == MODEL_IID ? 1 : VEC];   // burst unit / column group
     if constexpr (KIND != MODEL_IID) chunk_keys<VEC, KIND>(key, e0, md);
+    uint32_t ctr[AT ? VEC : 1];   // each element's global counter
+    if constexpr (AT) {
+      uint32_t r = e0 / at.cols, c = e0 - r * at.cols;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        ctr[k] = (at.row_off + r) * at.width + at.col_off + c;
+        if (++c == at.cols) { c = 0u; ++r; }
+      }
+    }
     for (int t = 0; t < n_trials; ++t) {
       const uint32_t seed = __ldg(seeds + t);
       const uint32_t seed_mul = seed * GOLD;
@@ -111,7 +133,8 @@ fault_inject_batched_kernel(const W* __restrict__ bits, W* __restrict__ out,
           thr = KIND == MODEL_BURST ? (h < md.m_thr ? threshold : 0u)
                                     : correlated_threshold(h, md.m_thr, threshold);
         }
-        const uint32_t base = (e0 + k) * 32u;
+        uint32_t base = (e0 + k) * 32u;
+        if constexpr (AT) base = ctr[k] * 32u;
         uint32_t mask = 0u;
         if (thr != 0u) {
           for (int p = lo; p <= hi; ++p) {
@@ -244,7 +267,8 @@ void launch(const void* bits, void* out, const void* seeds, int n_trials,
   else
     fault_inject_batched_kernel<W, VEC, KIND><<<blocks, NT, 0, stream>>>(
         static_cast<const W*>(bits), static_cast<W*>(out),
-        static_cast<const uint32_t*>(seeds), n_trials, n, lanes, threshold, md);
+        static_cast<const uint32_t*>(seeds), n_trials, n, lanes, threshold, md,
+        At{});
 }
 
 bool aligned16(const void* p) {
@@ -279,6 +303,19 @@ void dispatch(int kind, const void* bits, void* out, const void* seeds, int n_tr
     launch_kind<W, 1>(kind, bits, out, seeds, n_trials, n, lanes, threshold, md, stream);
 }
 
+template <typename W, int VEC>
+void launch_at(const void* bits, void* out, const void* seeds, int n_trials,
+               uint32_t n, uint32_t lanes, uint32_t threshold, const At& at,
+               cudaStream_t stream) {
+  const uint32_t n_chunks = n / VEC;
+  const int blocks = (int)((n_chunks + NT - 1) / NT < MAX_BLOCKS
+                               ? (n_chunks + NT - 1) / NT : MAX_BLOCKS);
+  fault_inject_batched_kernel<W, VEC, MODEL_IID, true><<<blocks, NT, 0, stream>>>(
+      static_cast<const W*>(bits), static_cast<W*>(out),
+      static_cast<const uint32_t*>(seeds), n_trials, n, lanes, threshold,
+      Model{0u, 0u, at.width, 1u, AXIS_ROW}, at);
+}
+
 }  // namespace
 
 // C interface (ctypes). `bits` is the [rows, cols] plane of `elem_bytes`-wide
@@ -311,5 +348,33 @@ extern "C" int fault_inject_batched(const void* bits, void* out,
     case 4: dispatch<uint32_t>(model_kind, bits, out, seeds, n_trials, (uint32_t)n, lanes, threshold, md, s); break;
     default: return -1;
   }
+  return (int)cudaGetLastError();
+}
+
+// The i.i.d. draw of a block at shard offsets: `bits` is the [rows, cols]
+// block (uint16 words), drawn as the region at row `row_off` of a global
+// counter chunk `width` words wide, from column `col_off`. The whole region
+// must lie in one counter chunk: (row_off + rows - 1) * width + col_off +
+// cols <= 2^27. Returns as fault_inject_batched.
+extern "C" int fault_inject_at(const void* bits, void* out, const void* seeds,
+                               int n_trials, int rows, int cols,
+                               unsigned int lanes, unsigned int threshold,
+                               int row_off, int col_off, int width,
+                               void* stream) {
+  const uint64_t n = (uint64_t)rows * (uint64_t)cols;
+  if (n_trials < 1 || rows < 1 || cols < 1 || row_off < 0 || col_off < 0 ||
+      width < 1 || (uint64_t)col_off + (uint64_t)cols > (uint64_t)width ||
+      ((uint64_t)row_off + (uint64_t)rows - 1u) * (uint64_t)width +
+              (uint64_t)col_off + (uint64_t)cols > MAX_COUNTER_ELEMENTS ||
+      (lanes >> 16) != 0u)
+    return -1;
+  const At at{(uint32_t)row_off, (uint32_t)col_off, (uint32_t)width,
+              (uint32_t)cols};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int VEC = 8;   // 16 bytes of uint16
+  if (aligned16(bits) && aligned16(out) && n % VEC == 0)
+    launch_at<uint16_t, VEC>(bits, out, seeds, n_trials, (uint32_t)n, lanes, threshold, at, s);
+  else
+    launch_at<uint16_t, 1>(bits, out, seeds, n_trials, (uint32_t)n, lanes, threshold, at, s);
   return (int)cudaGetLastError();
 }

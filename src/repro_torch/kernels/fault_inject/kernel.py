@@ -6,7 +6,9 @@
   ``[T]`` -> ``[T, R, C]`` faulted copies, threshold and seeds at run time.
 * K4 :func:`fault_inject` replaces ``fault_inject_pallas``: one seed over a
   uint16 plane, the same kernel launched at T = 1, with the reference's
-  Python-double threshold (:func:`static_threshold`).
+  Python-double threshold (:func:`static_threshold`). With ``at`` it draws
+  a block of a larger plane at its offsets (``fault_inject_at``): the
+  ZeRO-3 step's Fig. 7 schedule on each rank's blocks.
 
 The library is built at first use by :class:`repro_torch.kernels.nvcc.
 CudaLibrary`. Each wrapper takes CUDA tensors only (the CPU goes to
@@ -90,6 +92,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fault_inject_batched.argtypes = [vp, vp, vp] + [i] * 4 + [u] * 4 \
         + [i, i, i, vp]
     lib.fault_inject_batched.restype = i
+    lib.fault_inject_at.argtypes = [vp, vp, vp] + [i] * 3 + [u] * 2 \
+        + [i] * 3 + [vp]
+    lib.fault_inject_at.restype = i
 
 
 LIBRARY = CudaLibrary(CSRC / "fault_inject.cu", _bind)
@@ -149,13 +154,50 @@ def fault_inject_batched(bits: torch.Tensor, seeds, threshold: int, *,
                    model_kind, model_axis, col_div)
 
 
+def check_at(r: int, c: int, at) -> None:
+    """A block [r, c] at ``at = (row_off, col_off, width)`` must lie in one
+    counter chunk of a ``width``-word plane."""
+    row_off, col_off, width = (int(v) for v in at)
+    if min(row_off, col_off) < 0 or col_off + c > width or \
+            (row_off + r - 1) * width + col_off + c > MAX_COUNTER_ELEMENTS:
+        raise ValueError(f"fault_inject at {tuple(at)}: a [{r}, {c}] block "
+                         f"leaves its {width}-wide counter chunk of "
+                         f"{MAX_COUNTER_ELEMENTS} elements")
+
+
+def _at_whole(r: int, c: int, at) -> bool:
+    return at is None or tuple(int(v) for v in at) == (0, 0, c)
+
+
 def fault_inject(bits: torch.Tensor, *, seed: int, ber: float,
-                 positions: Sequence[int]) -> torch.Tensor:
+                 positions: Sequence[int], at=None) -> torch.Tensor:
     """K4: uint16 bits [R, C] on the card -> bits with ``positions`` flipped
     at rate ``ber`` from one seed, threshold
     ``min(round(ber * 2^32), 2^32 - 1)`` in double precision. K4 has no
-    fault-process slots (nor has the reference's)."""
+    fault-process slots (nor has the reference's). ``at = (row_off,
+    col_off, width)`` draws the plane as the block at row ``row_off`` and
+    column ``col_off`` of a counter chunk ``width`` words wide: element
+    (r, c) at counter ``(row_off + r) * width + col_off + c``; ``(0, 0,
+    C)`` is the plain draw."""
     if bits.dtype != torch.uint16:
         raise ValueError(f"{K4}: expected a uint16 plane, got {bits.dtype}")
-    return _launch(K4, bits, [int(seed)], static_threshold(ber), positions,
-                   0, 0)[0]
+    r, c = bits.shape if bits.ndim == 2 else (0, 0)
+    if _at_whole(r, c, at):
+        return _launch(K4, bits, [int(seed)], static_threshold(ber),
+                       positions, 0, 0)[0]
+    if bits.device.type != "cuda" or bits.ndim != 2:
+        raise ValueError(f"{K4}: expected a 2-D plane on the card, got "
+                         f"{tuple(bits.shape)} on {bits.device}")
+    check_at(r, c, at)
+    bits = bits.contiguous()
+    seeds_dev = torch.from_numpy(seed_words([int(seed)]).view(np.int32)).to(
+        bits.device)
+    out = torch.empty_like(bits)
+    row_off, col_off, width = (int(v) for v in at)
+    rc = load().fault_inject_at(
+        bits.data_ptr(), out.data_ptr(), seeds_dev.data_ptr(), 1, r, c,
+        lanes_of(positions, 16), static_threshold(ber) & 0xFFFFFFFF,
+        row_off, col_off, width, stream_of(bits))
+    check_rc(rc, K4)
+    launch_counts[K4] += 1
+    return out

@@ -37,15 +37,19 @@ def ber_to_threshold(ber) -> int:
 
 
 def fault_inject_bits(bits: torch.Tensor, *, seed: int, ber: float,
-                      positions: Sequence[int]) -> torch.Tensor:
-    """Single-seed injection of a uint16 plane [R, C] (K4 on the card)."""
+                      positions: Sequence[int], at=None) -> torch.Tensor:
+    """Single-seed injection of a uint16 plane [R, C] (K4 on the card);
+    ``at = (row_off, col_off, width)`` draws it as that block of a wider
+    counter chunk (:func:`kernel.fault_inject`)."""
     r, c = bits.shape
     kernel_lib.check_counter_space(r, c)
+    if at is not None:
+        kernel_lib.check_at(r, c, at)
     if bits.device.type == "cuda":
         return kernel_lib.fault_inject(bits, seed=seed, ber=ber,
-                                       positions=tuple(positions))
+                                       positions=tuple(positions), at=at)
     return ref.fault_inject_ref(bits, seed=seed, ber=ber,
-                                positions=tuple(positions))
+                                positions=tuple(positions), at=at)
 
 
 def fault_inject_bits_batched(bits: torch.Tensor, seeds, threshold, *,

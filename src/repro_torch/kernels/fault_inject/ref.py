@@ -44,12 +44,21 @@ def _flip(bits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def fault_inject_ref(bits: torch.Tensor, *, seed: int, ber: float,
-                     positions: Sequence[int]) -> torch.Tensor:
+                     positions: Sequence[int], at=None) -> torch.Tensor:
     """K4's function: ``positions`` of ``bits [R, C]`` flipped at rate
-    ``ber`` from one seed (double-precision threshold)."""
+    ``ber`` from one seed (double-precision threshold); with ``at =
+    (row_off, col_off, width)`` element (r, c) draws at counter
+    ``(row_off + r) * width + col_off + c``."""
     r, c = bits.shape
     threshold = static_threshold(ber)
-    elem = _elem(r, c, bits.device)
+    if at is None:
+        elem = _elem(r, c, bits.device)
+    else:
+        row_off, col_off, width = (int(v) for v in at)
+        elem = (torch.arange(row_off, row_off + r, dtype=torch.int64,
+                             device=bits.device)[:, None] * width
+                + torch.arange(col_off, col_off + c, dtype=torch.int64,
+                               device=bits.device)[None])
     seed_mul = (int(seed) * GOLD) & M32
     mask = torch.zeros((r, c), dtype=torch.int64, device=bits.device)
     for p in positions:

@@ -128,7 +128,8 @@ def main(argv=None):
     run = RunConfig(steps=args.steps, learning_rate=args.lr,
                     seed=args.seed, checkpoint_dir=args.checkpoint_dir,
                     checkpoint_every=args.checkpoint_every,
-                    grad_compression=args.grad_compression, **rel_kw)
+                    grad_compression=args.grad_compression, remat=False,
+                    **rel_kw)
     if cfg.modality == "text":
         source = MarkovLM(cfg.vocab_size, args.seq, args.batch,
                           seed=args.seed)

@@ -48,6 +48,7 @@ slot-state protocol: :class:`SlotStateSpec` per block kind,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -63,7 +64,7 @@ from repro_torch.models.attention import (Attention, init_kv_cache,
                                           init_local_cache)
 from repro_torch.models.common import apply_norm, embed_init, init_norm
 from repro_torch.models.mlp import MLP
-from repro_torch.models.moe import MoE, drop_free
+from repro_torch.models.moe import EXPERT_LEAF_NAMES, MoE, drop_free
 from repro_torch.models.rglru import RGLRU, init_rglru_state
 from repro_torch.models.rwkv6 import TimeMix, init_rwkv_state
 
@@ -280,9 +281,8 @@ class LM(nn.Module):
         for layer, (prefix, row) in enumerate(convert.layer_slots(cfg)):
             self._slots.setdefault(prefix, []).append((layer, row))
         # The module's own weights serve inference only. Training
-        # differentiates a reference-layout tree through :func:`forward`
-        # (``functional_call``), which never reads these, so the flag does
-        # not touch it.
+        # differentiates a reference-layout tree through :func:`forward`,
+        # which never reads these, so the flag does not touch it.
         self.requires_grad_(False)
 
     def cim_leaves(self) -> dict:
@@ -695,11 +695,108 @@ def forward(model: LM, params: Mapping, batch, *, unembed: bool = True,
     batch dict (:meth:`LM.forward`). Returns logits [B, S, V] (the
     final-normed hidden states with ``unembed=False``), and with
     ``with_aux`` also the MoE layers' summed aux loss (a 0-dim float32
-    tensor, zero without a MoE layer)."""
-    state = convert.lm_state_from_flat(params, model.cfg)
-    return torch.func.functional_call(model, state, (batch,),
-                                      {"unembed": unembed,
-                                       "with_aux": with_aux})
+    tensor, zero without a MoE layer): :func:`forward_blocks`."""
+    out, aux = forward_blocks(model, params, batch, unembed=unembed)
+    return (out, aux) if with_aux else out
+
+
+def _no_gather(path: str, t: torch.Tensor, row=None,
+               local_experts: bool = False):
+    return t
+
+
+def _units(cfg):
+    """The remat units of the layer stack: one a pattern group (the
+    reference's ``jax.checkpoint`` of ``apply_group``), then one a tail
+    layer; each a list of (layer, reference prefix, row)."""
+    pat, n_groups, tail = convert.group_kinds(cfg)
+    slots = convert.layer_slots(cfg)
+    units = [[(g * len(pat) + i,) + slots[g * len(pat) + i]
+              for i in range(len(pat))] for g in range(n_groups)]
+    base = n_groups * len(pat)
+    return units + [[(base + j,) + slots[base + j]] for j in range(len(tail))]
+
+
+def forward_blocks(model: LM, params: Mapping, batch, *, remat: bool = False,
+                   gather=None, unembed: bool = True):
+    """(logits, or the final-normed hidden states with ``unembed=False``;
+    the MoE layers' summed aux) of a ``{path: tensor}`` tree in the
+    reference's layout, layer group by layer group: :func:`forward`, and
+    the training step's forward.
+
+    ``gather(path, t, row=None, local_experts=False)`` turns the tensor a
+    leaf holds (row ``row`` of a stacked leaf for a layer) into the tensor
+    the layer
+    computes with, at the moment the layer needs it: the identity on one
+    device, the all-gather of this rank's block under ZeRO-3
+    (:class:`repro_torch.training.zero3.LeafGather`), whose backward
+    reduce-scatters the gradient. ``local_experts`` is True for a MoE
+    layer that takes the all-to-all (:func:`moe_a2a.route`), which reads
+    only this rank's experts. With ``remat`` each group of layers runs
+    under ``torch.utils.checkpoint``: its gathered leaves and activations
+    are not kept for the backward, which gathers and recomputes them
+    (``RunConfig.remat``, the reference's ``jax.checkpoint`` of a group);
+    the step is bitwise the same either way."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import moe_a2a
+    cfg = model.cfg
+    g = gather if gather is not None else _no_gather
+    if isinstance(batch, torch.Tensor):
+        batch = {"tokens": batch}
+    reads_embed = not (cfg.modality == "audio_stub" and "embeds" in batch)
+    x = model._embed_inputs(
+        {"embed": g("embed", params["embed"]) if reads_embed else None},
+        batch)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int64,
+                             device=x.device)[None].expand(b, s)
+    rows = {}
+
+    def leaf(path, row):
+        if row is None:
+            return params[path]
+        if path not in rows:
+            rows[path] = params[path].unbind(0)
+        return rows[path][row]
+
+    def unit_args(unit):
+        return [(layer, row, mod, name, f"{prefix}/{mod}/{name}")
+                for layer, prefix, row in unit
+                for mod, names in convert.block_leaves(
+                    cfg, cfg.layer_kind(layer)).items() for name in names]
+
+    def run(unit_leaves, layers, x, *ts):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        local = bool(cfg.n_experts) and moe_a2a.route(cfg, x.shape[0],
+                                                      x.shape[1])
+        over = {layer: {} for layer in layers}
+        for (layer, row, mod, name, path), t in zip(unit_leaves, ts):
+            over[layer].setdefault(mod, {})[name] = g(
+                path, t, row=row,
+                local_experts=local and name in EXPERT_LEAF_NAMES)
+        for layer in layers:
+            x, a, _ = model.blocks[layer].prefill(x, positions, over[layer])
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for unit in _units(cfg):
+        ul = unit_args(unit)
+        ts = [leaf(path, row) for _, row, _, _, path in ul]
+        fn = functools.partial(run, ul, [layer for layer, _, _ in unit])
+        if remat:
+            x, a = checkpoint(fn, x, *ts, use_reentrant=False)
+        else:
+            x, a = fn(x, *ts)
+        aux = aux + a
+    final = dict(model.final_norm.items())
+    for name in final:
+        final[name] = g(f"final_norm/{name}", params[f"final_norm/{name}"])
+    x = model._final(x, final)
+    if not unembed:
+        return x, aux
+    return x @ g("unembed", params["unembed"]).to(x.dtype), aux
 
 
 def shell(cfg) -> LM:

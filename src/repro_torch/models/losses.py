@@ -59,16 +59,37 @@ def exponent_spread_penalty(w: torch.Tensor, n_group: int = 8,
 
 
 def exponent_compression_penalty(params: Mapping, policy,
-                                 margin: float = 1.0) -> torch.Tensor:
+                                 margin: float = 1.0, layouts=None,
+                                 total=None) -> torch.Tensor:
     """Policy-weighted regularizer over a ``{path: tensor}`` tree: each leaf
     its rule deploys contributes :func:`exponent_spread_penalty` at the
-    rule's ``n_group``; the mean over those leaves (0 when none)."""
-    from repro_torch.core.align import is_alignable
+    rule's ``n_group``; the mean over those leaves (0 when none).
+
+    With ``layouts`` (``{path: Layout}``, a ZeRO-3 rank's blocks) a split
+    leaf's spread penalty is its block's partial sum over the whole leaf's
+    group count, plus ``total(layout, partial)`` (the partials summed over
+    the ranks that hold the leaf's blocks) less the partial, detached: the
+    whole leaf's value, and on a block the gradient of its own term."""
+    from repro_torch.core.align import _block_view, is_alignable
     pens = []
     for path, leaf in params.items():
         rule = policy.rule_for(path)
-        if rule.deploy and is_alignable(path, leaf):
+        if not (rule.deploy and is_alignable(path, leaf)):
+            continue
+        lay = None if layouts is None else layouts[path]
+        if lay is None or lay.whole:
             pens.append(exponent_spread_penalty(leaf, rule.n_group, margin))
+            continue
+        blocks, _ = _block_view(leaf.to(torch.float32), rule.n_group,
+                                leaf.ndim - 2)
+        loge = torch.log2(torch.maximum(blocks.abs(), blocks.new_tensor(1e-8)))
+        excess = torch.relu(loge.amax(dim=1) - loge.amin(dim=1) - margin)
+        g = len(lay.shape) - 2
+        count = 1
+        for i, n in enumerate(lay.shape):
+            count *= -(-n // rule.n_group) if i == g else n
+        part = excess.sum() / count
+        pens.append(part + (total(lay, part.detach()) - part).detach())
     if not pens:
         return torch.zeros(())
     return torch.stack(pens).mean()

@@ -13,7 +13,8 @@ the batch and the m-th slice of the sequence: a distinct token slice. It
      sharding.all_to_all`), so owner m holds ``[E_loc, ep * C, D]``
      (senders merged),
   4. runs its experts ``[m E_loc, (m + 1) E_loc)`` of the replicated
-     leaves,
+     leaves (or the leaves themselves where they hold only those, as a
+     ZeRO-3 step gathers them),
   5. sends the results back by the reverse layout and combines them with
      the gates,
 
@@ -61,8 +62,13 @@ def route(cfg, b: int, s: int) -> bool:
                 or s % ep)
 
 
-def _expert_slice(w, index: int, ep: int):
-    e_loc = w.shape[0] // ep
+def _expert_slice(w, index: int, ep: int, n_experts: int):
+    """Rank ``index``'s experts of ``w``: a slice of the whole stack, or
+    ``w`` itself where it holds only those (a ZeRO-3 step gathers a
+    rank's own experts alone, :mod:`repro_torch.training.zero3`)."""
+    e_loc = n_experts // ep
+    if w.shape[0] == e_loc:
+        return w
     return w[index * e_loc:(index + 1) * e_loc]
 
 
@@ -77,7 +83,7 @@ def moe_a2a_rank(weights, x_loc, cfg, mesh=None):
     gates, ids, aux = route_tokens(router, x_loc, cfg)
     send, keep, dest, c = pack(x_loc, ids, cfg, ep)
     recv = shlib.all_to_all(send, shlib.MODEL_AXIS, mesh)
-    back = run_experts(recv, *(_expert_slice(w, m, ep)
+    back = run_experts(recv, *(_expert_slice(w, m, ep, cfg.n_experts)
                                for w in (w_gate, w_in, w_out)), c)
     ret = shlib.all_to_all(back, shlib.MODEL_AXIS, mesh)
     return combine(ret, keep, dest, gates, c, cfg), aux, keep
@@ -92,7 +98,7 @@ def moe_a2a_ranks(weights, xs: Sequence[torch.Tensor], cfg):
     routed = [route_tokens(router, x, cfg) for x in xs]
     packed = [pack(x, ids, cfg, ep) for x, (_, ids, _) in zip(xs, routed)]
     recvs = shlib.all_to_all_local([p[0] for p in packed])
-    backs = [run_experts(recv, *(_expert_slice(w, r, ep)
+    backs = [run_experts(recv, *(_expert_slice(w, r, ep, cfg.n_experts)
                                  for w in (w_gate, w_in, w_out)),
                          packed[r][3])
              for r, recv in enumerate(recvs)]

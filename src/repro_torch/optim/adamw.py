@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Mapping
+from typing import Callable, Mapping, Optional
 
 import torch
 
@@ -43,12 +43,17 @@ def global_norm(tree: Mapping) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Mapping, max_norm: float):
+def clip_by_global_norm(grads: Mapping, max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
     """Scale the gradients by ``min(1, max_norm / max(norm, 1e-12))`` -> (the
     same tensors, norm). In place, unlike the reference: the step owns its
     gradients, and a copy would hold a second gradient tree (5 GB at
-    full-width olmo-1b)."""
-    norm = global_norm(grads)
+    full-width olmo-1b). ``norm`` is the gradient's global norm where
+    ``grads`` holds only blocks of it (ZeRO-3,
+    :func:`repro_torch.training.zero3.global_norm`); by default the norm of
+    ``grads``."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in grads.values():
         g.mul_(scale)
@@ -61,10 +66,12 @@ def _f32(v, device) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads: Mapping, opt_state: Mapping, params: Mapping, lr,
-                 cfg: AdamWConfig):
+                 cfg: AdamWConfig, in_place: bool = False):
     """One AdamW step -> (new params, new opt state). ``lr`` is a 0-dim
     float32 tensor (:func:`make_lr_schedule`). Weight decay applies to
-    leaves of two or more dimensions only."""
+    leaves of two or more dimensions only. ``in_place`` writes each leaf's
+    new parameter and moments into the given tensors (the same values),
+    so a leaf's temporaries are all that is allocated."""
     step = opt_state["step"] + 1
     b1, b2 = cfg.b1, cfg.b2
     s = step.to(torch.float32)
@@ -82,6 +89,13 @@ def adamw_update(grads: Mapping, opt_state: Mapping, params: Mapping, lr,
         p32 = p.to(torch.float32)
         new_p[path] = (p32 - _f32(lr, dev) * (update + wd * p32)).to(p.dtype)
         new_m[path], new_v[path] = m, v
+        if in_place:
+            om, ov = opt_state["m"][path], opt_state["v"][path]
+            p.copy_(new_p[path])
+            om.copy_(m)
+            ov.copy_(v)
+            new_p[path], new_m[path], new_v[path] = p, om, ov
+            del m, v, p32
         del update, g32
     return new_p, {"m": new_m, "v": new_v, "step": step}
 

@@ -114,7 +114,7 @@ class Finetuner:
     def _run_cfg(self, **kw) -> RunConfig:
         base = dict(policy=self.policy, learning_rate=self.learning_rate,
                     weight_decay=self.weight_decay, seed=self.seed,
-                    checkpoint_dir="", warmup_steps=0)
+                    checkpoint_dir="", remat=False, warmup_steps=0)
         base.update(kw)
         return RunConfig(**base)
 

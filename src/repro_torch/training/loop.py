@@ -33,8 +33,15 @@ dense dispatch over the global batch unless the caller sets it
 (``sharding.use_mesh``), which routes it through the all-to-all over
 ``"model"``; otherwise ``"model"`` replicates. Checkpoints: rank 0 writes,
 every rank waits for the last write at a barrier, and every rank restores.
-Sharding the state over the mesh (ZeRO-3) waits for ROADMAP Queue 1 item
-14b-1b.
+
+ZeRO-3 (``shard=True``, or a sharded ``state``): each rank holds its
+blocks of the state (:mod:`repro_torch.training.zero3`). A run given no
+state initialises them leaf by leaf on the mesh, or restores them: every
+checkpoint holds the global leaves (rank 0 gathers one leaf at a time to
+the host and writes the replicated run's format), and a restore cuts each
+rank's blocks by the target mesh's specs, so any checkpoint restores onto
+any mesh and onto one device. The Fig. 7 schedule draws each block at its
+offsets, bitwise its region of the one-device draw.
 
 The reference draws the Fig. 7 faults from ``jax.random``; the port's are
 the counter PRNG's, so the two agree in rates, not in bits.
@@ -143,10 +150,24 @@ def _state_tensors(state: steps_lib.TrainState) -> list:
     return [t for tree in trees for t in tree.values() if t is not None]
 
 
+def _save(checkpointer, state, loader, step: int, mesh) -> None:
+    """Queue a checkpoint of ``state`` at ``step`` on the writer (rank 0's;
+    None elsewhere). A sharded state is gathered first, one leaf at a time,
+    into host copies on rank 0: every rank takes part."""
+    if state.shards is not None:
+        from repro_torch.launch import specs
+        state = specs.gather_state(state, mesh, dst=0)
+        if checkpointer is not None:
+            checkpointer.save_async(_checkpoint_tree(state, loader), step,
+                                    copy=False)
+    elif checkpointer is not None:
+        checkpointer.save_async(_checkpoint_tree(state, loader), step)
+
+
 def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
                  log_fn: Optional[Callable[[int, Dict], None]] = None,
                  state: Optional[steps_lib.TrainState] = None,
-                 mesh=None, *, device=None,
+                 mesh=None, *, device=None, shard: bool = False,
                  sleep_injector: Optional[Callable[[int], float]] = None
                  ) -> TrainResult:
     """Train for ``run.steps`` steps. Without ``state``, the run resumes
@@ -159,12 +180,16 @@ def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
     ``lr``, ``aux_loss``, ``step`` and ``step_time`` (seconds, after a
     device synchronize). ``sleep_injector(step)`` seconds are slept inside
     a step's timing (simulated host slowness, for the watchdog). ``mesh``
-    makes the run data-parallel (module doc)."""
+    makes the run data-parallel (module doc); ``shard`` (or a sharded
+    ``state``) shards the state over it (ZeRO-3)."""
     if mesh is not None and tuple(getattr(mesh, "mesh_dim_names", None)
                                   or ()) != ("data", "model"):
         raise ValueError(f"run_training: mesh must be a ('data', 'model') "
                          f"DeviceMesh (launch.mesh.make_host_mesh), got "
                          f"{mesh!r}")
+    shard = shard or (state is not None and state.shards is not None)
+    if shard and mesh is None:
+        raise ValueError("run_training: a sharded state needs its mesh")
     corrupt = make_fault_schedule(run)
     step_fn = steps_lib.make_train_step(cfg, run, mesh)
     loader = batches if isinstance(batches, CheckpointableLoader) else None
@@ -174,10 +199,16 @@ def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
         os.makedirs(run.checkpoint_dir, exist_ok=True)
         if state is None and \
                 ckpt_lib.latest_step(run.checkpoint_dir) is not None:
+            dev = resolve_device(device)
             tree, start_step = ckpt_lib.restore(
-                None, run.checkpoint_dir, device=resolve_device(device))
+                None, run.checkpoint_dir, device="cpu" if shard else dev)
             state = steps_lib.TrainState(**{f: tree[f]
                                             for f in _STATE_FIELDS})
+            if shard:
+                from repro_torch.launch import specs
+                state = specs.shard_state(state, mesh,
+                                          steps_lib.group_rows(run),
+                                          device=dev)
             # the step count lives on the host, where init_opt_state puts
             # it: the lr schedule and bias corrections are computed there
             state.opt["step"] = state.opt["step"].cpu()
@@ -194,8 +225,9 @@ def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
     if state is None:
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(run.seed)
-        state = steps_lib.init_train_state(gen, cfg, run, device=dev)
-    if mesh is not None and not shlib.same_on_every_rank(
+        state = steps_lib.init_train_state(gen, cfg, run, device=dev,
+                                           mesh=mesh if shard else None)
+    if mesh is not None and not shard and not shlib.same_on_every_rank(
             _state_tensors(state), mesh):
         raise ValueError("run_training on a mesh: the state differs between "
                          "ranks (data parallelism replicates it)")
@@ -214,8 +246,10 @@ def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
                 time.sleep(sleep_injector(step))
             if corrupt is not None:
                 # the step trains on the faulty weights, as the reference's
-                state = dataclasses.replace(
-                    state, params=corrupt(state.params, step_seed(run, step)))
+                state = dataclasses.replace(state, params=corrupt(
+                    state.params, step_seed(run, step),
+                    *(() if state.shards is None
+                      else (state.shards.params,))))
             state, metrics = step_fn(state, batch)
             sync()
             dt = time.perf_counter() - t0
@@ -227,12 +261,11 @@ def run_training(cfg: ModelConfig, run: RunConfig, batches: Iterable[Dict],
             history.append(metrics)
             if log_fn:
                 log_fn(step, metrics)
-            if checkpointer and (step + 1) % run.checkpoint_every == 0:
-                checkpointer.save_async(_checkpoint_tree(state, loader),
-                                        step + 1)
+            if run.checkpoint_dir and (step + 1) % run.checkpoint_every == 0:
+                _save(checkpointer, state, loader, step + 1, mesh)
+        if run.checkpoint_dir:
+            _save(checkpointer, state, loader, run.steps, mesh)
         if checkpointer:
-            checkpointer.save_async(_checkpoint_tree(state, loader),
-                                    run.steps)
             checkpointer.wait()
     finally:
         if checkpointer:

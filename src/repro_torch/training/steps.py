@@ -20,10 +20,20 @@ by one over every rank. The sum runs over the whole mesh before the clip
 and the compression, so AdamW, the projection and the next step's faults
 are identical on every rank.
 
+ZeRO-3 (a state whose ``shards`` are set, :func:`repro_torch.launch.specs.
+shard_state` or :func:`init_train_state` with a ``mesh``): each rank holds
+its blocks of every leaf; the forward gathers a layer group's leaves just
+before the group computes, the backward reduce-scatters each weight
+gradient onto its owners' blocks, and everything after the gradient runs
+on the blocks (:mod:`repro_torch.training.zero3`). The loss weighting is
+the data-parallel one above; the regularizer's gradient on a block is its
+own term (no sum over the mesh follows it).
+
 Memory: the step owns its gradients and scales them in place when it
-clips. AdamW builds new parameter and moment trees beside the old ones, so
-the state a caller passed stays as it was; its temporaries and the
-projection's are one leaf's at a time.
+clips. On a replicated state AdamW builds new parameter and moment trees
+beside the old ones, so the state a caller passed stays as it was; its
+temporaries and the projection's are one leaf's at a time. The sharded
+step updates the state it is given in place.
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ from repro_torch.models import lm
 from repro_torch.models.losses import (exponent_compression_penalty,
                                        lm_loss_sums)
 from repro_torch.optim import adamw
+from repro_torch.training import zero3
 
 @dataclasses.dataclass
 class TrainState:
@@ -48,17 +59,43 @@ class TrainState:
     exps: Dict[str, Optional[torch.Tensor]]    # frozen block exponents
     signs: Dict[str, Optional[torch.Tensor]]   # frozen signs (int8)
     ef_error: Optional[dict] = None            # grad compression residuals
+    # ZeRO-3: the layouts of the blocks the trees hold (a TrainState of
+    # {path: Layout} trees, launch.specs.state_shardings); None when the
+    # trees hold the global leaves
+    shards: Optional["TrainState"] = None
+
+
+def group_rows(run: RunConfig):
+    """-> ``path -> n_group``: the exponent group of each leaf under the
+    run's policy (8 where none applies), which a shard keeps whole."""
+    rel = run.rel
+    if not (rel.enabled() and rel.policy is not None):
+        return lambda path: 8
+    return lambda path: rel.policy.rule_for(path).n_group
 
 
 def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
-                     run: RunConfig, params=None, *,
-                     device=None) -> TrainState:
+                     run: RunConfig, params=None, *, device=None,
+                     mesh=None) -> TrainState:
     """A fresh state (new optimizer): weights from ``generator`` (an
     :class:`LM` built on ``device``), or the given ``params`` tree; aligned
     and frozen when the run's reliability is on and ``freeze_exponents``;
     with ``grad_compression`` a zero float32 error-feedback residual per
-    leaf."""
-    if params is None:
+    leaf. With a ``mesh`` the state is this rank's ZeRO-3 blocks: drawn
+    leaf by leaf from ``generator`` and cut as they come
+    (:func:`zero3.init_blocks`), or cut from ``params``; they are bitwise
+    the blocks of the one-device state."""
+    from repro_torch.launch import specs
+    rows = group_rows(run)
+    layouts = None
+    if mesh is not None:
+        if params is None:
+            params, layouts = zero3.init_blocks(cfg, generator, device, mesh,
+                                                n_group=rows)
+        else:
+            layouts = specs.param_shardings_sane(mesh, params, n_group=rows)
+            params = {p: layouts[p].cut(w).clone() for p, w in params.items()}
+    elif params is None:
         from repro_torch import convert
         model = lm.LM(cfg, generator=generator, device=device)
         params = convert.flat_from_lm(model)
@@ -74,8 +111,13 @@ def init_train_state(generator: Optional[torch.Generator], cfg: ModelConfig,
     if run.grad_compression:
         ef = {p: torch.zeros(w.shape, dtype=torch.float32, device=w.device)
               for p, w in params.items()}
-    return TrainState(params=dict(params), opt=adamw.init_opt_state(params),
-                      exps=exps, signs=signs, ef_error=ef)
+    state = TrainState(params=dict(params),
+                       opt=adamw.init_opt_state(params), exps=exps,
+                       signs=signs, ef_error=ef)
+    if layouts is not None:
+        state.shards = specs.state_shardings(
+            mesh, specs.abstract_state(state, layouts), rows)
+    return state
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig,
@@ -108,11 +150,12 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
 
     ranks = 1 if mesh is None else mesh.size()
 
-    def loss_fn(params, batch, rows_mesh, replicas):
+    def loss_fn(params, batch, rows_mesh, replicas, shards, gather):
         """This rank's share of the loss (module doc; the loss itself on
         one device: dividing by one is exact)."""
         params_c = {k: _cast(v) for k, v in params.items()}
-        logits, aux = lm.forward(model, params_c, batch, with_aux=True)
+        logits, aux = lm.forward_blocks(model, params_c, batch,
+                                        remat=run.remat, gather=gather)
         nll, hits, tokens = lm_loss_sums(logits, batch["labels"])
         del logits
         total = nll.detach()
@@ -125,13 +168,24 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
         metrics = {"loss": total / denom, "accuracy": hits / denom,
                    "tokens": denom}
         if reg_policy is not None:
-            pen = exponent_compression_penalty(params, reg_policy,
-                                               margin=run.exp_reg_margin)
-            loss = loss + run.exp_reg_coef * pen / ranks
+            # on blocks, each block's own term: no sum over the mesh follows
+            pen = exponent_compression_penalty(
+                params, reg_policy, margin=run.exp_reg_margin,
+                layouts=None if shards is None else shards.params,
+                total=zero3.leaf_total(mesh))
+            loss = loss + run.exp_reg_coef * pen / (
+                ranks if shards is None else 1)
             metrics = dict(metrics, exp_penalty=pen)
+        if gather is not None:
+            metrics = dict(metrics, gathered_bytes=torch.tensor(
+                float(gather.bytes)))
         return loss + aux / ranks, (metrics, aux)
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        shards = state.shards
+        if shards is not None and mesh is None:
+            raise ValueError("train_step: a sharded state needs the mesh it "
+                             "is sharded over (make_train_step(mesh=))")
         rows = shlib.batch_rows(batch["tokens"].shape[0], mesh) \
             if mesh is not None else slice(None)
         split = rows != slice(None)
@@ -140,9 +194,12 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
         replicas = ranks // shlib.batch_ranks(mesh) if split else ranks
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
+        gather = None if shards is None else \
+            zero3.leaf_gather(shards.params, mesh)
         with torch.enable_grad(), shlib.split_rows(mesh if split else None):
             total, (metrics, aux) = loss_fn(leaves, batch,
-                                            mesh if split else None, replicas)
+                                            mesh if split else None, replicas,
+                                            shards, gather)
             # an audio_stub batch leaves the embed unread: its gradient is
             # zero, as jax.grad's
             grads = torch.autograd.grad(total, list(leaves.values()),
@@ -150,24 +207,30 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
         grads = {p: torch.zeros_like(w) if g is None else g
                  for (p, w), g in zip(leaves.items(), grads)}
         del total, leaves
-        if ranks > 1:
+        if gather is not None:
+            grads = gather.settle(grads)
+        elif ranks > 1:
             for g in grads.values():
                 shlib.all_reduce_mesh(g, mesh)
         metrics = {k: v.detach() for k, v in metrics.items()}
         aux = aux.detach()
-        grads, gnorm = adamw.clip_by_global_norm(grads, opt_cfg.grad_clip)
+        grads, gnorm = adamw.clip_by_global_norm(
+            grads, opt_cfg.grad_clip, norm=None if shards is None else
+            zero3.global_norm(grads, shards.params, mesh))
         ef = state.ef_error
         if ef is not None:
-            grads, ef = compress_decompress(grads, ef)
+            grads, ef = compress_decompress(
+                grads, ef, None if shards is None else zero3.leaf_max(mesh))
         lr = lr_fn(state.opt["step"])
         params, opt = adamw.adamw_update(grads, state.opt, state.params, lr,
-                                         opt_cfg)
+                                         opt_cfg, in_place=shards is not None)
         del grads
-        if project:
-            params = align_lib.project_pytree_policy(
-                params, state.exps, state.signs, rel.policy)
+        if project:     # AdamW's fresh weights, or the blocks, in place
+            params = align_lib.project_in_place(params, state.exps,
+                                                state.signs, rel.policy)
         metrics = dict(metrics, grad_norm=gnorm, lr=lr, aux_loss=aux)
-        return TrainState(params, opt, state.exps, state.signs, ef), metrics
+        return TrainState(params, opt, state.exps, state.signs, ef,
+                          shards), metrics
 
     return train_step
 

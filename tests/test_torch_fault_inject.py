@@ -324,3 +324,75 @@ def test_cuda_k4_matches_plain_version(field):
     assert t_kernel.launch_counts[t_kernel.K4] == before + 1
     assert torch.equal(got.cpu(), t_ref.fault_inject_ref(
         bits, seed=5, ber=1e-3, positions=positions))
+
+
+# (spec of a stacked [L, D, F] leaf, mesh dims): splits on D, on F, on
+# both, on D over two axes, and a replicated stack
+BLOCK_SPLITS = (((None, "data", "model"), (4, 2)),
+                ((None, "model", "data"), (2, 4)),
+                ((None, ("data", "model"), None), (2, 2)),
+                ((None, None, "data"), (8, 1)),
+                ((None, "data", None), (1, 1)))
+
+
+def test_plain_block_draws_equal_the_whole_draw(monkeypatch):
+    """Every block of a stacked plane, drawn at its offsets
+    (``fault.inject_block``: K4's plain version at ``at``), is bitwise its
+    region of the one-device draw. The counter chunk is cut to 2^10
+    elements, so the [3 * 24, 40] plane takes 3 chunks whose boundaries
+    fall inside the layers' row ranges. At zero offsets ``at`` is the
+    plain draw."""
+    from repro_torch.distributed import sharding as shlib
+    monkeypatch.setattr(t_kernel, "MAX_COUNTER_ELEMENTS", 2 ** 10)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((3, 24, 40), generator=g).to(torch.float16).to(
+        torch.float32)
+    whole = t_fault.inject(123, x, 0.05, "full")
+    assert len(t_fault.counter_chunks(72, 40)) == 3
+    for spec, dims in BLOCK_SPLITS:
+        runs = 0
+        for rank in shlib.ranks_of(("data", "model"), dims):
+            lay = shlib.layout_of(shlib.sanitize_spec(rank, spec, x.shape),
+                                  x.shape, rank)
+            got = t_fault.inject_block(123, lay.cut(x).contiguous(), lay,
+                                       0.05, "full")
+            want = lay.cut(whole).contiguous()
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (spec, rank)
+            runs += len(t_fault.block_runs(lay))
+        assert runs >= 3, spec
+    bits = x.reshape(-1, 40)[:20].to(torch.float16).view(torch.uint16)
+    positions = FP16.field_bit_positions("full")
+    assert torch.equal(
+        t_ops.fault_inject_bits(bits, seed=9, ber=0.05, positions=positions,
+                                at=(0, 0, 40)),
+        t_ops.fault_inject_bits(bits, seed=9, ber=0.05,
+                                positions=positions))
+    with pytest.raises(ValueError):       # the block leaves its chunk
+        t_ops.fault_inject_bits(bits[:10], seed=9, ber=0.05,
+                                positions=positions, at=(20, 0, 40))
+
+
+@pytest.mark.gpu
+def test_cuda_k4_at_offsets_matches_plain_version():
+    """K4 at offsets on the card: each block of a stacked plane (split on
+    D, on F, on both) bitwise its plain version, a launch a run of the
+    block's rows, ragged column blocks included."""
+    from repro_torch.distributed import sharding as shlib
+    dev = _cuda()
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((3, 96, 100), generator=g).to(torch.float16).to(
+        torch.float32)
+    for spec, dims in BLOCK_SPLITS:
+        for rank in shlib.ranks_of(("data", "model"), dims):
+            lay = shlib.layout_of(shlib.sanitize_spec(rank, spec, x.shape),
+                                  x.shape, rank)
+            block = lay.cut(x).contiguous()
+            before = t_kernel.launch_counts[t_kernel.K4]
+            got = t_fault.inject_block(77, block.to(dev), lay, 0.01, "full")
+            if not lay.whole:
+                assert t_kernel.launch_counts[t_kernel.K4] == \
+                    before + len(t_fault.block_runs(lay))
+            want = t_fault.inject_block(77, block, lay, 0.01, "full")
+            assert torch.equal(got.cpu().view(torch.int32),
+                               want.view(torch.int32)), (spec, rank)

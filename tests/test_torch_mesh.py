@@ -32,6 +32,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
@@ -344,30 +345,113 @@ _WORKER = textwrap.dedent('''
 ''')
 
 
-def _spawn(payload, tmp_path, world=4, worker=None):
+# Every rank runs its worker under this runner. It joins the default group
+# through a file rendezvous in the test's directory, so no port is picked
+# and handed on (the number a free-port probe returns can be taken by
+# another process before rank 0 binds it). It ends with ``os._exit`` after
+# flushing: torch's process-group teardown at interpreter exit aborts now
+# and then ("terminate called without an active exception", SIGABRT) when
+# several spawns load the machine at once, after the worker's work is done
+# and written.
+_RUNNER = textwrap.dedent('''
+    import os, sys, traceback
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.environ["SPAWN_RENDEZVOUS"],
+        rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD_SIZE"]))
+    code = 0
+    try:
+        with open(os.environ["SPAWN_WORKER"]) as f:
+            exec(compile(f.read(), os.environ["SPAWN_WORKER"], "exec"),
+                 {"__name__": "__main__"})
+    except BaseException:
+        traceback.print_exc()
+        code = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+''')
+
+SPAWN_DEADLINE = 400.0     # seconds from the spawn to the last rank's exit
+
+
+def _spawn(payload, tmp_path, world=4, worker=None,
+           deadline=SPAWN_DEADLINE):
     """Start ``worker`` (default ``_WORKER``) on ``world`` gloo ranks with
-    torchrun's environment -> a function that waits for them and returns
-    rank 0's result (the caller computes the reference meanwhile)."""
+    torchrun's rank environment -> a function that waits for them and
+    returns rank 0's result (the caller computes the reference meanwhile).
+    The ranks meet through a file rendezvous in ``tmp_path`` (``_RUNNER``)
+    and write their output to ``rank{r}.log`` there; ``deadline`` seconds
+    after the spawn every rank still running is killed, and a failure
+    reports each rank's exit code and log."""
     src, dst = tmp_path / "in.pt", tmp_path / "out.pt"
     torch.save(payload, src)
-    port = t_mesh._free_port()
-    procs = []
+    body = tmp_path / "worker.py"
+    body.write_text(worker or _WORKER)
+    end = time.monotonic() + deadline
+    procs, logs = [], []
     for rank in range(world):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
-                   LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
-                   MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                   LOCAL_RANK=str(rank), OMP_NUM_THREADS="1",
+                   SPAWN_RENDEZVOUS=str(tmp_path / "rendezvous"),
+                   SPAWN_WORKER=str(body),
                    PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH",
                                                                 ""))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", worker or _WORKER, str(src), str(dst)],
-            env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        for k in ("MASTER_ADDR", "MASTER_PORT"):
+            env.pop(k, None)
+        logs.append(tmp_path / f"rank{rank}.log")
+        with open(logs[-1], "wb") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _RUNNER, str(src), str(dst)],
+                env=env, stdout=log, stderr=subprocess.STDOUT))
 
     def result():
-        logs = [p.communicate(timeout=240)[0].decode() for p in procs]
-        assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+        late = []
+        for rank, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(end - time.monotonic(), 0.0))
+            except subprocess.TimeoutExpired:
+                late.append(rank)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if late or any(p.returncode for p in procs):
+            raise AssertionError("\n".join(
+                f"rank {r}: exit {p.returncode}"
+                f"{' (killed at the deadline)' if r in late else ''}\n"
+                f"{logs[r].read_text(errors='replace')[-4000:]}"
+                for r, p in enumerate(procs)))
         return torch.load(dst, weights_only=False)
     return result
+
+
+_PAIR_WORKER = textwrap.dedent('''
+    import sys
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_trial_mesh(0, "cpu")
+    t = torch.tensor([float(dist.get_rank() + 1)])
+    dist.all_reduce(t)
+    if dist.get_rank() == 0:
+        torch.save(t, sys.argv[2])
+''')
+
+
+def test_spawn_takes_no_port(tmp_path, monkeypatch):
+    """The ranks meet without a port: the one a free-port probe would hand
+    out is held by a listening socket here, as another process could hold
+    it, and the spawn still runs (a harness that handed that port to rank
+    0's store fails here)."""
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as held:
+        held.bind(("localhost", 0))
+        held.listen()
+        monkeypatch.setattr(t_mesh, "_free_port",
+                            lambda: held.getsockname()[1])
+        got = _spawn({}, tmp_path, world=2, worker=_PAIR_WORKER)()
+    assert float(got) == 3.0
 
 
 SERVE_KW = dict(batch=4, prompt_len=8, gen=4, seed=0, cim=True, ber=1e-3,
