@@ -8,9 +8,9 @@ Phases (any failed check raises and exits non-zero; no result is printed):
 1. build the hand-written CUDA kernels with nvcc for sm_90a, one nvcc per
    source, started together: K1 (cim_read_matmul_one4n) and K2
    (cim_read_matmul_raw) from cim_read.cu, K3 (fault_inject_batched) and K4
-   (fault_inject) from fault_inject.cu, K5 (bfp_matmul) from bfp_matmul.cu;
-   read K3's hash bodies from the SASS
-   (cuobjdump) and check both hash multiplies are IMADs, which the bound of
+   (fault_inject, over a run table) from fault_inject.cu, K5 (bfp_matmul)
+   from bfp_matmul.cu; read K3's and K4's hash bodies from the SASS
+   (cuobjdump) and check every hash multiply is an IMAD, which the bound of
    phase 7 counts on the FMA pipe apart from the ALU work; read K5's tile
    instantiations' SASS and fail unless each holds TF32 HMMAs (tensor-core
    MMAs), and print every K5 instantiation's registers, failing on a spill;
@@ -56,7 +56,12 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    through its entry point fault_inject_fp16 on the full-width unembed
    weights for each field (its main path: counts zeroed just before, read
    just after) at BER 1e-3, where its double threshold is one below the
-   sweep's float32 one; a plane of 2^27 + 1 elements must raise; K3 under
+   sweep's float32 one; K4's fused float32 round trip at threshold 0 on
+   all 2^32 float32 bit patterns (16 planes of 2^28, one launch each)
+   bitwise fp16_bits_to_f32(to_bits(x)) on the card, and on a plane of
+   specials (signed zeros, subnormals, ties, values that round to inf,
+   infinities, NaN payloads) at BER 1e-3, in place and not, bitwise its
+   plain version; a plane of 2^27 + 1 elements must raise; K3 under
    each fault process of MODEL_SPECS on the one4n unembed's mantissa plane
    (uint16) and its flattened codeword plane (uint32, col_div = S*W), T = 4,
    bitwise against the plain version, its flips a strict subset of the
@@ -87,7 +92,9 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    K3 at the Fig. 6 unembed mantissa plane
    ([2048, 50304] uint16, T = 4, 10 positions; and under each fault
    process, with its draws and bound) and K4 on the same plane's
-   16 positions (no single PyTorch call computes their function), bound by
+   16 positions, and on float32 weights of its shape through the fused
+   round trip (bound by the busier of its draws and 8 bytes an element)
+   (no single PyTorch call computes their function), bound by
    the busier of the ALU pipe (10 ops a draw), the FMA pipe (2 IMADs a
    draw) and the bytes; K5 on the trained unembed's BFP planes at M = 4
    (decode-shaped, bound by bytes) and M = 1024 (the phase 9 batch, bound
@@ -220,8 +227,9 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    through the Finetuner (2 reshape steps with the exponent regularizer, 2
    aligned steps under the Fig. 7 schedule at BER 1e-4): losses finite,
    ``exp_penalty`` in stage 1, ``ecc_stats``; K4's launches, reset just
-   before and read just after, equal drawn leaves x fields x counter
-   chunks a step; step 0's schedule alone: each field's flips over the
+   before and read just after, equal drawn leaves x fields a step (a
+   leaf's counter chunks are runs of one launch); step 0's schedule
+   alone, its wall ms beside the predicted bound: each field's flips over the
    whole tree within 5 sigma of the binomial mean (exponent/sign at
    ``residual_exp_ber``), a second draw from the seed equal bitwise, its
    wall time beside the steps' and K4 timed at a full counter chunk; then
@@ -269,8 +277,8 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    global dense dispatch. (b) ``run_training`` on a 1x1 NCCL mesh: 2
    aligned steps of full-width olmo-1b at 8 x 128 under the Fig. 7
    schedule at BER 1e-4, metrics and every parameter bitwise the same
-   steps without the mesh from one state, K4 launching phase 14's 24 a
-   step. (c) ``Finetuner(mesh=1x1)`` and ``PolicySearch.select`` through a
+   steps without the mesh from one state, K4 launching phase 14's one a
+   drawn leaf and field a step. (c) ``Finetuner(mesh=1x1)`` and ``PolicySearch.select`` through a
    one-rank trial mesh (``SweepEngine(plan, mesh=make_trial_mesh())``):
    phase 14's losses and parameters bitwise, its choice, accuracies and
    trace, its K3 launches. The phase's wall time by part.
@@ -278,11 +286,13 @@ Phases (any failed check raises and exits non-zero; no result is printed):
 17. the training state sharded over a mesh (ZeRO-3), on the one card. (a)
    K4 at shard offsets: a uint16 plane of granite-3-8b's stacked w_gate
    shape [40, 4096, 12800] (16 counter chunks) cut into the blocks of its
-   spec at 4x1 and 2x2, each block drawn at its offsets
-   (``fault.draw_block_bits``: a launch a run of rows in one chunk) and
+   spec at 4x1 and 2x2, each block drawn at its offsets in one launch
+   over the table of its runs of rows (``fault.draw_block_bits``) and
    held bitwise to its region of the one-device draw, every chunk drawn;
-   one 4x1 block timed against its bound (draws x 10 ALU-pipe ops) and
-   its plain version. (b) the ZeRO-3 step with 4 "data" ranks emulated in
+   one 4x1 block timed against its bound (draws x 10 ALU-pipe ops; in
+   float32 the larger of that and 8 bytes an element), its plain version
+   and the run-by-run route (a launch a run), in uint16 and in float32
+   in place (``fault.inject_block``, the fused round trip). (b) the ZeRO-3 step with 4 "data" ranks emulated in
    one process (``zero3.emulate_step``: the program's sharded step, a
    thread a rank, its gathers, reduce-scatters and all-reduces in-process
    exchanges) on full-width olmo-1b at 8 x 128: each rank's init
@@ -369,11 +379,25 @@ MODEL_SPECS = ("burst:rate=0.25,length=4,axis=row",
                "burst:rate=0.25,length=8,axis=bank",
                "correlated:strength=0.8,period=4")
 MODEL_BER = 1e-4
+# float32 words K4's fused round trip is held on in phase 4: signed zeros,
+# fp32 and fp16 subnormals and their edges, fp16 ties (even and odd), the
+# largest finite fp16 and the values that round to inf, infinities, NaNs
+# with payloads (quiet and signalling)
+K4_SPECIALS = (0x00000000, 0x80000000, 0x00000001, 0x807FFFFF, 0x00800000,
+               0x33000000, 0x33000001, 0x33400000, 0x33800000, 0x33C00000,
+               0x387FC000, 0x387FE000, 0x38800000, 0xB8801000, 0x3F800000,
+               0x3F801000, 0x3F803000, 0x3F802FFF, 0x3F801001, 0x477FE000,
+               0x477FEFFF, 0x477FF000, 0xC77FF000, 0x47800000, 0x7F7FFFFF,
+               0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00000, 0x7F800001,
+               0x7FA00000, 0xFFBFFFFF, 0x7FC02000, 0x7FFFE000, 0x7F802000)
 SERVE_MODELS = ("burst:rate=0.25,length=4,axis=col", "drift:drift_rate=0.02")
 FIG6_MODELS = ("iid", "burst:rate=0.5,length=4")
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 128   # the train launcher's defaults
 REDUCED_STEPS, REDUCED_LR = 3, 1e-3            # tests/test_torch_train.py's
 REDUCED_MIN_TRAVEL = 4                         # fp16 ulps, median
+# phase 14: the Fig. 7 schedule's wall ms on full-width olmo-1b predicted
+# for K4's one launch a (leaf, field) with the round trip fused
+SCHEDULE_MS_PREDICTED = 40.0
 LOSS_RTOL = 1e-4
 DENSE_TOL = 2e-4        # tests/test_system.py: cim_linear vs x @ w
 BFP_TOL = 1e-5          # tests/test_kernels.py: kernel vs its plain version
@@ -488,30 +512,52 @@ def _sass_hash_bodies(lib_path, mangled: str) -> list:
     return bodies
 
 
+# the instantiations whose hash bodies phase_sass reads: K3's i.i.d. one
+# <uint16, 8, MODEL_IID> (the burst and correlated ones hash their units
+# beside the draws) and K4's <uint16, 8> and <float, 8>
+SASS_KERNELS = {"K3 (uint16 x 8)": "fault_inject_batched_kernelItLi8ELi0EE",
+                "K4 (uint16 x 8)": "fault_inject_runs_kernelItLi8EE",
+                "K4 (float32 x 8)": "fault_inject_runs_kernelIfLi8EE"}
+
+
 def phase_sass(lib_path) -> None:
-    """Check the premise of K3/K4's bound: in the uint16 kernel (the Fig. 6
-    timing shape) both hash multiplies are IMADs, i.e. they issue on the FMA
-    pipe beside the ALU work; print the compiled per-draw census."""
+    """Check the premise of K3/K4's bound: in K3's uint16 kernel (the Fig. 6
+    timing shape) and K4's uint16 and float32 kernels every hash multiply
+    is an IMAD, i.e. issues on the FMA pipe beside the ALU work, two a
+    draw; print the compiled per-draw census (K4 draws 8 elements between
+    two branches)."""
     from collections import Counter
-    # <uint16, 8, MODEL_IID, at offsets false>: the i.i.d. instantiation
-    # (the burst and correlated ones hash their units beside the draws)
-    bodies = _sass_hash_bodies(lib_path,
-                               "fault_inject_batched_kernelItLi8ELi0ELb0EE")
-    _check(len(bodies) > 0, "K3 SASS: no hash body found")
-    census = Counter()
-    for body in bodies:
-        muls = [b for b in body if any(c in b for c in HASH_MULS)]
-        _check(len(muls) == 2 and all(b.startswith("IMAD ") for b in muls),
-               f"K3 SASS: hash multiplies are not two IMADs: {muls}")
-        ops = [b.split()[0].split(".")[0] for b in body]
-        census[(sum(o in ALU_OPCODES for o in ops),
-                sum(o == "IMAD" for o in ops),
-                sum(o not in ALU_OPCODES and o != "IMAD" for o in ops))] += 1
-    (alu, imad, other), n = census.most_common(1)[0]
-    print(f"phase 1: K3 SASS (uint16 x 8): {len(bodies)} hash bodies, "
-          f"{n} of them with {alu} ALU-pipe, {imad} IMAD and {other} other "
-          f"instructions a draw (bound counts {ALU_OPS_PER_DRAW} ALU, "
-          f"{IMAD_OPS_PER_DRAW} IMAD); census {dict(census)}")
+    for name, mangled in SASS_KERNELS.items():
+        bodies = _sass_hash_bodies(lib_path, mangled)
+        _check(len(bodies) > 0, f"{name} SASS: no hash body found")
+        census = Counter()
+        for body in bodies:
+            muls = [b for b in body if any(c in b for c in HASH_MULS)]
+            if name.startswith("K3"):       # one draw a body
+                draws = 1
+                ok = len(muls) == 2 and \
+                    all(b.startswith("IMAD ") for b in muls)
+            else:
+                # K4 draws 8 elements a body and may keep a constant in a
+                # register (an IMAD.MOV); its draws are its unsigned
+                # compares, and every line holding a constant an IMAD
+                draws = sum(b.startswith("ISETP") and ".U32" in b
+                            for b in body)
+                ok = all(b.startswith("IMAD") for b in muls)
+            _check(ok, f"{name} SASS: hash multiplies are not IMADs: {muls}")
+            if not draws:
+                continue
+            ops = [b.split()[0].split(".")[0] for b in body]
+            census[(round(sum(o in ALU_OPCODES for o in ops) / draws, 2),
+                    round(sum(o == "IMAD" for o in ops) / draws, 2),
+                    round(sum(o not in ALU_OPCODES and o != "IMAD"
+                              for o in ops) / draws, 2))] += 1
+        _check(bool(census), f"{name} SASS: no hash body found")
+        (alu, imad, other), n = census.most_common(1)[0]
+        print(f"phase 1: {name} SASS: {len(bodies)} hash bodies, {n} of "
+              f"them with {alu} ALU-pipe, {imad} IMAD and {other} other "
+              f"instructions a draw (bound counts {ALU_OPS_PER_DRAW} ALU, "
+              f"{IMAD_OPS_PER_DRAW} IMAD); census {dict(census)}")
 
 
 def _k5_variant(mangled: str) -> str:
@@ -1753,6 +1799,7 @@ def phase_fault_inject(dev, checks: dict, fi_kernel) -> dict:
     print(f"phase 4: K4 fault_inject_fp16 on the [{K}, {J}] unembed, fields "
           f"{', '.join(FIELDS)}: bitwise equal to plain, {k4_launches} "
           f"launches")
+    _k4_round_trip_gates(dev, fi_kernel)
     big = torch.zeros((), dtype=torch.uint16, device=dev).expand(
         2 ** 14, 2 ** 13 + 1)
     try:
@@ -1762,6 +1809,76 @@ def phase_fault_inject(dev, checks: dict, fi_kernel) -> dict:
     else:
         raise AssertionError("chip_smoke: a 2^27 + 1 element plane was taken")
     return {"k4_launches": k4_launches, "max_abs_err": err}
+
+
+def _k4_round_trip_gates(dev, fi_kernel, side: int = 2 ** 14,
+                         planes: int = None) -> None:
+    """K4's fused float32 round trip: every one of the 2^32 float32 bit
+    patterns, in 16 planes of 2^28 (two counter chunks each), through
+    ``ops.fault_inject_runs`` at threshold 0, bitwise
+    ``fp16_bits_to_f32(to_bits(x))`` on the card (torch's own cast, NaNs
+    included); then a [4096, 4096] plane of specials and random words at
+    BER 1e-3, in place and not, bitwise its plain version. ``side`` and
+    ``planes`` shrink it for a rehearsal on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bitops, fault
+    from repro_torch.kernels.fault_inject import ops, ref
+    piece = side * side                  # 2^28 words a plane on the card
+    planes = 2 ** 32 // piece if planes is None else planes
+    runs = fault.leaf_runs(side, side)
+    fi_kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(planes):
+        words = torch.arange(i * piece, (i + 1) * piece, dtype=torch.int64,
+                             device=dev)
+        x = (words - (words >= 2 ** 31).to(torch.int64) * 2 ** 32).to(
+            torch.int32).view(torch.float32).view(side, side)
+        del words
+        got = ops.fault_inject_runs(x, runs, seed=i, ber=0.0,
+                                    positions=range(16))
+        for r0 in range(0, side, side // 4):     # the reference by quarters
+            want = bitops.fp16_bits_to_f32(bitops.to_bits(
+                x[r0:r0 + side // 4]))
+            _check(torch.equal(got[r0:r0 + side // 4].view(torch.int32),
+                               want.view(torch.int32)),
+                   f"phase 4: K4's float32 round trip differs from "
+                   f"fp16_bits_to_f32(to_bits(x)) in words "
+                   f"{i * piece + r0 * side:#x}..")
+            del want
+        del x, got
+    torch.cuda.synchronize()
+    n = fi_kernel.launch_counts[fi_kernel.K4]
+    _check(n == planes, f"phase 4: {n} K4 launches for {planes} planes")
+    secs = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(13)
+    words = torch.randint(-2 ** 31, 2 ** 31, (4096 * 4096,), generator=g,
+                          dtype=torch.int64, device=dev).to(torch.int32)
+    specials = torch.from_numpy(np.asarray(K4_SPECIALS, np.uint32).view(
+        np.int32)).to(dev)
+    words[:specials.numel()] = specials
+    words[-specials.numel():] = specials
+    x = words.view(torch.float32).view(4096, 4096)
+    pos = bitops.FP16.field_bit_positions("full")
+    kw = dict(seed=0xC0FFEE, ber=1e-3, positions=pos, fold=False)
+    want = ref.fault_inject_runs_ref(x, ((0, 0, 0),), **kw)
+    got = ops.fault_inject_runs(x, ((0, 0, 0),), **kw)
+    y = x.clone()
+    ops.fault_inject_runs(y, ((0, 0, 0),), out=y, **kw)
+    torch.cuda.synchronize()
+    for what, t in (("", got), (" in place", y)):
+        _check(torch.equal(t.view(torch.int32), want.view(torch.int32)),
+               f"phase 4: K4's float32 draw{what} of the specials plane "
+               f"differs from its plain version")
+    changed = int((got.view(torch.int32) != bitops.fp16_bits_to_f32(
+        bitops.to_bits(x)).view(torch.int32)).sum())
+    print(f"phase 4: K4 float32 round trip at threshold 0: "
+          f"{planes * piece} float32 bit patterns of 2^32 ({planes} planes "
+          f"of {piece}, one launch each) bitwise "
+          f"fp16_bits_to_f32(to_bits(x)) on the card, {secs:.1f} s; a "
+          f"[4096, 4096] plane of {len(K4_SPECIALS)} specials (twice) and "
+          f"random words at BER 1e-3: in place and not bitwise its plain "
+          f"version, {changed} words changed by flips")
 
 
 def _plain_k3(plane, seeds, thr, positions, spec, col_div=1):
@@ -2056,7 +2173,8 @@ def phase_fig2(dev, fi_kernel) -> int:
 
 def phase_fi_times(dev, checks: dict, k3_launches: int, fi: dict,
                    card: str) -> list:
-    """K3 at the Fig. 6 unembed mantissa plane, K4 on the same plane."""
+    """K3 at the Fig. 6 unembed mantissa plane, K4 on the same plane and
+    on float32 weights of its shape."""
     import numpy as np
     from repro_torch.kernels.fault_inject import ops, ref
     man = checks["cim_read_matmul_one4n"]["store"].man
@@ -2094,6 +2212,8 @@ def phase_fi_times(dev, checks: dict, k3_launches: int, fi: dict,
         if t > 1:
             rows[-1]["models"] = _k3_model_times(man, seeds, thr, pos, nbytes,
                                                  hashes, ms, card)
+        else:
+            rows[-1]["fp32"] = _k4_fp32_times(dev, card)
         print(f"phase 7: {name}: {ms:.4f} ms at [{K}, {J}] uint16, T={t}, "
               f"{len(pos)} positions; plain {plain_ms:.2f} ms; bound "
               f"{max(bytes_ms, ops_ms):.4f} ms (ALU pipe {alu_ms:.4f} ms, "
@@ -2101,6 +2221,34 @@ def phase_fi_times(dev, checks: dict, k3_launches: int, fi: dict,
               f"bytes {bytes_ms:.4f} ms for "
               f"{nbytes / 1e6:.1f} MB) on {card}")
     return rows
+
+
+def _k4_fp32_times(dev, card) -> dict:
+    """K4's float32 entry (``fault_inject_fp16``: fp16 bits, flips and the
+    widening fused) on fp16-grid weights of the unembed's shape [K, J], all
+    16 positions at BER 1e-3, beside its plain version (to_bits, K4's plain
+    version, fp16_bits_to_f32); bound by the busier of the ALU pipe and 8
+    bytes an element (4 read, 4 written)."""
+    import torch
+    from repro_torch.core import bitops
+    from repro_torch.kernels.fault_inject import ops, ref
+    g = torch.Generator(device=dev).manual_seed(21)
+    w = (torch.randn((K, J), generator=g, device=dev) * 0.02).half().float()
+    pos = range(16)
+
+    fig = _fi_figures(
+        "K4's float32 entry", lambda: ops.fault_inject_fp16(w, seed=9,
+                                                           ber=1e-3),
+        lambda: bitops.fp16_bits_to_f32(ref.fault_inject_ref(
+            bitops.to_bits(w), seed=9, ber=1e-3, positions=pos)),
+        w.numel(), 1, len(pos), nbytes=w.numel() * 8)
+    print(f"phase 7: fault_inject (float32, fused round trip): "
+          f"{fig['ms']:.4f} ms at [{K}, {J}], 16 positions; plain "
+          f"{fig['plain_ms']:.2f} ms; bound {fig['bound_ms']:.4f} ms "
+          f"({fig['bound_by']}: {fig['hashes'] / 1e9:.3f} G draws, "
+          f"{fig['bytes'] / 1e6:.1f} MB) on {card}")
+    del w
+    return {"shape": [K, J], **fig, "library_ms": None}
 
 
 def _k3_model_times(man, seeds, thr, positions, nbytes, hashes, iid_ms,
@@ -3353,15 +3501,10 @@ def _field_flips(before: dict, after: dict, rates) -> dict:
 
 
 def _k4_launches_expected(params: dict, rates) -> int:
-    """One K4 launch a (drawn leaf, field, counter chunk)."""
-    from repro_torch.core import fault
-    n = 0
-    for path, w in params.items():
-        k = sum(1 for r in rates(path, w) if r > 0)
-        if k:
-            n += k * len(fault.counter_chunks(w.numel() // w.shape[-1],
-                                              w.shape[-1]))
-    return n
+    """One K4 launch a (drawn leaf, field): a leaf's counter chunks are
+    runs of one table."""
+    return sum(1 for path, w in params.items() for r in rates(path, w)
+               if r > 0)
 
 
 def _check_chunked_leaf(params: dict, faulty: dict, seed: int, corrupt,
@@ -3404,21 +3547,22 @@ def _check_chunked_leaf(params: dict, faulty: dict, seed: int, corrupt,
     return f"{path} {tuple(w.shape)} ({n} counter chunks x 2 fields)"
 
 
-def _fi_figures(what: str, fn, plain, n: int, t: int, n_pos: int) -> dict:
+def _fi_figures(what: str, fn, plain, n: int, t: int, n_pos: int,
+                nbytes: int = None) -> dict:
     """A K3/K4 call held bitwise to its plain version on the same inputs,
     then its device time, the plain version's and its bound (phase 7's
-    accounting: each plane read once, T copies written; 10 ALU and 2 IMAD
-    ops a draw)."""
+    accounting: each plane read once, T copies written, ``nbytes`` for a
+    float32 plane; 10 ALU and 2 IMAD ops a draw)."""
     import torch
     got, want = fn(), plain()
     # uint16 has no CUDA comparison: compare the int16 views
     _check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
-           f"phase 14: {what} differs from its plain version on the same "
+           f"{what} differs from its plain version on the same "
            f"inputs")
     del got, want
     ms = _time_ms(fn, reps=3, inner=3)
     plain_ms = _time_ms(plain, reps=3, inner=1)
-    nbytes = n * 2 * (1 + t)
+    nbytes = n * 2 * (1 + t) if nbytes is None else nbytes
     hashes = n * t * n_pos
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = max(hashes * ALU_OPS_PER_DRAW, hashes * IMAD_OPS_PER_DRAW) \
@@ -3578,8 +3722,7 @@ def _codesign_full(dev, fi_kernel, card: str) -> dict:
     res.state.opt = None                   # the moments: not needed below
     want = _k4_launches_expected(params, corrupt.rates)
     _check(k4 == 2 * want, f"phase 14: K4 launched {k4} times in 2 aligned "
-           f"steps, expected {want} a step (drawn leaves x fields x counter "
-           f"chunks)")
+           f"steps, expected {want} a step (drawn leaves x fields)")
     for h in stage1:
         print(f"phase 14: Finetuner reshape step {h['step']}: loss "
               f"{h['loss']:.4f} exp_penalty {h['exp_penalty']:.4f} "
@@ -3620,9 +3763,10 @@ def _codesign_full(dev, fi_kernel, card: str) -> dict:
           f"{wall:.1f} s of wall; losses finite; ecc_stats: "
           f"{stats['stored_bits']} stored bits ({stats['overhead']:+.1%}); "
           f"peak device memory {peak:.2f} GiB (max_memory_allocated)")
-    print(f"phase 14: K4 launches a step: {want} (= drawn leaves x fields x "
-          f"counter chunks; {k4} over the 2 aligned steps); the schedule "
-          f"alone {corrupt_ms:.1f} ms of wall (host clock, synchronized) "
+    print(f"phase 14: K4 launches a step: {want} (= drawn leaves x fields; "
+          f"{k4} over the 2 aligned steps); the schedule alone "
+          f"{corrupt_ms:.1f} ms of wall (host clock, synchronized; predicted "
+          f"under {SCHEDULE_MS_PREDICTED:g} ms) "
           f"against aligned steps of {', '.join(f'{x:.1f}' for x in step_ms)}"
           f" ms; K4 at the {chunk[0]} counter chunk {tuple(chunk[1].shape)} "
           f"-> [{rows}, {chunk[1].shape[-1]}] mantissa: "
@@ -4340,8 +4484,8 @@ def _mesh_train(dev, fi_kernel, mesh, ref, card: str) -> dict:
     """(b) run_training on the 1x1 mesh: 2 aligned steps of full-width
     olmo-1b at TRAIN_BATCH x TRAIN_SEQ under the Fig. 7 schedule at
     CODESIGN_BER, bitwise the same steps without the mesh from one state;
-    K4's launches a step drawn leaves x fields x counter chunks, and
-    phase 14's (``ref``) where it ran."""
+    K4's launches a step drawn leaves x fields, and phase 14's (``ref``)
+    where it ran."""
     import torch
     from repro_torch.configs import RunConfig, get_config
     from repro_torch.core.deployment import ReliabilityPolicy
@@ -4503,13 +4647,19 @@ F64_RATIO = 2.0     # (b): the emulated gradient's float64 error against one
 def _k4_offsets(dev, fi_kernel, card: str) -> dict:
     """(a) K4 at shard offsets on a plane of granite-3-8b's stacked MLP
     shape: every block of the leaf's spec at 4x1 and 2x2 drawn at its
-    offsets, bitwise its region of the one-device draw (16 counter chunks;
-    every block, every chunk); one block's draw timed against its bound
-    and its plain version."""
+    offsets in one launch, bitwise its region of the one-device draw (16
+    counter chunks; every block, every chunk); one 4x1 block's draw timed
+    against its bound and its plain version in uint16
+    (``fault.draw_block_bits``) and in float32 in place
+    (``fault.inject_block``, the schedule's call), each beside the run-by-run
+    route it replaces (a launch a run of rows in one chunk, each result
+    copied into the block; in float32 each run through ``to_bits`` and
+    ``fp16_bits_to_f32`` around it)."""
     import torch
-    from repro_torch.core import fault
+    from repro_torch.core import bitops, fault
     from repro_torch.core.cim import fold_seed
     from repro_torch.distributed import sharding as shlib
+    from repro_torch.kernels.fault_inject import ops as fi_ops
     from repro_torch.kernels.fault_inject import ref as fi_ref
     from repro_torch.launch import specs
     shape, path = ZERO3_LEAF, "groups/blk0/mlp/w_gate"
@@ -4519,7 +4669,11 @@ def _k4_offsets(dev, fi_kernel, card: str) -> dict:
                           dtype=torch.int16, device=dev).view(torch.uint16)
     flat = plane.view(-1, shape[-1])
     n_chunks = len(fault.counter_chunks(*flat.shape))
+    fi_kernel.reset_launch_counts()
     whole = fault.draw_bits(flat, seed, ber, positions).view(shape)
+    _check(fi_kernel.launch_counts[fi_kernel.K4] == 1, "phase 17: the "
+           f"{n_chunks}-chunk leaf took "
+           f"{fi_kernel.launch_counts[fi_kernel.K4]} K4 launches")
     meta = torch.empty(shape, device="meta")
     blocks, chunks, timed = 0, set(), None
     for dims in ZERO3_SPLITS:
@@ -4528,7 +4682,11 @@ def _k4_offsets(dev, fi_kernel, card: str) -> dict:
                                   rank)
             _check(not lay.whole, f"phase 17: {lay} is not a block")
             blk = lay.cut(plane).contiguous().view(-1, lay.block[-1])
+            fi_kernel.reset_launch_counts()
             got = fault.draw_block_bits(blk, lay, seed, ber, positions)
+            _check(fi_kernel.launch_counts[fi_kernel.K4] == 1,
+                   f"phase 17: the {dims} block at {lay.offsets} took "
+                   f"{fi_kernel.launch_counts[fi_kernel.K4]} K4 launches")
             want = lay.cut(whole).contiguous().view(-1, lay.block[-1])
             _check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
                    f"phase 17: K4 at the offsets of {dims} block "
@@ -4547,44 +4705,79 @@ def _k4_offsets(dev, fi_kernel, card: str) -> dict:
     blk, lay, runs = timed
     col_off, width = lay.offsets[-1], lay.shape[-1]
 
-    def plain():
-        out = torch.empty_like(blk).view(torch.int16)
+    def by_run(x, f32):
+        """The run-by-run route: a launch a run, written into the block."""
+        out = torch.empty_like(x)
+        dst = out if f32 else out.view(torch.int16)
         for r0, r1, k, row_off in runs:
-            out[r0:r1] = fi_ref.fault_inject_ref(
-                blk[r0:r1], seed=fold_seed(seed, k), ber=ber,
-                positions=positions,
-                at=(row_off, col_off, width)).view(torch.int16)
-        return out.view(torch.uint16)
+            bits = fi_ops.fault_inject_bits(
+                bitops.to_bits(x[r0:r1]) if f32 else x[r0:r1],
+                seed=fold_seed(seed, k), ber=ber, positions=positions,
+                at=(row_off, col_off, width))
+            dst[r0:r1] = bitops.fp16_bits_to_f32(bits) if f32 \
+                else bits.view(torch.int16)
+        return out
+
+    def plain(x):
+        return fi_ref.fault_inject_runs_ref(
+            x, fault.layout_runs(lay), seed=seed, ber=ber,
+            positions=positions, col_off=col_off, width=width)
     fig = _fi_figures("K4 at offsets", lambda: fault.draw_block_bits(
-        blk, lay, seed, ber, positions), plain, blk.numel(), 1,
+        blk, lay, seed, ber, positions), lambda: plain(blk), blk.numel(), 1,
         len(positions))
-    print(f"phase 17: (a) K4 at shard offsets: {blocks} blocks of a "
-          f"{list(shape)} plane (granite-3-8b's w_gate) at 4x1 and 2x2, "
-          f"{n_chunks} counter chunks, each bitwise its region of the "
-          f"one-device draw; one 4x1 block {list(lay.block)} at offset "
-          f"{lay.offsets[1]} ({len(runs)} launches): {fig['ms']:.4f} ms, "
-          f"plain {fig['plain_ms']:.2f} ms, bound {fig['bound_ms']:.4f} ms "
-          f"({fig['bound_by']}, {fig['hashes'] / 1e9:.3f} G draws) on {card}")
+    fig["by_run_ms"] = _time_ms(lambda: by_run(blk, False), reps=3, inner=3)
+    # float32: fp16-grid weights, the mantissa drawn in place (the
+    # schedule's call on a block)
+    n = blk.numel()
+    w = (torch.randn(blk.shape, generator=gen, device=dev) * 0.02).half() \
+        .float()
     del blk
     torch.cuda.empty_cache()
+    y = w.clone()
+    fi_kernel.reset_launch_counts()
+    got = fault.inject_block(seed, y, lay, ber, "mantissa", in_place=True)
+    _check(got.data_ptr() == y.data_ptr() and
+           fi_kernel.launch_counts[fi_kernel.K4] == 1 and
+           torch.equal(y.view(torch.int32), plain(w).view(torch.int32)),
+           "phase 17: the float32 block drawn in place differs from its "
+           "plain version (or took more than one launch)")
+    _check(torch.equal(by_run(w, True).view(torch.int32),
+                       y.view(torch.int32)),
+           "phase 17: the float32 block's run-by-run route differs")
+    del y, got
+    bytes_ms = n * 8 / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * len(positions) * ALU_OPS_PER_DRAW / INT32_OPS * 1e3
+    f32 = {"ms": _time_ms(lambda: fault.inject_block(
+               seed, w, lay, ber, "mantissa", in_place=True), reps=3,
+               inner=3),
+           "by_run_ms": _time_ms(lambda: by_run(w, True), reps=3, inner=3),
+           "plain_ms": _time_ms(lambda: plain(w), reps=3, inner=1),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": n * 8, "hashes": n * len(positions)}
+    print(f"phase 17: (a) K4 at shard offsets: {blocks} blocks of a "
+          f"{list(shape)} plane (granite-3-8b's w_gate) at 4x1 and 2x2, "
+          f"{n_chunks} counter chunks, each block one launch and bitwise "
+          f"its region of the one-device draw; one 4x1 block "
+          f"{list(lay.block)} at offset {lay.offsets[1]} ({len(runs)} runs "
+          f"in one table), {fig['hashes'] / 1e9:.3f} G draws: uint16 "
+          f"{fig['ms']:.4f} ms (run by run {fig['by_run_ms']:.4f} ms, "
+          f"{len(runs)} launches), plain {fig['plain_ms']:.2f} ms, bound "
+          f"{fig['bound_ms']:.4f} ms ({fig['bound_by']}); float32 in place "
+          f"{f32['ms']:.4f} ms (run by run with the int64 round trip "
+          f"{f32['by_run_ms']:.4f} ms), plain {f32['plain_ms']:.2f} ms, "
+          f"bound {f32['bound_ms']:.4f} ms ({f32['bound_by']}) on {card}")
+    del w
+    torch.cuda.empty_cache()
     return {"shape": list(shape), "blocks": blocks, "chunks": n_chunks,
-            "block": list(lay.block), "block_launches": len(runs), **fig}
+            "block": list(lay.block), "block_launches": 1,
+            "block_runs": len(runs), **fig, "fp32": f32}
 
 
 def _k4_block_launches(states, rates) -> int:
-    """One K4 launch a (rank, drawn leaf, field, run of a block's rows)
-    (a whole leaf: a counter chunk)."""
-    from repro_torch.core import fault
-    n = 0
-    for s in states:
-        for path, w in s.params.items():
-            k = sum(1 for r in rates(path, w) if r > 0)
-            lay = s.shards.params[path]
-            if k:
-                n += k * (len(fault.counter_chunks(
-                    w.numel() // w.shape[-1], w.shape[-1])) if lay.whole
-                    else len(fault.block_runs(lay)))
-    return n
+    """One K4 launch a (rank, drawn leaf, field): a block's runs of rows,
+    like a whole leaf's counter chunks, are one table."""
+    return sum(_k4_launches_expected(s.params, rates) for s in states)
 
 
 def _held_zero3(got_metrics, want_metrics, leaves) -> dict:

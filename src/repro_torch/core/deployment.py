@@ -655,17 +655,20 @@ def training_fault_schedule(rel) -> Optional[Callable]:
     for every uniform policy that ``ReliabilityConfig`` builds from its
     scalar fields or ``from_policy``, so the port keeps this one path.
 
-    The draws go through :func:`repro_torch.core.fault.inject` (K4 on the
-    card): field ``f`` (0 exponent/sign, 1 mantissa) of leaf ``i`` in
-    flatten order draws from ``fold_seed(fold_seed(step_seed, f), i)``.
+    The draws go through :func:`repro_torch.core.fault.inject` (on the
+    card one K4 launch a leaf and field, its counter chunks one run table,
+    the fp32 <-> fp16 round trip fused into it): field ``f`` (0
+    exponent/sign, 1 mantissa) of leaf ``i`` in flatten order draws from
+    ``fold_seed(fold_seed(step_seed, f), i)``.
     The reference draws ``jax.random`` streams here, so the port holds it
     to its rates, not its bits. ``corrupt.rates(path, leaf)`` gives a
     leaf's (exponent/sign, mantissa) rates, 0 where it is not drawn.
     ``corrupt(blocks, step_seed, layouts)`` corrupts the blocks of a
     sharded tree (``{path: Layout}``) in place, each with exactly the
     flips of its region of the one-device draw (:func:`repro_torch.core.
-    fault.inject_block`: K4 at the block's offsets, a run of rows at a
-    time); a sharded state is the step's to consume."""
+    fault.inject_block`: one K4 launch a block and field over the table of
+    its runs of rows, in place with no temporary); a sharded state is the
+    step's to consume."""
     from repro_torch.core import fault as fault_lib
     if rel.mode != "cim" or rel.ber <= 0 or rel.inject != "dynamic":
         return None

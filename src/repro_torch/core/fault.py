@@ -13,12 +13,15 @@ The reference's ``field_flip_mask`` (a ``jax.random`` mask with no
 counter-PRNG twin) is not ported. :func:`inject_block` draws one rank's
 block of a sharded leaf (:class:`repro_torch.distributed.sharding.Layout`)
 as exactly the flips of its region of :func:`inject`'s draw of the whole
-leaf: K4 at the block's offsets, one launch a run of the block's rows that
-lies in one counter chunk.
+leaf. Each is one K4 launch on the card (a leaf's counter chunks, or a
+block's runs of rows in one chunk, as a table of runs), a float32 leaf's
+round trip to fp16 bits fused into it.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import types
 from typing import List, Mapping, Tuple
 
 import numpy as np
@@ -49,26 +52,20 @@ def inject(seed: int, x: torch.Tensor, ber: float, field: str = "full",
     of at most 2^27 elements, since the counter PRNG addresses no more a
     seed: chunk ``c`` draws from ``fold_seed(seed, c)`` (a leaf of full-width
     olmo-1b's stacked MLP, [16, 2048, 8192] = 2^28 elements, takes two
-    chunks). One K4 launch a chunk on the card."""
+    chunks). One K4 launch on the card, over every chunk."""
     if ber <= 0.0:
         return x
-    shape = x.shape
-    bits = bitops.to_bits(x.reshape(-1, shape[-1]), fmt)
-    positions = tuple(int(p) for p in fmt.field_bit_positions(field))
-    out = draw_bits(bits, seed, ber, positions)
-    return bitops.bits_to_dtype(out, x.dtype, fmt).reshape(shape)
+    cols = x.shape[-1]
+    return _draw(seed, x, leaf_runs(x.numel() // cols, cols), 0, cols, ber,
+                 field, fmt, None)
 
 
 def draw_bits(bits: torch.Tensor, seed: int, ber: float,
               positions) -> torch.Tensor:
-    """:func:`inject`'s draw on a uint16 plane [R, C]: K4 a counter chunk."""
-    parts = [fi_ops.fault_inject_bits(bits[r0:r1], seed=fold_seed(seed, c),
-                                      ber=ber, positions=positions)
-             for c, (r0, r1) in enumerate(counter_chunks(*bits.shape))]
-    # uint16 planes concatenate through their int16 views (CUDA has no
-    # uint16 cat)
-    return parts[0] if len(parts) == 1 else torch.cat(
-        [p.view(torch.int16) for p in parts]).view(torch.uint16)
+    """:func:`inject`'s draw on a uint16 plane [R, C]: one K4 launch."""
+    r, c = bits.shape
+    return fi_ops.fault_inject_runs(bits, leaf_runs(r, c), seed=seed, ber=ber,
+                                    positions=positions)
 
 
 def block_runs(layout) -> List[Tuple[int, int, int, int]]:
@@ -95,50 +92,66 @@ def block_runs(layout) -> List[Tuple[int, int, int, int]]:
             for a, b in zip(starts, ends)]
 
 
+def leaf_runs(rows: int, cols: int) -> tuple:
+    """K4's run table ``((r0, chunk, row_off), ...)`` of a whole ``[rows,
+    cols]`` plane: its :func:`counter_chunks`, each at row 0 of its chunk."""
+    return tuple((r0, c, 0) for c, (r0, _) in enumerate(counter_chunks(rows,
+                                                                      cols)))
+
+
+def layout_runs(layout) -> tuple:
+    """K4's run table of a block: its :func:`block_runs` as ``((r0, chunk,
+    row_off), ...)``, worked out once a (shape, block, offsets, chunk
+    size)."""
+    return _layout_runs(tuple(layout.shape), tuple(layout.block),
+                        tuple(layout.offsets),
+                        fi_kernel.MAX_COUNTER_ELEMENTS)
+
+
+@functools.lru_cache(maxsize=4096)
+def _layout_runs(shape, block, offsets, max_elements) -> tuple:
+    lay = types.SimpleNamespace(shape=shape, block=block, offsets=offsets)
+    return tuple((r0, k, row_off) for r0, _, k, row_off in block_runs(lay))
+
+
 def inject_block(seed: int, x: torch.Tensor, layout, ber: float,
                  field: str = "full", fmt: FloatFormat = FP16,
                  in_place: bool = False) -> torch.Tensor:
     """:func:`inject` of the whole leaf, restricted to the block ``x`` that
     ``layout`` places in it: every element draws at its global counter in
-    its global chunk (K4 at the block's offsets on the card, one launch a
-    run of :func:`block_runs`). A run at a time goes to bits and back, so
-    the temporaries are a run's; ``in_place`` writes the faulty values
-    into ``x`` (contiguous). A whole block is :func:`inject` itself."""
+    its global chunk, in one K4 launch on the card over the block's runs
+    (:func:`layout_runs`). ``in_place`` writes the faulty values into ``x``
+    (contiguous), with no temporary at all for a float32 or fp16 block."""
     if ber <= 0.0:
         return x
-    if layout.whole and not in_place:
-        return inject(seed, x, ber, field, fmt)
+    return _draw(seed, x, layout_runs(layout), layout.offsets[-1],
+                 layout.shape[-1], ber, field, fmt, in_place)
+
+
+def _draw(seed: int, x: torch.Tensor, runs: tuple, col_off: int, width: int,
+          ber: float, field: str, fmt: FloatFormat,
+          in_place) -> torch.Tensor:
+    """K4 on the plane ``x.reshape(-1, x.shape[-1])`` over ``runs``."""
+    bitops.get_format(fmt.name)
+    if in_place and not x.is_contiguous():
+        raise ValueError("inject_block in place: the block is not contiguous")
     shape = x.shape
     flat = x.reshape(-1, shape[-1])
-    dst = flat if in_place else torch.empty_like(flat)
-    positions = tuple(int(p) for p in fmt.field_bit_positions(field))
-    for run in block_runs(layout):
-        r0, r1 = run[:2]
-        dst[r0:r1] = bitops.bits_to_dtype(_draw_run(
-            bitops.to_bits(flat[r0:r1], fmt), run, layout, seed, ber,
-            positions), x.dtype, fmt)
-    return dst.reshape(shape)
-
-
-def _draw_run(bits: torch.Tensor, run, layout, seed: int, ber: float,
-              positions) -> torch.Tensor:
-    """K4 on the uint16 rows of one run of :func:`block_runs`."""
-    _, _, k, row_off = run
-    return fi_ops.fault_inject_bits(
-        bits, seed=fold_seed(seed, k), ber=ber, positions=positions,
-        at=(row_off, layout.offsets[-1], layout.shape[-1]))
+    out = fi_ops.fault_inject_runs(
+        flat, runs, seed=seed, ber=ber,
+        positions=fmt.field_bit_positions(field), col_off=col_off,
+        width=width, out=flat if in_place else None)
+    return out.reshape(shape)
 
 
 def draw_block_bits(bits: torch.Tensor, layout, seed: int, ber: float,
                     positions) -> torch.Tensor:
     """:func:`inject_block`'s draw on the block's uint16 plane
-    ``reshape(-1, block[-1])``."""
-    out = torch.empty_like(bits).view(torch.int16)
-    for run in block_runs(layout):
-        r0, r1 = run[:2]
-        out[r0:r1] = _draw_run(bits[r0:r1], run, layout, seed, ber,
-                               positions).view(torch.int16)
-    return out.view(torch.uint16)
+    ``reshape(-1, block[-1])``: one K4 launch."""
+    return fi_ops.fault_inject_runs(bits, layout_runs(layout), seed=seed,
+                                    ber=ber, positions=positions,
+                                    col_off=layout.offsets[-1],
+                                    width=layout.shape[-1])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,11 +4,13 @@
 * K3 :func:`fault_inject_batched` replaces ``fault_inject_batched_pallas``:
   ``bits [R, C]`` (uint8, uint16 or uint32 held in int32) and trial seeds
   ``[T]`` -> ``[T, R, C]`` faulted copies, threshold and seeds at run time.
-* K4 :func:`fault_inject` replaces ``fault_inject_pallas``: one seed over a
-  uint16 plane, the same kernel launched at T = 1, with the reference's
-  Python-double threshold (:func:`static_threshold`). With ``at`` it draws
-  a block of a larger plane at its offsets (``fault_inject_at``): the
-  ZeRO-3 step's Fig. 7 schedule on each rank's blocks.
+* K4 :func:`fault_inject_runs` replaces ``fault_inject_pallas``: one seed
+  over a uint16 plane, or over the fp16 bit patterns of a float32 plane
+  (the round trip to fp16 and back fused, in place or not), with the
+  reference's Python-double threshold (:func:`static_threshold`), drawn in
+  one launch from a device table of runs of rows: a whole leaf in its
+  counter chunks, a block of a sharded leaf at its global counters
+  (:func:`check_runs`), or one plane at one seed.
 
 The library is built at first use by :class:`repro_torch.kernels.nvcc.
 CudaLibrary`. Each wrapper takes CUDA tensors only (the CPU goes to
@@ -34,6 +36,7 @@ K4 = "fault_inject"
 launch_counts = {K3: 0, K4: 0}
 
 PLANE_DTYPES = (torch.uint8, torch.uint16, torch.int32)
+RUN_DTYPES = {torch.uint16: 2, torch.float32: 4}     # K4's planes: word bytes
 # The kernel's fault-process codes: drift runs the i.i.d. code on a
 # threshold the caller pre-scaled (ops.fault_inject_bits_batched).
 MODEL_KINDS = {"iid": 0, "drift": 0, "burst": 1, "correlated": 2}
@@ -92,9 +95,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fault_inject_batched.argtypes = [vp, vp, vp] + [i] * 4 + [u] * 4 \
         + [i, i, i, vp]
     lib.fault_inject_batched.restype = i
-    lib.fault_inject_at.argtypes = [vp, vp, vp] + [i] * 3 + [u] * 2 \
-        + [i] * 3 + [vp]
-    lib.fault_inject_at.restype = i
+    lib.fault_inject_runs.argtypes = [vp, vp] + [i] * 5 + [u] * 3 \
+        + [i, vp, i, vp]
+    lib.fault_inject_runs.restype = i
 
 
 LIBRARY = CudaLibrary(CSRC / "fault_inject.cu", _bind)
@@ -165,39 +168,60 @@ def check_at(r: int, c: int, at) -> None:
                          f"{MAX_COUNTER_ELEMENTS} elements")
 
 
-def _at_whole(r: int, c: int, at) -> bool:
-    return at is None or tuple(int(v) for v in at) == (0, 0, c)
+def check_runs(runs, rows: int, cols: int, col_off: int,
+               width: int) -> None:
+    """A run table ``((r0, chunk, row_off), ...)`` over a ``[rows, cols]``
+    plane at column ``col_off`` of a ``width``-word counter plane: the
+    first run at row 0, the others strictly after it and below ``rows``,
+    each run's rows inside its counter chunk (:func:`check_at`); the plane
+    below 2^32 elements (the kernel's element index)."""
+    if rows * cols >= 2 ** 32:
+        raise ValueError(f"fault_inject: a [{rows}, {cols}] plane holds "
+                         f"2^32 elements or more; draw it in blocks")
+    if not runs or runs[0][0] != 0:
+        raise ValueError(f"fault_inject: runs {runs!r} do not start at row 0")
+    ends = [r0 for r0, _, _ in runs[1:]] + [rows]
+    for (r0, k, row_off), r1 in zip(runs, ends):
+        if not r0 < r1 <= rows or not 0 <= k < 2 ** 31:
+            raise ValueError(f"fault_inject: run {(r0, k, row_off)} of a "
+                             f"{rows}-row plane ends at {r1}")
+        check_at(r1 - r0, cols, (row_off, col_off, width))
 
 
-def fault_inject(bits: torch.Tensor, *, seed: int, ber: float,
-                 positions: Sequence[int], at=None) -> torch.Tensor:
-    """K4: uint16 bits [R, C] on the card -> bits with ``positions`` flipped
-    at rate ``ber`` from one seed, threshold
-    ``min(round(ber * 2^32), 2^32 - 1)`` in double precision. K4 has no
-    fault-process slots (nor has the reference's). ``at = (row_off,
-    col_off, width)`` draws the plane as the block at row ``row_off`` and
-    column ``col_off`` of a counter chunk ``width`` words wide: element
-    (r, c) at counter ``(row_off + r) * width + col_off + c``; ``(0, 0,
-    C)`` is the plain draw."""
-    if bits.dtype != torch.uint16:
-        raise ValueError(f"{K4}: expected a uint16 plane, got {bits.dtype}")
-    r, c = bits.shape if bits.ndim == 2 else (0, 0)
-    if _at_whole(r, c, at):
-        return _launch(K4, bits, [int(seed)], static_threshold(ber),
-                       positions, 0, 0)[0]
-    if bits.device.type != "cuda" or bits.ndim != 2:
-        raise ValueError(f"{K4}: expected a 2-D plane on the card, got "
-                         f"{tuple(bits.shape)} on {bits.device}")
-    check_at(r, c, at)
-    bits = bits.contiguous()
-    seeds_dev = torch.from_numpy(seed_words([int(seed)]).view(np.int32)).to(
-        bits.device)
-    out = torch.empty_like(bits)
-    row_off, col_off, width = (int(v) for v in at)
-    rc = load().fault_inject_at(
-        bits.data_ptr(), out.data_ptr(), seeds_dev.data_ptr(), 1, r, c,
-        lanes_of(positions, 16), static_threshold(ber) & 0xFFFFFFFF,
-        row_off, col_off, width, stream_of(bits))
+def fault_inject_runs(x: torch.Tensor, table: torch.Tensor, *, seed: int,
+                      ber: float, positions: Sequence[int], col_off: int,
+                      width: int, fold: bool,
+                      out: torch.Tensor) -> torch.Tensor:
+    """K4: the contiguous plane ``x [R, C]`` on the card, uint16 bit
+    patterns or float32 values (narrowed to fp16 bits as ``x.to(float16)``,
+    flipped, widened as ``bitops.fp16_bits_to_f32``), written to ``out``
+    (``x`` itself for in place), every element. ``table`` is the int32
+    ``[n, 3]`` device copy of runs :func:`check_runs` accepted: run ``(r0,
+    k, row_off)`` draws element (r, c) at counter ``(row_off + r - r0) *
+    width + col_off + c`` from ``fold_seed(seed, k)`` (``fold``) or
+    ``seed``, at ``positions`` with threshold ``min(round(ber * 2^32),
+    2^32 - 1)`` in double precision. One launch."""
+    if x.device.type != "cuda" or out.device != x.device \
+            or table.device != x.device:
+        raise ValueError(f"{K4}: x, out and the run table lie on "
+                         f"{x.device}, {out.device}, {table.device}; the "
+                         f"kernel takes CUDA tensors (ops routes the CPU)")
+    if x.dtype not in RUN_DTYPES or out.dtype != x.dtype or x.ndim != 2 \
+            or out.shape != x.shape or not x.is_contiguous() \
+            or not out.is_contiguous():
+        raise ValueError(f"{K4}: expected contiguous 2-D uint16 or float32 "
+                         f"planes, got {x.dtype} {tuple(x.shape)} -> "
+                         f"{out.dtype} {tuple(out.shape)}")
+    if table.dtype != torch.int32 or table.ndim != 2 or table.shape[1] != 3 \
+            or not table.is_contiguous():
+        raise ValueError(f"{K4}: expected an int32 [n, 3] run table, got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    r, c = x.shape
+    rc = load().fault_inject_runs(
+        x.data_ptr(), out.data_ptr(), RUN_DTYPES[x.dtype], r, c,
+        int(col_off), int(width), lanes_of(positions, 16),
+        static_threshold(ber) & 0xFFFFFFFF, int(seed) & 0xFFFFFFFF,
+        int(bool(fold)), table.data_ptr(), table.shape[0], stream_of(x))
     check_rc(rc, K4)
     launch_counts[K4] += 1
     return out

@@ -4,7 +4,10 @@
 They state what K3/K4 compute. Words are widened to ``int64`` and masked to
 32 bits (as :func:`hash_u32` takes them), then narrowed back to the plane's
 storage type. The CPU route of :mod:`.ops` runs them, and the tests
-and ``chip_smoke.py`` hold the kernels to them.
+and ``chip_smoke.py`` hold the kernels to them. K4 over a run table
+(:func:`fault_inject_runs_ref`) is :func:`fault_inject_ref` a run at a
+time, with the round trip of a float32 plane through
+``bitops.to_bits`` / ``bitops.fp16_bits_to_f32`` around it.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core import bitops
 from repro_torch.kernels.fault_inject.kernel import seed_words, static_threshold
 
 M32 = 0xFFFFFFFF
@@ -65,6 +69,37 @@ def fault_inject_ref(bits: torch.Tensor, *, seed: int, ber: float,
         z = ((elem * 32 + int(p)) & M32) ^ seed_mul
         mask |= (hash_u32(z) < threshold).to(torch.int64) << int(p)
     return _flip(bits, mask)
+
+
+def fault_inject_runs_ref(x: torch.Tensor, runs, *, seed: int, ber: float,
+                          positions: Sequence[int], col_off: int = 0,
+                          width: int = None, fold: bool = True,
+                          out: torch.Tensor = None) -> torch.Tensor:
+    """K4 over a run table: run ``(r0, k, row_off)`` holds rows ``r0`` up to
+    the next run's ``r0`` of ``x [R, C]`` and draws them with
+    :func:`fault_inject_ref` at ``(row_off, col_off, width)`` from
+    ``fold_seed(seed, k)`` (``fold``) or ``seed``. ``x`` is uint16 bits, or
+    float32 values taken to fp16 bits and back. The result goes to ``out``
+    (``x`` for in place) or a new plane."""
+    # lazy import: core.cim imports this module through ops
+    from repro_torch.core.cim import fold_seed
+    r, c = x.shape
+    width = c if width is None else int(width)
+    out = torch.empty_like(x) if out is None else out
+    bits_out = x.dtype == torch.uint16
+    # uint16 rows are copied through their int16 views (no uint16 copy on
+    # CUDA)
+    dst = out.view(torch.int16) if bits_out else out
+    ends = [int(r0) for r0, _, _ in runs[1:]] + [r]
+    for (r0, k, row_off), r1 in zip(runs, ends):
+        rows = x[r0:r1]
+        drawn = fault_inject_ref(
+            rows if bits_out else bitops.to_bits(rows),
+            seed=fold_seed(seed, k) if fold else seed, ber=ber,
+            positions=positions, at=(row_off, col_off, width))
+        dst[r0:r1] = drawn.view(torch.int16) if bits_out \
+            else bitops.fp16_bits_to_f32(drawn)
+    return out
 
 
 def fault_inject_batched_ref(bits: torch.Tensor, seeds, threshold, *,

@@ -337,7 +337,7 @@ BLOCK_SPLITS = (((None, "data", "model"), (4, 2)),
 
 def test_plain_block_draws_equal_the_whole_draw(monkeypatch):
     """Every block of a stacked plane, drawn at its offsets
-    (``fault.inject_block``: K4's plain version at ``at``), is bitwise its
+    (``fault.inject_block``: K4's plain version over its runs), is bitwise its
     region of the one-device draw. The counter chunk is cut to 2^10
     elements, so the [3 * 24, 40] plane takes 3 chunks whose boundaries
     fall inside the layers' row ranges. At zero offsets ``at`` is the
@@ -376,8 +376,8 @@ def test_plain_block_draws_equal_the_whole_draw(monkeypatch):
 @pytest.mark.gpu
 def test_cuda_k4_at_offsets_matches_plain_version():
     """K4 at offsets on the card: each block of a stacked plane (split on
-    D, on F, on both) bitwise its plain version, a launch a run of the
-    block's rows, ragged column blocks included."""
+    D, on F, on both) bitwise its plain version, one launch a block over
+    the table of its runs of rows, ragged column blocks included."""
     from repro_torch.distributed import sharding as shlib
     dev = _cuda()
     g = torch.Generator().manual_seed(4)
@@ -390,9 +390,7 @@ def test_cuda_k4_at_offsets_matches_plain_version():
             block = lay.cut(x).contiguous()
             before = t_kernel.launch_counts[t_kernel.K4]
             got = t_fault.inject_block(77, block.to(dev), lay, 0.01, "full")
-            if not lay.whole:
-                assert t_kernel.launch_counts[t_kernel.K4] == \
-                    before + len(t_fault.block_runs(lay))
+            assert t_kernel.launch_counts[t_kernel.K4] == before + 1
             want = t_fault.inject_block(77, block, lay, 0.01, "full")
             assert torch.equal(got.cpu().view(torch.int32),
                                want.view(torch.int32)), (spec, rank)

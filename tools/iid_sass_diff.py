@@ -6,10 +6,11 @@ instruction.
 
 OLD and NEW are two builds of one kernel library (``cim_read.cu`` or
 ``fault_inject.cu``), e.g. the libraries ``chip_smoke.py`` leaves under
-``build/repro_torch/`` in two checkouts. Kernels that gained a fault-process
-template parameter keep their old instantiation as kind 0 (``MODEL_IID``):
-the script pairs each old instantiation with the new one whose template
-arguments are the old ones plus a trailing 0, reads both with ``cuobjdump
+``build/repro_torch/`` in two checkouts. Each old instantiation is paired
+with the new one whose template arguments are the same, or the old ones
+plus a trailing kind 0 (``MODEL_IID``: a kernel that gained a fault-process
+parameter), or the old ones less a trailing ``false`` (K3's kernel, which
+lost its shard-offset flag); the script reads both with ``cuobjdump
 -sass``, drops addresses and encodings, and prints for each pair whether
 the instruction streams are equal, or how many lines differ. Exits non-zero
 when no pair was found.
@@ -51,16 +52,19 @@ def main(argv) -> int:
     old, new = _sass(argv[1]), _sass(argv[2])
     pairs = 0
     for (family, args), code in sorted(old.items()):
-        twin = new.get((family, args + "Li0E"))
+        kin = [args, args + "Li0E"] + ([args[:-4]] if args.endswith("Lb0E")
+                                      else [])
+        twin = next((new[(family, a)] for a in kin if (family, a) in new),
+                    None)
         if twin is None:
             continue
         pairs += 1
         diff = [d for d in difflib.unified_diff(code, twin, lineterm="", n=0)
                 if d[:1] in "+-" and d[:3] not in ("+++", "---")]
-        print(f"sass: {family}<{args}> (kind 0): {len(code)} vs {len(twin)} "
+        print(f"sass: {family}<{args}>: {len(code)} vs {len(twin)} "
               f"instructions, "
               + ("identical" if not diff else f"{len(diff)} lines differ"))
-    print(f"sass: {pairs} i.i.d. instantiations compared")
+    print(f"sass: {pairs} instantiations compared")
     return 0 if pairs else 1
 
 

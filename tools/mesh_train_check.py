@@ -67,6 +67,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parents[1]
 QWEN = "qwen3-moe-235b-a22b"
@@ -217,7 +218,8 @@ class _EventClock:
     def __init__(self, tag: str):
         self.tag, self.starts, self.ends = tag, [], []
 
-    def _event(self):
+    @staticmethod
+    def _event():
         import torch
         e = torch.cuda.Event(enable_timing=True)
         e.record()
@@ -235,6 +237,32 @@ class _EventClock:
     def ms(self) -> list:
         self.ends[-1].synchronize()
         return [a.elapsed_time(b) for a, b in zip(self.starts, self.ends)]
+
+
+class _ScheduleClock:
+    """CUDA events around each call of the Fig. 7 schedule that
+    ``run_training`` makes (``loop.make_fault_schedule`` wrapped)."""
+
+    def __init__(self, make):
+        self.make, self.pairs = make, []
+
+    def __call__(self, run):
+        corrupt = self.make(run)
+        if corrupt is None:
+            return None
+
+        def timed(*args, **kwargs):
+            start = _EventClock._event()
+            out = corrupt(*args, **kwargs)
+            self.pairs.append((start, _EventClock._event()))
+            return out
+        timed.rates = corrupt.rates
+        return timed
+
+    def ms(self) -> list:
+        if self.pairs:
+            self.pairs[-1][1].synchronize()
+        return [a.elapsed_time(b) for a, b in self.pairs]
 
 
 def _full_run(cfg, dev, mesh, rows, tag):
@@ -530,8 +558,10 @@ def part_d(dev, rank0, world, report, d_steps: int) -> bool:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     clock = _EventClock(f"d {world}x1")
+    schedule = _ScheduleClock(loop.make_fault_schedule)
     t0 = time.perf_counter()
-    with zero3.time_collectives() as timer:
+    with zero3.time_collectives() as timer, \
+            mock.patch.object(loop, "make_fault_schedule", schedule):
         res = loop.run_training(
             full, run, iter(MarkovLM(full.vocab_size, FULL_SEQ,
                                      D_ROWS * world, seed=0)),
@@ -539,6 +569,7 @@ def part_d(dev, rank0, world, report, d_steps: int) -> bool:
             sleep_injector=clock.start)
     wall = time.perf_counter() - t0
     ms = clock.ms()
+    schedule_ms = schedule.ms()
     coll = zero3.collective_ms(timer)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     blocks = sum(w.numel() * w.element_size()
@@ -564,6 +595,8 @@ def part_d(dev, rank0, world, report, d_steps: int) -> bool:
                 "param_block_gb_rank0": blocks / 1e9,
                 "gathered_gb_a_step": [g / 1e9 for g in gathered],
                 "collective_ms": coll, "collective_share": share,
+                "schedule_ms": schedule_ms,
+                "schedule_share": sum(schedule_ms) / total,
                 "wall_s_with_init": wall, "ok": finite}
         report.append(line)
         print(json.dumps(line), flush=True)
