@@ -9,8 +9,9 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    source, started together: K1 (cim_read_matmul_one4n) and K2
    (cim_read_matmul_raw) from cim_read.cu, K3 (fault_inject_batched) and K4
    (fault_inject, over a run table) from fault_inject.cu, K5 (bfp_matmul)
-   from bfp_matmul.cu; read K3's and K4's hash bodies from the SASS
-   (cuobjdump) and check every hash multiply is an IMAD, which the bound of
+   from bfp_matmul.cu; read K3's (i.i.d. and burst) and K4's hash bodies
+   from the SASS (cuobjdump) and check every hash multiply is an IMAD, which
+   the bound of
    phase 7 counts on the FMA pipe apart from the ALU work; read K5's tile
    instantiations' SASS and fail unless each holds TF32 HMMAs (tensor-core
    MMAs), and print every K5 instantiation's registers, failing on a spill;
@@ -62,10 +63,13 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    specials (signed zeros, subnormals, ties, values that round to inf,
    infinities, NaN payloads) at BER 1e-3, in place and not, bitwise its
    plain version; a plane of 2^27 + 1 elements must raise; K3 under
-   each fault process of MODEL_SPECS on the one4n unembed's mantissa plane
-   (uint16) and its flattened codeword plane (uint32, col_div = S*W), T = 4,
-   bitwise against the plain version, its flips a strict subset of the
-   i.i.d. flips at the same seeds;
+   each fault process of MODEL_SPECS and Fig. 6's burst on the one4n
+   unembed's mantissa plane (uint16) and its flattened codeword plane
+   (uint32, col_div = S*W), T = 4, bitwise against the plain version, its
+   flips a strict subset of the i.i.d. flips at the same seeds; burst at
+   rate 1 and 0 on the mantissa plane and on each axis on the ragged plane
+   (length 5, col_div 3: units across the burst kernel's tile edges),
+   bitwise; each call one K3 launch;
 5. Fig. 6 on full-width olmo-1b: characterize_protection with arms none,
    per_weight and one4n (CIMConfig(n_group=8, index=2)), BERs 1e-5..1e-3,
    4 trials; eval is greedy-token agreement with the fault-free deployment
@@ -79,6 +83,9 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    device kernels and their share of the arm's wall time; the one4n arm
    again with fault_models=("iid", "burst:rate=0.5,length=4") (K3 count
    checked): its iid arm's rows equal the default plan's value for value;
+   the burst arm's 1e-3 draws on the same stores (the embed's and the
+   unembed's mantissa and flattened codeword planes, one K3 launch a
+   plane) bitwise the plain injection;
 6. Fig. 2 on the CNN (seeded init_cnn, GaussianBlobs, 1024 images): all four
    fields, BERs 1e-6..1e-2, 8 trials, on the card (K3 count checked) and on
    the CPU; faulted leaves bitwise equal, accuracies within 1/1024 per cell;
@@ -91,7 +98,8 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    performs (a burst read draws only in its hit units) and their bound;
    K3 at the Fig. 6 unembed mantissa plane
    ([2048, 50304] uint16, T = 4, 10 positions; and under each fault
-   process, with its draws and bound) and K4 on the same plane's
+   process and Fig. 6's burst, there and on the flattened codeword plane,
+   with its draws and bound) and K4 on the same plane's
    16 positions, and on float32 weights of its shape through the fused
    round trip (bound by the busier of its draws and 8 bytes an element)
    (no single PyTorch call computes their function), bound by
@@ -513,34 +521,44 @@ def _sass_hash_bodies(lib_path, mangled: str) -> list:
 
 
 # the instantiations whose hash bodies phase_sass reads: K3's i.i.d. one
-# <uint16, 8, MODEL_IID> (the burst and correlated ones hash their units
-# beside the draws) and K4's <uint16, 8> and <float, 8>
-SASS_KERNELS = {"K3 (uint16 x 8)": "fault_inject_batched_kernelItLi8ELi0EE",
-                "K4 (uint16 x 8)": "fault_inject_runs_kernelItLi8EE",
-                "K4 (float32 x 8)": "fault_inject_runs_kernelIfLi8EE"}
+# <uint16, 8, MODEL_IID> (the correlated one hashes its column groups
+# beside the draws), K3's burst tile kernel <uint16, 8> (its unit hashes
+# and its draws of 8, 4, 2 and 1 elements) and K4's <uint16, 8> and
+# <float, 8>. Each maps to (mangled name, one draw a body: exactly two
+# IMADs a body, else the draws are counted by unsigned compares; print the
+# census of the widest body, else of the most common one)
+SASS_KERNELS = {
+    "K3 (uint16 x 8)": ("fault_inject_batched_kernelItLi8ELi0EE", True, False),
+    "K3 burst (uint16 x 8)": ("fault_inject_burst_tile_kernelItLi8EE", False,
+                              True),
+    "K4 (uint16 x 8)": ("fault_inject_runs_kernelItLi8EE", False, False),
+    "K4 (float32 x 8)": ("fault_inject_runs_kernelIfLi8EE", False, False)}
 
 
 def phase_sass(lib_path) -> None:
-    """Check the premise of K3/K4's bound: in K3's uint16 kernel (the Fig. 6
-    timing shape) and K4's uint16 and float32 kernels every hash multiply
-    is an IMAD, i.e. issues on the FMA pipe beside the ALU work, two a
-    draw; print the compiled per-draw census (K4 draws 8 elements between
-    two branches)."""
+    """Check the premise of K3/K4's bound: in K3's uint16 kernels (the Fig. 6
+    timing shape: i.i.d. and burst) and K4's uint16 and float32 kernels
+    every hash multiply is an IMAD, i.e. issues on the FMA pipe beside the
+    ALU work, two a draw; print the compiled per-draw census (K4 and the
+    burst kernel draw up to 8 elements between two branches; the burst
+    kernel's line names its body of 8 draws, beside its unit hashes and
+    its groups of 4, 2 and 1)."""
     from collections import Counter
-    for name, mangled in SASS_KERNELS.items():
+    for name, (mangled, one_draw, report_widest) in SASS_KERNELS.items():
         bodies = _sass_hash_bodies(lib_path, mangled)
         _check(len(bodies) > 0, f"{name} SASS: no hash body found")
-        census = Counter()
+        census, widest = Counter(), (0, None)
         for body in bodies:
             muls = [b for b in body if any(c in b for c in HASH_MULS)]
-            if name.startswith("K3"):       # one draw a body
+            if one_draw:
                 draws = 1
                 ok = len(muls) == 2 and \
                     all(b.startswith("IMAD ") for b in muls)
             else:
-                # K4 draws 8 elements a body and may keep a constant in a
-                # register (an IMAD.MOV); its draws are its unsigned
-                # compares, and every line holding a constant an IMAD
+                # K4 and the burst kernel draw up to 8 elements a body and
+                # may keep a constant in a register (an IMAD.MOV); their
+                # draws are their unsigned compares, and every line
+                # holding a constant an IMAD
                 draws = sum(b.startswith("ISETP") and ".U32" in b
                             for b in body)
                 ok = all(b.startswith("IMAD") for b in muls)
@@ -548,12 +566,16 @@ def phase_sass(lib_path) -> None:
             if not draws:
                 continue
             ops = [b.split()[0].split(".")[0] for b in body]
-            census[(round(sum(o in ALU_OPCODES for o in ops) / draws, 2),
-                    round(sum(o == "IMAD" for o in ops) / draws, 2),
-                    round(sum(o not in ALU_OPCODES and o != "IMAD"
-                              for o in ops) / draws, 2))] += 1
+            figures = (round(sum(o in ALU_OPCODES for o in ops) / draws, 2),
+                       round(sum(o == "IMAD" for o in ops) / draws, 2),
+                       round(sum(o not in ALU_OPCODES and o != "IMAD"
+                                 for o in ops) / draws, 2))
+            census[figures] += 1
+            widest = max(widest, (draws, figures))
         _check(bool(census), f"{name} SASS: no hash body found")
         (alu, imad, other), n = census.most_common(1)[0]
+        if report_widest:
+            (alu, imad, other), n = widest[1], census[widest[1]]
         print(f"phase 1: {name} SASS: {len(bodies)} hash bodies, {n} of "
               f"them with {alu} ALU-pipe, {imad} IMAD and {other} other "
               f"instructions a draw (bound counts {ALU_OPS_PER_DRAW} ALU, "
@@ -1742,18 +1764,25 @@ def phase_fault_inject(dev, checks: dict, fi_kernel) -> dict:
         ops.fault_inject_bits_batched(ragged, seeds, 0, positions=range(16)),
         ragged[None].expand(4, -1, -1))), "threshold 0 flipped a bit")
 
-    # K3 under each fault process: the Fig. 6 unembed mantissa plane and the
-    # flattened codeword plane, whose column unit is S*W words
+    # K3 under each fault process and Fig. 6's burst: the Fig. 6 unembed
+    # mantissa plane and the flattened codeword plane, whose column unit is
+    # S*W words; one launch a call
     one4n = checks["cim_read_matmul_one4n"]["store"]
     cw = one4n.codewords
-    for spec in MODEL_SPECS:
+
+    def k3_once(plane, pos, t, spec, col_div):
+        before = fi_kernel.launch_counts[fi_kernel.K3]
+        got = ops.fault_inject_bits_batched(plane, seeds, t, positions=pos,
+                                            model=spec, col_div=col_div)
+        n = fi_kernel.launch_counts[fi_kernel.K3] - before
+        _check(n == 1, f"K3 under {spec}: {n} launches for one call")
+        return got
+    for spec in MODEL_SPECS + FIG6_MODELS[1:]:
         for name, plane, pos, col_div in (
                 ("one4n man", one4n.man, range(10), 1),
                 ("one4n codewords", _cw2d(one4n), range(32),
                  cw.shape[2] * cw.shape[3])):
-            got = ops.fault_inject_bits_batched(plane, seeds, thr,
-                                                positions=pos, model=spec,
-                                                col_div=col_div)
+            got = k3_once(plane, pos, thr, spec, col_div)
             want = _plain_k3(plane, seeds, thr, pos, spec, col_div)
             torch.cuda.synchronize()
             err["K3"] = max(err["K3"], _word_err(got, want))
@@ -1776,6 +1805,31 @@ def phase_fault_inject(dev, checks: dict, fi_kernel) -> dict:
                   f"{tuple(plane.shape)} (col_div {col_div}) T=4: bitwise "
                   f"equal to plain; {n_model} of the i.i.d. {n_iid} bits "
                   f"flipped, a subset")
+    # the burst kernel's edges: every unit live (rate 1), none (rate 0),
+    # and the ragged plane, whose units straddle its BURST_ROWS-row tiles
+    # (length 5; col_div 3: 15-word column units), on each axis
+    edges = [("one4n man", one4n.man, range(10), thr,
+              f"burst:rate={rate},length=4,axis={axis}", 1)
+             for rate, axis in ((1.0, "col"), (0.0, "bank"))]
+    edges += [("ragged [1000, 777]", ragged, range(16), t,
+               f"burst:rate=0.5,length=5,axis={axis}", 3)
+              for axis in ("row", "col", "bank") for t in (thr, 0xFFFFFFFF)]
+    for name, plane, pos, t, spec, col_div in edges:
+        got = k3_once(plane, pos, t, spec, col_div)
+        want = _plain_k3(plane, seeds, t, pos, spec, col_div)
+        torch.cuda.synchronize()
+        err["K3"] = max(err["K3"], _word_err(got, want))
+        _check(torch.equal(got, want), f"K3 under {spec} != plain on the "
+               f"{name} plane (col_div {col_div}, threshold {t:#x})")
+        flips = _flipped_bits(got, plane)
+        _check(flips > 0 or "rate=0.0" in spec,
+               f"K3 under {spec} on {name} flipped nothing")
+        _check(flips == 0 or "rate=0.0" not in spec,
+               f"K3 under {spec} on {name} flipped {flips} bits")
+        print(f"phase 4: K3 under {spec} on the {name} plane (col_div "
+              f"{col_div}, threshold {t:#x}) T=4: bitwise equal to plain, "
+              f"{flips} bits flipped")
+        del got, want
 
     # K4's main path: the fault_inject_fp16 entry point on the unembed
     w = checks["unembed_weights"]
@@ -1945,6 +1999,7 @@ def phase_fig6(dev, model, fi_kernel) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import cim, resilience
+    from repro_torch.core import faultmodels as fm
     from repro_torch.core import sweep as sweep_lib
     params, agreement, cim_cfg, seeds = _fig6_setup(dev, model)
     res, launches = {}, {}
@@ -2062,6 +2117,38 @@ def phase_fig6(dev, model, fi_kernel) -> dict:
               f" redone with the plain injection: stores, ECC counts {counts} "
               f"and agreement {accs} identical")
         del fast, slow
+
+    # the burst arm's draws at 1e-3 on these same stores: the embed's and the
+    # unembed's mantissa and flattened codeword planes (col_div S*W) through
+    # the sweep's entry, one K3 launch a plane, bitwise the plain injection
+    b = len(FIG6_BERS) - 1
+    thr = sweep_lib.fi_ops.ber_to_threshold(FIG6_BERS[b])
+    burst = fm.parse_fault_model(FIG6_MODELS[1])
+    fi_kernel.reset_launch_counts()
+    fast = sweep_lib.cim_inject_pytree_batched(stores, mseeds[1, b], thr,
+                                               model=burst)
+    torch.cuda.synchronize()
+    n = fi_kernel.launch_counts[fi_kernel.K3]
+    _check(n == 2 * FIG6_PLANES["one4n"], f"Fig. 6 {FIG6_MODELS[1]}: {n} K3 "
+           f"launches for 2 stores x {FIG6_PLANES['one4n']} planes")
+    with mock.patch.object(sweep_lib, "_inject", plain):
+        slow = sweep_lib.cim_inject_pytree_batched(stores, mseeds[1, b], thr,
+                                                   model=burst)
+    for path in ("embed", "unembed"):
+        for name in ("man", "codewords"):
+            got = getattr(fast[path], name)
+            _check(torch.equal(got, getattr(slow[path], name)),
+                   f"Fig. 6 {FIG6_MODELS[1]} {path}.{name}: K3 != plain")
+            flips = _flipped_bits(got, getattr(stores[path], name))
+            _check(flips > 0, f"Fig. 6 {FIG6_MODELS[1]} {path}.{name}: "
+                   f"nothing flipped")
+            print(f"phase 5: fig6 one4n {FIG6_MODELS[1]} ber "
+                  f"{FIG6_BERS[b]:.0e} {path}.{name} {tuple(got.shape)} "
+                  f"{got.dtype}: bitwise equal to the plain injection, "
+                  f"{flips} bits flipped")
+    print(f"phase 5: fig6 one4n {FIG6_MODELS[1]}: {n} K3 launches, one a "
+          f"plane")
+    del fast, slow
     return {"launches": sum(launches.values()), "res": res}
 
 
@@ -2210,8 +2297,9 @@ def phase_fi_times(dev, checks: dict, k3_launches: int, fi: dict,
                      "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                      "library_ms": None, "bytes": nbytes, "hashes": hashes})
         if t > 1:
-            rows[-1]["models"] = _k3_model_times(man, seeds, thr, pos, nbytes,
-                                                 hashes, ms, card)
+            rows[-1]["models"] = _k3_model_times(
+                checks["cim_read_matmul_one4n"]["store"], seeds, thr, ms,
+                card)
         else:
             rows[-1]["fp32"] = _k4_fp32_times(dev, card)
         print(f"phase 7: {name}: {ms:.4f} ms at [{K}, {J}] uint16, T={t}, "
@@ -2251,36 +2339,52 @@ def _k4_fp32_times(dev, card) -> dict:
     return {"shape": [K, J], **fig, "library_ms": None}
 
 
-def _k3_model_times(man, seeds, thr, positions, nbytes, hashes, iid_ms,
-                    card) -> dict:
-    """K3 on the unembed mantissa plane under each fault process: its time
-    beside the i.i.d. one, the draws it performs (burst: only in hit units,
-    counted per trial from the plane thresholds) and their bound."""
+def _k3_model_times(store, seeds, thr, iid_ms, card) -> dict:
+    """K3 under each fault process on the unembed mantissa plane, and under
+    Fig. 6's burst there and on the flattened codeword plane (32 positions,
+    col_div S*W): its time beside the i.i.d. one and its plain version's,
+    the draws it performs (burst: only in hit units, counted per trial from
+    the plane thresholds) and their bound (the busier of the ALU pipe and
+    the bytes)."""
     import torch
     from repro_torch.core import faultmodels as fm
     from repro_torch.kernels.fault_inject import ops
+    cw = store.codewords
+    cases = [(spec, store.man, range(10), store.man.shape, 1)
+             for spec in MODEL_SPECS + FIG6_MODELS[1:]]
+    cases.append((f"{FIG6_MODELS[1]} codewords", _cw2d(store), range(32),
+                  cw.shape, cw.shape[2] * cw.shape[3]))
     out = {}
-    elem = torch.arange(man.numel(), dtype=torch.int64,
-                        device=man.device).reshape(man.shape)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    for spec in MODEL_SPECS:
-        model = fm.parse_fault_model(spec)
+    for key, plane, pos, shape, col_div in cases:
+        model = fm.parse_fault_model(key.split()[0])
         ms = _time_ms(lambda: ops.fault_inject_bits_batched(
-            man, seeds, thr, positions=positions, model=model))
+            plane, seeds, thr, positions=pos, model=model, col_div=col_div))
+        plain_ms = _time_ms(lambda: _plain_k3(plane, seeds, thr, pos, model,
+                                              col_div), reps=1, inner=1)
+        hashes = plane.numel() * len(seeds) * len(pos)
         draws = hashes
         if model.kind == "burst":
+            elem = torch.arange(plane.numel(), dtype=torch.int64,
+                                device=plane.device).reshape(plane.shape)
             draws = sum(int((fm.plane_thresholds(model, thr, elem, int(sd),
-                                                 man.shape) != 0).sum())
-                        for sd in seeds) * len(positions)
+                                                 shape) != 0).sum())
+                        for sd in seeds) * len(pos)
+            del elem
+        nbytes = plane.numel() * plane.element_size() * (1 + len(seeds))
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         alu_ms = draws * ALU_OPS_PER_DRAW / INT32_OPS * 1e3
-        out[spec] = {"ms": ms, "draws": draws,
-                     "bound_ms": max(bytes_ms, alu_ms),
-                     "bound_by": "bytes" if bytes_ms >= alu_ms
-                     else "operations"}
-        print(f"phase 7: fault_inject_batched under {spec}: {ms:.4f} ms "
-              f"({ms / iid_ms:.3f}x the i.i.d. call), {draws / 1e9:.3f} G "
-              f"draws ({draws / hashes:.3f}x), bound "
-              f"{max(bytes_ms, alu_ms):.4f} ms on {card}")
+        out[key] = {"ms": ms, "plain_ms": plain_ms, "draws": draws,
+                    "shape": list(plane.shape),
+                    "bound_ms": max(bytes_ms, alu_ms),
+                    "bound_by": "bytes" if bytes_ms >= alu_ms
+                    else "operations"}
+        print(f"phase 7: fault_inject_batched under {key} "
+              f"{tuple(plane.shape)} {plane.dtype}: {ms:.4f} ms "
+              f"({ms / iid_ms:.3f}x the i.i.d. call on the mantissa plane), "
+              f"plain {plain_ms:.2f} ms, "
+              f"{draws / 1e9:.3f} G draws ({draws / hashes:.3f}x), bound "
+              f"{max(bytes_ms, alu_ms):.4f} ms "
+              f"({max(bytes_ms, alu_ms) / ms:.0%} of it) on {card}")
     return out
 
 

@@ -1,7 +1,8 @@
 // Counter-PRNG fault injection into a stored-bit plane, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of repro/kernels/fault_inject/kernel.py:
-//   fault_inject_batched_kernel <- fault_inject_batched_pallas (K3): T
+//   fault_inject_batched_kernel and, under a burst process,
+//   fault_inject_burst_tile_kernel <- fault_inject_batched_pallas (K3): T
 //       faulted copies [T, R, C] of a uint8 / uint16 / uint32 plane [R, C],
 //       one per trial seed, with a runtime threshold and runtime positions;
 //   fault_inject_runs_kernel <- fault_inject_pallas (K4), whose seed and
@@ -17,8 +18,11 @@
 // (flip.cuh's model_threshold: its row e / C, its macro-column unit
 // (e % C) / col_div and one hash keyed by the trial seed), as the
 // reference's _fault_kernel_batched compiles it; the i.i.d. instantiation
-// keeps the code above, and burst takes fault_inject_burst_kernel, which
-// draws for its live elements alone.
+// keeps the code above. Under burst the unit of element (r, c) is r / m_len
+// (row axis), c / (col_div*m_len) (col) or (r / m_len)*0x10001 +
+// c / (col_div*m_len) (bank, wrapping); a live unit (its hash below m_thr)
+// keeps the threshold, a dead one copies. fault_inject_burst_tile_kernel
+// draws for the live elements alone (design below, at the kernel).
 // K4 over a run table (fault_inject_runs): the plane [rows, cols] is a leaf
 // or a block of a leaf whose counter plane is `width` words wide and cut
 // into counter chunks of at most 2^27 elements, each drawn from its own
@@ -43,6 +47,10 @@
 // only the span [lowest, highest] set lane. A plane whose size or pointers
 // do not allow 16-byte access takes the same kernel at one element a thread.
 // Simple by design: no shared memory, grid-stride over the chunks.
+// The burst pass has the same bound per draw it performs: only its live
+// units' elements draw (rate 0.25 on that plane: 1.03 G draws, 0.615 ms of
+// ALU issue against the same 0.31 ms of bytes). Its design: shared-memory
+// tiles whose live elements every thread of the block draws, at the kernel.
 // K4 has the same bound per draw (a 4x1 block [40 x 1024, 12800] of
 // granite-3-8b's w_gate at 10 mantissa positions: 5.243 G draws, 3.13 ms of
 // ALU issue); a float32 plane moves 8 bytes an element (1.25 ms at that
@@ -88,28 +96,24 @@ struct Model {
   int axis;
 };
 
-// The process key of each element of the chunk at e0: its burst unit, or
-// its correlated column group, from its row e / width and its macro-column
-// unit (e % width) / col_div.
-template <int VEC, int KIND>
+// The correlated column group of each element of the chunk at e0, from its
+// macro-column unit (e % width) / col_div.
+template <int VEC>
 __device__ __forceinline__ void chunk_keys(uint32_t (&key)[VEC], uint32_t e0, const Model& md) {
   uint32_t row = e0 / md.width, col = e0 - row * md.width;
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
-    const uint32_t cu = col / md.col_div;
-    key[k] = KIND == MODEL_BURST ? burst_unit(md.axis, row, cu, md.m_len) : cu / md.m_len;
-    if (++col == md.width) { col = 0u; ++row; }
+    key[k] = col / md.col_div / md.m_len;
+    if (++col == md.width) col = 0u;
   }
 }
 
 // KIND picks the threshold code at compile time: MODEL_IID (drift too, its
 // threshold pre-scaled on the host) is the plain kernel, unchanged;
-// MODEL_BURST and MODEL_CORRELATED scale the threshold per element. The
-// unit or column group of each element of a chunk is found once a chunk;
-// its hash (keyed by the trial seed) once a trial, and only where it
-// differs from the previous element's. Burst takes this kernel on the row
-// axis only, where a warp's 32 chunks lie in one row and so in one unit:
-// its warps draw in full or not at all.
+// MODEL_CORRELATED scales the threshold per element. The column group of
+// each element of a chunk is found once a chunk; its hash (keyed by the
+// trial seed) once a trial, and only where it differs from the previous
+// element's. Burst takes fault_inject_burst_tile_kernel below.
 template <typename W, int VEC, int KIND>
 __global__ void __launch_bounds__(NT)
 fault_inject_batched_kernel(const W* __restrict__ bits, W* __restrict__ out,
@@ -123,8 +127,8 @@ fault_inject_batched_kernel(const W* __restrict__ bits, W* __restrict__ out,
        c += gridDim.x * NT) {
     const uint32_t e0 = c * VEC;
     const Pack<W, VEC> in = *reinterpret_cast<const Pack<W, VEC>*>(bits + e0);
-    uint32_t key[KIND == MODEL_IID ? 1 : VEC];   // burst unit / column group
-    if constexpr (KIND != MODEL_IID) chunk_keys<VEC, KIND>(key, e0, md);
+    uint32_t key[KIND == MODEL_IID ? 1 : VEC];   // column group
+    if constexpr (KIND != MODEL_IID) chunk_keys<VEC>(key, e0, md);
     for (int t = 0; t < n_trials; ++t) {
       const uint32_t seed = __ldg(seeds + t);
       const uint32_t seed_mul = seed * GOLD;
@@ -136,8 +140,7 @@ fault_inject_batched_kernel(const W* __restrict__ bits, W* __restrict__ out,
         uint32_t thr = threshold;
         if constexpr (KIND != MODEL_IID) {
           if (k == 0 || key[k] != key[k - 1]) h = hash_u32(key[k] ^ useed);
-          thr = KIND == MODEL_BURST ? (h < md.m_thr ? threshold : 0u)
-                                    : correlated_threshold(h, md.m_thr, threshold);
+          thr = correlated_threshold(h, md.m_thr, threshold);
         }
         const uint32_t base = (e0 + k) * 32u;
         uint32_t mask = 0u;
@@ -155,102 +158,244 @@ fault_inject_batched_kernel(const W* __restrict__ bits, W* __restrict__ out,
   }
 }
 
-// Position of the r-th (from 0) set bit of v; r < popc(v).
-__device__ __forceinline__ int nth_set_bit(uint32_t v, int r) {
-  int pos = 0;
-#pragma unroll
-  for (int w = 16; w; w >>= 1) {
-    const int c = __popc(v & ((1u << w) - 1u));   // set bits among the low w
-    if (r >= c) {
-      r -= c;
-      v >>= w;
-      pos += w;
-    }
-  }
-  return pos;
+// ---- K3 under a burst process: tiles in shared memory --------------------
+//
+// A burst unit draws in full or not at all, so only the elements of hit
+// units draw. One kernel takes the three axes. A block walks tiles of
+// BURST_ROWS x burst_cols<W>() words of the [rows, cols] plane, block b the
+// tiles b, b + gridDim.x, ... (the grid is what is resident), so that each
+// block meets many units. A tile's words are copied once into shared
+// memory (16-byte cp.async copies, neighbouring threads on neighbouring
+// addresses, each thread its own chunks) and each trial's copy is stored
+// once from them, XORed with a mask tile that the draws fill and the store
+// clears again. A band is the tile's rows of one row unit (the whole tile
+// on the col axis); the unit indices cost two divisions a tile and one a
+// tile column. For each trial t the block
+//   (a) lists each band's live columns in order, warp w the bands w,
+//       w + 4, ...: a lane hashes its column's unit, 8 column chunks at
+//       once, and the ballots place the live ones (on the row axis the
+//       band's one hash says all or none, its list is every column);
+//   (b) deals the live elements, band by band and row-major in a band, to
+//       the threads in turn: thread j draws elements j, j + BURST_NT, ...,
+//       each decoded from its band's first element by a multiply (exact at
+//       these sizes) and the band's list, 8 at once with the position loop
+//       outside their draws; a warp's threads run the same groups (8, then
+//       4, 2 and 1) for the most one of them holds, a missing last element
+//       drawn for nothing, so no warp diverges on them. Nonzero masks go
+//       into the mask tile: an element is one thread's, so no atomics;
+//   (c) stores copy t, the words XOR their masks, and clears the masks.
+// Two barriers a trial. An element's mask depends on (seed, e, p) alone,
+// never on the tile order.
+constexpr int BURST_ROWS = 16;    // rows a tile
+constexpr int BURST_NT = 128;     // threads a block
+
+template <typename W>
+__host__ __device__ constexpr int burst_cols() {   // words a tile row
+  return sizeof(W) == 4 ? 128 : 256;
 }
 
-constexpr int BURST_U = 2;   // live elements a lane draws at once
+// The plane and its process as the burst kernel takes them: unit lengths
+// clamped to the plane (m_row = min(m_len, rows), cd = min(col_div * m_len,
+// cols): a longer unit holds the whole plane either way), and the tile
+// grid, tiles_c tiles a row of tiles.
+struct BurstTiles {
+  uint32_t rows, cols, m_row, cd, m_thr, tiles_c, n_tiles;
+  int axis;
+};
 
-// Burst on the col and bank axes: a unit draws in full or not at all, and a
-// warp's 32 chunks hold both kinds (a column unit of 4 words is half a
-// 16-byte uint16 chunk), so per-thread draws would keep the warp busy on
-// every element of any live chunk. Here each lane stores its chunk
-// unflipped, the warp scans its lanes' live-element counts, and lane t draws
-// the warp's live elements t, t + 32, ..., BURST_U of them at once, storing
-// each flipped over its copy (after a __syncwarp, which orders the warp's
-// stores). A warp draws as often as it has live elements. The chunk loop is
-// warp-uniform, so every lane takes part in the shuffles.
-template <typename W, int VEC>
-__global__ void __launch_bounds__(NT)
-fault_inject_burst_kernel(const W* __restrict__ bits, W* __restrict__ out,
-                          const uint32_t* __restrict__ seeds, int n_trials,
-                          uint32_t n, uint32_t lanes, uint32_t threshold,
-                          Model md) {
-  constexpr unsigned FULL = 0xFFFFFFFFu;
-  const uint32_t n_chunks = n / VEC;
-  const int lo = __ffs(lanes) - 1, hi = 31 - __clz(lanes);
-  const int lane = threadIdx.x & 31;
-  for (uint32_t w0 = blockIdx.x * NT + (threadIdx.x & ~31u); w0 < n_chunks;
-       w0 += gridDim.x * NT) {
-    const uint32_t c = w0 + lane, e0 = c * VEC;
-    const bool valid = c < n_chunks;
-    Pack<W, VEC> in{};
-    uint32_t key[VEC];
-    if (valid) {
-      in = *reinterpret_cast<const Pack<W, VEC>*>(bits + e0);
-      chunk_keys<VEC, MODEL_BURST>(key, e0, md);
+template <typename W>
+struct __align__(16) BurstSmem {
+  static constexpr int TILE = BURST_ROWS * burst_cols<W>();
+  W words[TILE];                         // the tile, as read
+  W mask[TILE];                          // the trial's flip masks
+  uint8_t list[TILE];                    // live columns, a list a band
+  uint8_t ucol[burst_cols<W>()];         // column -> its unit in the tile
+  uint32_t rs[BURST_ROWS + 1];           // band b: rows rs[b] .. rs[b+1]-1
+  uint32_t n[BURST_ROWS], mag[BURST_ROWS];   // its live columns, 2^31 / n
+};
+
+// 16 bytes from global to shared memory, not through registers
+// (cp.async), and the wait for this thread's copies.
+__device__ __forceinline__ void copy16_async(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src));
+}
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The band that deal index i falls in, and what decodes i there: its
+// first and end deal indices, live columns, first row and list.
+struct Band {
+  uint32_t b, off, end, mag, n, rs, list;
+};
+
+template <typename W>
+__device__ __forceinline__ void enter_band(Band& bd, const BurstSmem<W>& sm, uint32_t b,
+                                           uint32_t off, bool bank) {
+  bd.b = b;
+  bd.off = off;
+  bd.n = sm.n[b];
+  bd.mag = sm.mag[b];
+  bd.rs = sm.rs[b];
+  bd.end = off + (sm.rs[b + 1] - bd.rs) * bd.n;
+  bd.list = bank ? b * burst_cols<W>() : 0u;
+}
+
+// U deal indices from i on (i, i + BURST_NT, ...), those below `total`
+// live elements: decode, draw with the position loop outside the U draws,
+// write the nonzero masks. A slot past `total` draws for nothing.
+template <int U, typename W>
+__device__ __forceinline__ void draw_live(uint32_t& i, uint32_t total, Band& bd,
+                                          BurstSmem<W>& sm, bool bank, uint32_t base,
+                                          uint32_t cols, uint32_t lanes, int lo, int hi,
+                                          uint32_t threshold, uint32_t seed_mul) {
+  constexpr uint32_t TC = burst_cols<W>(), NONE = BurstSmem<W>::TILE;
+  uint32_t ctr32[U], at[U], mask[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    at[u] = NONE;
+    ctr32[u] = 0u;
+    mask[u] = 0u;
+    if (i < total) {
+      while (i >= bd.end) enter_band(bd, sm, bd.b + 1, bd.end, bank);
+      const uint32_t j = i - bd.off;           // j < 2^13, n <= 256: exact
+      const uint32_t q = __umulhi(j << 1, bd.mag);
+      const uint32_t col = sm.list[bd.list + j - q * bd.n];
+      const uint32_t row = bd.rs + q;
+      at[u] = row * TC + col;
+      ctr32[u] = (base + row * cols + col) * 32u;
     }
+    i += BURST_NT;
+  }
+  for (int p = lo; p <= hi; ++p) {
+    if (!((lanes >> p) & 1u)) continue;
+    const uint32_t bit = 1u << p;
+#pragma unroll
+    for (int u = 0; u < U; ++u)   // ctr32 has its low 5 bits clear: | is +
+      if (hash_u32((ctr32[u] | (uint32_t)p) ^ seed_mul) < threshold) mask[u] |= bit;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (mask[u] && at[u] < NONE) sm.mask[at[u]] = static_cast<W>(mask[u]);
+}
+
+// Eight blocks an SM at 16-byte chunks (the registers capped to fit them).
+template <typename W, int VEC>
+__global__ void __launch_bounds__(BURST_NT, VEC > 1 ? 8 : 1)
+fault_inject_burst_tile_kernel(const W* __restrict__ bits, W* __restrict__ out,
+                               const uint32_t* __restrict__ seeds, int n_trials,
+                               uint32_t lanes, uint32_t threshold, BurstTiles bt) {
+  constexpr uint32_t TR = BURST_ROWS, TC = burst_cols<W>();
+  constexpr uint32_t CPR = TC / VEC, CPT = TR * CPR / BURST_NT;   // chunks a row, a thread
+  constexpr unsigned FULL = 0xFFFFFFFFu;
+  __shared__ BurstSmem<W> sm;
+  const uint32_t tid = threadIdx.x, lane = tid & 31u, warp = tid / 32u;
+  const bool row_axis = bt.axis == AXIS_ROW, col_axis = bt.axis == AXIS_COL;
+  const bool bank = bt.axis == AXIS_BANK;
+  const int lo = __ffs(lanes) - 1, hi = 31 - __clz(lanes);
+  const size_t n = (size_t)bt.rows * bt.cols;
+  for (uint32_t k = tid; k < TR * TC; k += BURST_NT) sm.mask[k] = 0;
+  if (row_axis)
+    for (uint32_t c = tid; c < TC; c += BURST_NT) sm.list[c] = (uint8_t)c;
+  for (uint32_t tile = blockIdx.x; tile < bt.n_tiles; tile += gridDim.x) {
+    const uint32_t tr = tile / bt.tiles_c, tc = tile - tr * bt.tiles_c;
+    const uint32_t r0 = tr * TR, c0 = tc * TC;
+    const uint32_t trv = min(TR, bt.rows - r0), tcv = min(TC, bt.cols - c0);
+    const uint32_t base = r0 * bt.cols + c0;
+    // the thread's chunks tid + k * BURST_NT, whole where they lie in the
+    // plane (VEC divides cols): into its own slots, read back by itself at
+    // the first store (the last store of the tile before has read them)
+#pragma unroll
+    for (uint32_t k = 0; k < CPT; ++k) {
+      const uint32_t ch = tid + k * BURST_NT, row = ch / CPR, col = ch % CPR * VEC;
+      if (row < trv && col < tcv) {
+        if constexpr (VEC > 1)
+          copy16_async(sm.words + ch * VEC, bits + base + row * bt.cols + col);
+        else
+          sm.words[ch] = bits[base + row * bt.cols + col];
+      }
+    }
+    // bands: the tile's rows of each row unit (one band on the col axis)
+    uint32_t ru_lo = 0u, nb = 1u;
+    if (!col_axis) {
+      ru_lo = r0 / bt.m_row;
+      nb = (r0 + trv - 1u) / bt.m_row - ru_lo + 1u;
+    }
+    if (tid <= nb)
+      sm.rs[tid] = tid == 0u ? 0u : tid == nb ? trv : (ru_lo + tid) * bt.m_row - r0;
+    // column units: each column's, less the tile's first (none on the row axis)
+    const uint32_t cu_lo = row_axis ? 0u : c0 / bt.cd;
+    if (!row_axis)
+      for (uint32_t c = tid; c < tcv; c += BURST_NT)
+        sm.ucol[c] = (uint8_t)((c0 + c) / bt.cd - cu_lo);
+    __syncthreads();
     for (int t = 0; t < n_trials; ++t) {
       const uint32_t seed = __ldg(seeds + t);
       const uint32_t seed_mul = seed * GOLD, useed = unit_seed_mul(seed);
-      W* out_t = out + (size_t)t * n;
-      uint32_t live = 0u, h = 0u;
-      if (valid && threshold != 0u) {
+      // (a) each band's live columns, in order: warp w the bands w, w + 4, ...
+      for (uint32_t b = warp; b < nb; b += BURST_NT / 32u) {
+        const uint32_t row_key = col_axis ? 0u : (ru_lo + b) * (bank ? 0x10001u : 1u);
+        uint32_t n_live = 0u;
+        if (row_axis) {
+          n_live = threshold != 0u && hash_u32(row_key ^ useed) < bt.m_thr ? tcv : 0u;
+        } else {
+          unsigned bal[TC / 32u];
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) {
-          if (k == 0 || key[k] != key[k - 1]) h = hash_u32(key[k] ^ useed);
-          live |= (uint32_t)(h < md.m_thr) << k;
-        }
-      }
-      if (valid) *reinterpret_cast<Pack<W, VEC>*>(out_t + e0) = in;
-      const int cnt = __popc(live);
-      int incl = cnt;   // inclusive scan of the counts over the warp
+          for (uint32_t ch = 0; ch < TC / 32u; ++ch) {
+            const uint32_t c = ch * 32u + lane;
+            bal[ch] = __ballot_sync(
+                FULL, c < tcv && threshold != 0u &&
+                          hash_u32((row_key + cu_lo + sm.ucol[c]) ^ useed) < bt.m_thr);
+          }
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(FULL, incl, d);
-        if (lane >= d) incl += v;
-      }
-      const int total = __shfl_sync(FULL, incl, 31), excl = incl - cnt;
-      __syncwarp();   // every unflipped copy stored before the flipped words
-      for (int base = 0; base < total; base += 32 * BURST_U) {
-        uint32_t e[BURST_U], mask[BURST_U];
-        bool ok[BURST_U];
-#pragma unroll
-        for (int u = 0; u < BURST_U; ++u) {
-          const int i = base + 32 * u + lane;
-          int o = 0;   // the lane that owns live element i
-#pragma unroll
-          for (int step = 16; step; step >>= 1)
-            if (__shfl_sync(FULL, incl, o + step - 1) <= i) o += step;
-          const uint32_t olive = __shfl_sync(FULL, live, o);
-          const uint32_t oe0 = __shfl_sync(FULL, e0, o);
-          const int r = i - __shfl_sync(FULL, excl, o);
-          ok[u] = i < total;
-          e[u] = oe0 + (uint32_t)nth_set_bit(olive, ok[u] ? r : 0);
-          mask[u] = 0u;
-        }
-        for (int p = lo; p <= hi; ++p) {
-          if ((lanes >> p) & 1u) {
-#pragma unroll
-            for (int u = 0; u < BURST_U; ++u)
-              mask[u] |= (uint32_t)(hash_u32((e[u] * 32u + (uint32_t)p) ^ seed_mul) <
-                                    threshold) << p;
+          for (uint32_t ch = 0; ch < TC / 32u; ++ch) {
+            if ((bal[ch] >> lane) & 1u)
+              sm.list[b * TC + n_live + __popc(bal[ch] & ((1u << lane) - 1u))] =
+                  (uint8_t)(ch * 32u + lane);
+            n_live += __popc(bal[ch]);
           }
         }
+        if (lane == 0u) {
+          sm.n[b] = n_live;
+          sm.mag[b] = 0x7FFFFFFFu / (n_live ? n_live : 1u) + 1u;
+        }
+      }
+      __syncthreads();
+      // (b) the live elements, dealt to the threads in turn
+      uint32_t total = 0u;
+      for (uint32_t b = 0; b < nb; ++b) total += (sm.rs[b + 1] - sm.rs[b]) * sm.n[b];
+      // a warp's threads run the groups of its first thread's count (the
+      // others hold that or one less): no warp diverges on them
+      uint32_t i = tid;
+      uint32_t rem = total > tid - lane ? (total - (tid - lane) + BURST_NT - 1u) / BURST_NT : 0u;
+      Band bd;
+      enter_band(bd, sm, 0u, 0u, bank);
+      for (; rem >= 8u; rem -= 8u)
+        draw_live<8>(i, total, bd, sm, bank, base, bt.cols, lanes, lo, hi, threshold, seed_mul);
+      if (rem & 4u)
+        draw_live<4>(i, total, bd, sm, bank, base, bt.cols, lanes, lo, hi, threshold, seed_mul);
+      if (rem & 2u)
+        draw_live<2>(i, total, bd, sm, bank, base, bt.cols, lanes, lo, hi, threshold, seed_mul);
+      if (rem & 1u)
+        draw_live<1>(i, total, bd, sm, bank, base, bt.cols, lanes, lo, hi, threshold, seed_mul);
+      __syncthreads();
+      // (c) copy t: the words XOR their masks, one store each; masks cleared
+      if constexpr (VEC > 1)
+        if (t == 0) copies_wait();
+      W* out_t = out + (size_t)t * n + base;
 #pragma unroll
-        for (int u = 0; u < BURST_U; ++u)
-          if (ok[u] && mask[u]) out_t[e[u]] = bits[e[u]] ^ static_cast<W>(mask[u]);
+      for (uint32_t k = 0; k < CPT; ++k) {
+        const uint32_t ch = tid + k * BURST_NT, row = ch / CPR, col = ch % CPR * VEC;
+        if (row < trv && col < tcv) {
+          auto* m = reinterpret_cast<Pack<W, VEC>*>(sm.mask + row * TC + col);
+          Pack<W, VEC> o = *m;
+          const Pack<W, VEC> w = *reinterpret_cast<const Pack<W, VEC>*>(sm.words + ch * VEC);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) o.w[v] ^= w.w[v];
+          *reinterpret_cast<Pack<W, VEC>*>(out_t + row * bt.cols + col) = o;
+          *m = Pack<W, VEC>{};
+        }
       }
     }
   }
@@ -263,16 +408,9 @@ void launch(const void* bits, void* out, const void* seeds, int n_trials,
   const uint32_t n_chunks = n / VEC;
   const int blocks = (int)((n_chunks + NT - 1) / NT < MAX_BLOCKS
                                ? (n_chunks + NT - 1) / NT : MAX_BLOCKS);
-  // burst: the row axis keeps per-thread draws while a warp's chunks lie in
-  // one row; other axes (and narrower rows) draw for their live elements
-  if (KIND == MODEL_BURST && !(md.axis == AXIS_ROW && md.width >= 32u * VEC))
-    fault_inject_burst_kernel<W, VEC><<<blocks, NT, 0, stream>>>(
-        static_cast<const W*>(bits), static_cast<W*>(out),
-        static_cast<const uint32_t*>(seeds), n_trials, n, lanes, threshold, md);
-  else
-    fault_inject_batched_kernel<W, VEC, KIND><<<blocks, NT, 0, stream>>>(
-        static_cast<const W*>(bits), static_cast<W*>(out),
-        static_cast<const uint32_t*>(seeds), n_trials, n, lanes, threshold, md);
+  fault_inject_batched_kernel<W, VEC, KIND><<<blocks, NT, 0, stream>>>(
+      static_cast<const W*>(bits), static_cast<W*>(out),
+      static_cast<const uint32_t*>(seeds), n_trials, n, lanes, threshold, md);
 }
 
 bool aligned16(const void* p) {
@@ -283,17 +421,11 @@ template <typename W, int VEC>
 void launch_kind(int kind, const void* bits, void* out, const void* seeds,
                  int n_trials, uint32_t n, uint32_t lanes, uint32_t threshold,
                  const Model& md, cudaStream_t stream) {
-  switch (kind) {
-    case MODEL_BURST:
-      launch<W, VEC, MODEL_BURST>(bits, out, seeds, n_trials, n, lanes, threshold, md, stream);
-      break;
-    case MODEL_CORRELATED:
-      launch<W, VEC, MODEL_CORRELATED>(bits, out, seeds, n_trials, n, lanes, threshold, md,
-                                       stream);
-      break;
-    default:
-      launch<W, VEC, MODEL_IID>(bits, out, seeds, n_trials, n, lanes, threshold, md, stream);
-  }
+  if (kind == MODEL_CORRELATED)
+    launch<W, VEC, MODEL_CORRELATED>(bits, out, seeds, n_trials, n, lanes, threshold, md,
+                                     stream);
+  else
+    launch<W, VEC, MODEL_IID>(bits, out, seeds, n_trials, n, lanes, threshold, md, stream);
 }
 
 template <typename W>
@@ -305,6 +437,46 @@ void dispatch(int kind, const void* bits, void* out, const void* seeds, int n_tr
     launch_kind<W, VEC>(kind, bits, out, seeds, n_trials, n, lanes, threshold, md, stream);
   else
     launch_kind<W, 1>(kind, bits, out, seeds, n_trials, n, lanes, threshold, md, stream);
+}
+
+// The burst kernel over the whole plane, its grid what is resident on the
+// card (the occupancy API x the SM count), at most a block a tile.
+template <typename W, int VEC>
+int launch_burst(const void* bits, void* out, const void* seeds, int n_trials,
+                 uint32_t lanes, uint32_t threshold, const BurstTiles& bt,
+                 cudaStream_t stream) {
+  auto kernel = fault_inject_burst_tile_kernel<W, VEC>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BURST_NT, 0);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t resident = (uint64_t)(per_sm > 0 ? per_sm : 1) * (uint64_t)sms;
+  const int blocks = (int)(bt.n_tiles < resident ? bt.n_tiles : resident);
+  kernel<<<blocks, BURST_NT, 0, stream>>>(static_cast<const W*>(bits), static_cast<W*>(out),
+                                          static_cast<const uint32_t*>(seeds), n_trials,
+                                          lanes, threshold, bt);
+  return (int)cudaGetLastError();
+}
+
+// 16-byte chunks when both planes are aligned and every row starts on a
+// chunk (VEC divides cols), else one word a chunk.
+template <typename W>
+int dispatch_burst(const void* bits, void* out, const void* seeds, int n_trials,
+                   uint32_t rows, uint32_t cols, uint32_t lanes, uint32_t threshold,
+                   const Model& md, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(W);
+  constexpr uint32_t TC = burst_cols<W>();
+  const uint64_t cd = (uint64_t)md.col_div * md.m_len;
+  const uint32_t tiles_c = (cols + TC - 1) / TC;
+  const BurstTiles bt{rows, cols, md.m_len < rows ? md.m_len : rows,
+                      cd < cols ? (uint32_t)cd : cols, md.m_thr, tiles_c,
+                      (rows + BURST_ROWS - 1) / BURST_ROWS * tiles_c, md.axis};
+  if (aligned16(bits) && aligned16(out) && cols % VEC == 0)
+    return launch_burst<W, VEC>(bits, out, seeds, n_trials, lanes, threshold, bt, stream);
+  return launch_burst<W, 1>(bits, out, seeds, n_trials, lanes, threshold, bt, stream);
 }
 
 // ---- K4: one seed over a leaf or a block, from a table of runs ----------
@@ -515,6 +687,15 @@ extern "C" int fault_inject_batched(const void* bits, void* out,
     return -1;
   const Model md{m_thr, m_len, (uint32_t)cols, (uint32_t)col_div, model_axis};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (model_kind == MODEL_BURST) {
+    const uint32_t r = (uint32_t)rows, c = (uint32_t)cols;
+    switch (elem_bytes) {
+      case 1: return dispatch_burst<uint8_t>(bits, out, seeds, n_trials, r, c, lanes, threshold, md, s);
+      case 2: return dispatch_burst<uint16_t>(bits, out, seeds, n_trials, r, c, lanes, threshold, md, s);
+      case 4: return dispatch_burst<uint32_t>(bits, out, seeds, n_trials, r, c, lanes, threshold, md, s);
+      default: return -1;
+    }
+  }
   switch (elem_bytes) {
     case 1: dispatch<uint8_t>(model_kind, bits, out, seeds, n_trials, (uint32_t)n, lanes, threshold, md, s); break;
     case 2: dispatch<uint16_t>(model_kind, bits, out, seeds, n_trials, (uint32_t)n, lanes, threshold, md, s); break;

@@ -4,6 +4,10 @@
 * K3 :func:`fault_inject_batched` replaces ``fault_inject_batched_pallas``:
   ``bits [R, C]`` (uint8, uint16 or uint32 held in int32) and trial seeds
   ``[T]`` -> ``[T, R, C]`` faulted copies, threshold and seeds at run time.
+  A burst process on any axis takes ``fault_inject_burst_tile_kernel``
+  (tiles of ``BURST_ROWS`` x ``burst_cols`` words in shared memory, only
+  the live units' elements drawn); i.i.d., drift and correlated take
+  ``fault_inject_batched_kernel``. One launch a call either way.
 * K4 :func:`fault_inject_runs` replaces ``fault_inject_pallas``: one seed
   over a uint16 plane, or over the fp16 bit patterns of a float32 plane
   (the round trip to fp16 and back fused, in place or not), with the

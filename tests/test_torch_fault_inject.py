@@ -294,21 +294,45 @@ def test_cuda_k3_matches_plain_version(plane):
 def test_cuda_k3_model_matches_plain_version(plane, spec):
     """K3 under a fault process: bitwise equal to the plain version at
     col_div 1 and 8 (a 16-byte chunk of the uint8 plane then spans two
-    column units), and at a ragged plane whose chunks cross rows."""
+    column units), and at a ragged plane whose chunks cross rows. A burst
+    spec again at length 5 with col_div 3 (units that straddle the burst
+    kernel's BURST_ROWS-row tiles) and at rates 0 and 1; every
+    spec also on unaligned planes (a view one word into its storage, a
+    column slice) and on the codeword geometry (a [40, 33 * 8] uint32
+    plane, col_div S*W = 8). One launch a call."""
     dev = _cuda()
     _, t_bits, positions = _plane(plane, seed=12)
     seeds = np.asarray([1, 0xDEADBEEF, 77, 2 ** 31], np.uint32)
+
+    def held(bits, model, col_div, thr, pos=positions):
+        before = t_kernel.launch_counts[t_kernel.K3]
+        got = t_ops.fault_inject_bits_batched(
+            bits, seeds, thr, positions=pos, model=model, col_div=col_div)
+        assert t_kernel.launch_counts[t_kernel.K3] == before + 1
+        want = t_ops.fault_inject_bits_batched(
+            bits.cpu(), seeds, thr, positions=pos, model=model,
+            col_div=col_div)
+        assert torch.equal(got.cpu(), want), (model, col_div, thr)
     for col_div in (1, 8):
         for thr in (THRESHOLDS["ber_3e-2"], THRESHOLDS["saturating"]):
-            before = t_kernel.launch_counts[t_kernel.K3]
-            got = t_ops.fault_inject_bits_batched(
-                t_bits.to(dev), seeds, thr, positions=positions, model=spec,
-                col_div=col_div)
-            assert t_kernel.launch_counts[t_kernel.K3] == before + 1
-            want = t_ops.fault_inject_bits_batched(
-                t_bits, seeds, thr, positions=positions, model=spec,
-                col_div=col_div)
-            assert torch.equal(got.cpu(), want), (col_div, thr)
+            held(t_bits.to(dev), spec, col_div, thr)
+    specs = [spec]
+    if spec.startswith("burst"):
+        axis = spec.rsplit("axis=", 1)[1]
+        specs += [f"burst:rate={rate},length=5,axis={axis}"
+                  for rate in (0.0, 0.5, 1.0)]
+    storage = torch.zeros(t_bits.numel() + 1, dtype=t_bits.dtype, device=dev)
+    storage[1:] = t_bits.reshape(-1).to(dev)
+    offset = storage[1:].view(t_bits.shape)          # contiguous, unaligned
+    g = torch.Generator().manual_seed(13)
+    cw = torch.randint(-2 ** 31, 2 ** 31, (40, 33 * 8), generator=g,
+                       dtype=torch.int64).to(torch.int32).to(dev)
+    for model in specs:
+        for thr in (THRESHOLDS["ber_3e-2"], THRESHOLDS["saturating"]):
+            held(t_bits.to(dev), model, 3, thr)
+            held(offset, model, 1, thr)
+            held(t_bits.to(dev)[:, 1:], model, 8, thr)
+            held(cw, model, 8, thr, pos=tuple(range(32)))
 
 
 @pytest.mark.gpu

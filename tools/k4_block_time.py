@@ -21,49 +21,19 @@ name and power limit.
 """
 from __future__ import annotations
 
-import argparse
-import hashlib
-import json
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
+from chip_timing import checkout, digest, emit, time_ms
+
 SHAPE = (40, 4096, 12800)
 PATH = "groups/blk0/mlp/w_gate"
 
 
-def _time_ms(fn, reps: int = 3, inner: int = 3) -> float:
-    import torch
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return sorted(times)[len(times) // 2]
-
-
-def _digest(t) -> str:
-    return hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()[:16]
-
-
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=str(ROOT))
-    ap.add_argument("--json", default="")
-    args = ap.parse_args(argv)
-    sys.path.insert(0, str(Path(args.root).resolve() / "src"))
-    import torch
-    if not torch.cuda.is_available():
-        print("k4_block_time: torch.cuda is not available", file=sys.stderr)
+    args = checkout("k4_block_time", argv)
+    if args is None:
         return 2
+    import torch
     from repro_torch.core import fault
     from repro_torch.distributed import sharding as shlib
     from repro_torch.kernels.fault_inject import kernel as fi_kernel
@@ -91,25 +61,15 @@ def main(argv=None) -> int:
         one = fn()
         torch.cuda.synchronize()
         launches = sum(fi_kernel.launch_counts.values())
-        digest = _digest(one.view(torch.int16))
+        sha = digest(one.view(torch.int16))
         del one
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        ms = _time_ms(fn)
-        out[name] = {"ms": ms, "launches": launches, "digest": digest,
+        ms = time_ms(fn, reps=3, inner=3)
+        out[name] = {"ms": ms, "launches": launches, "digest": sha,
                      "peak_extra_gib": (torch.cuda.max_memory_allocated()
                                         - base) / 2 ** 30}
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    out["card"] = card
-    line = json.dumps(out)
-    if args.json:
-        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
-        with open(args.json, "a") as f:
-            f.write(line + "\n")
-    print(line)
-    print(card)
+    emit(out, args)
     return 0
 
 

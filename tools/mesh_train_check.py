@@ -63,11 +63,12 @@ import contextlib
 import dataclasses
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 from unittest import mock
+
+import chip_timing
 
 ROOT = Path(__file__).resolve().parents[1]
 QWEN = "qwen3-moe-235b-a22b"
@@ -318,23 +319,6 @@ def part_b(dev, rank0, world, report) -> bool:
     return ok
 
 
-def _time_ms(fn, reps=5, inner=3) -> float:
-    import torch
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
-
-
 def part_c(dev, rank0, world, report) -> bool:
     import torch
     from repro_torch.configs import get_config
@@ -370,11 +354,13 @@ def part_c(dev, rank0, world, report) -> bool:
         h = model.embed[toks]
         layer = model.blocks[0].moe
         with shlib.use_mesh(mesh):
-            mesh_ms = _time_ms(lambda: layer(h))
+            mesh_ms = chip_timing.time_ms(lambda: layer(h), inner=3,
+                                          warm=2)
         one_ms = None
         if rank0:
             with _in_process(1, world):
-                one_ms = _time_ms(lambda: layer(h))
+                one_ms = chip_timing.time_ms(lambda: layer(h), inner=3,
+                                             warm=2)
         # the layer's exchanges alone, at its shapes
         tl = QWEN_BATCH * QWEN_SEQ // world
         c = max(8, -(-tl * cfg.top_k * cfg.capacity_factor // cfg.n_experts))
@@ -390,7 +376,7 @@ def part_c(dev, rank0, world, report) -> bool:
             shlib.all_to_all(send, "model", mesh)
             shlib.all_gather(out_blk, "model", mesh, dim=1)
             shlib.all_reduce_mesh(aux.clone(), mesh)
-        exch_ms = _time_ms(exchanges)
+        exch_ms = chip_timing.time_ms(exchanges, inner=3, warm=2)
     ok = len(calls) == QWEN_LAYERS
     if rank0:
         err = float((got - want).abs().max()) / float(want.abs().max())
@@ -670,9 +656,7 @@ def main() -> int:
         os._exit(1)
     mesh_lib.destroy_world()
     if rank0:
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True,
-                              text=True, check=True).stdout.strip()
+        card = chip_timing.card()
         if args.json:
             Path(args.json).parent.mkdir(parents=True, exist_ok=True)
             Path(args.json).write_text(json.dumps(
