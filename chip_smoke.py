@@ -315,22 +315,48 @@ Phases (any failed check raises and exits non-zero; no result is printed):
    shapes), whose loss the emulated step 0's must equal; step ms, the
    gathered bytes and the peak.
 
+18. the engine, the fleet and the 2-D sweep on meshes, and K3 at
+   column-shard offsets, the ranks emulated on the one card (a thread a
+   rank, ``sharding.thread_ranks``). (a) K3 on phase 4's full-width planes
+   (the one4n unembed's ``man`` uint16 [2048, 50304] and flattened codeword
+   plane, the none store's ``exp`` and ``sign``) in 4 column shards of
+   12576 words (3 of them starting mid-bank, mid-unit and mid-tile), T = 4,
+   BER 1e-3, under i.i.d., drift, correlated and burst row / col / bank:
+   each shard's copies (one launch) bitwise its plain version at the same
+   offsets and the block of the unsharded copies; each mantissa shard timed
+   beside the unsharded plane with its bound (the draws it performs).
+   (b) Fig. 6's one4n arm at BER 1e-3 (phase 5's seeds, 4 trials) on a 1x4
+   ("trial", "model") mesh: every rank's cells equal the unmeshed arm's;
+   K3's launches (zeroed just before, read just after: one a store plane a
+   rank) are the shard row's. (c) Engine arm (a) with ECC accounting over
+   phase 10's 4-request load (4 slots, chunk 16), on one device, on a 1x1
+   NCCL mesh and with "model" emulated at 4: tokens, logits and ECC
+   charges equal the unmeshed run's bitwise, and K1 launches once a shard
+   a read. (d) A fleet of 2 replicas on emulated 1x1 blocks over a shared
+   32-token prefix: every routed result equals a one-replica probe's
+   bitwise, with a prefix hit. The phase's wall time by part.
+
 Phases run in the order 1-3, 10, 11, 4-6, 8, 9, 12, 13, 14, 15, 16, 17,
-7.
+18, 7.
 Prints the card's name and power limit, then one ``{"kernels": [...]}`` line
 (each K1/K2 row carries its granite figures under ``"granite"``, its rwkv6
 figures under ``"rwkv6"`` and its shard reads under ``"mesh"``; K3's and
 K4's rows their co-design path's launches and times under ``"codesign"``
 and their mesh path's under ``"mesh_train"``, K3's its trial-slice figures
-under ``"trial_slice"``, K4's its shard-offset figures under ``"zero3"``), and as its last line ``{"ok": true, "device":
-{...}}``; the int8 cache's figures come on a ``{"int8_cache": ...}`` line
-and the all-to-all's on a ``{"moe_a2a": ...}`` line before the card's name.
+under ``"trial_slice"``, K4's its shard-offset figures under ``"zero3"``;
+the ``fault_inject_batched@col_shard`` row is K3 at column-shard offsets,
+its launches those of phase 18 (b), its phase 18 figures under
+``"shards"``, ``"sweep"``, ``"engine"`` and ``"fleet"``), and as its last
+line ``{"ok": true, "device": {...}}``; the int8 cache's figures come on a
+``{"int8_cache": ...}`` line and the all-to-all's on a ``{"moe_a2a": ...}``
+line before the card's name.
 
 ``python3 chip_smoke.py --phase 15`` builds the kernels and runs phase 15
 alone on phase 2's stores (a quick check while working on the mesh); it
 prints no contract line. ``python3 chip_smoke.py --phase 16`` builds K3/K4
 and runs phase 16 alone, its one-device references run in the phase;
-``--phase 17`` does the same for phase 17.
+``--phase 17`` does the same for phase 17; ``--phase 18`` builds K1-K4 and
+runs phase 18 on phase 2's stores.
 """
 from __future__ import annotations
 
@@ -528,9 +554,14 @@ def _sass_hash_bodies(lib_path, mangled: str) -> list:
 # IMADs a body, else the draws are counted by unsigned compares; print the
 # census of the widest body, else of the most common one)
 SASS_KERNELS = {
-    "K3 (uint16 x 8)": ("fault_inject_batched_kernelItLi8ELi0EE", True, False),
-    "K3 burst (uint16 x 8)": ("fault_inject_burst_tile_kernelItLi8EE", False,
-                              True),
+    "K3 (uint16 x 8)": ("fault_inject_batched_kernelItLi8ELi0ELb0EE", True,
+                        False),
+    "K3 at column offsets (uint16 x 8)": (
+        "fault_inject_batched_kernelItLi8ELi0ELb1EE", True, False),
+    "K3 burst (uint16 x 8)": ("fault_inject_burst_tile_kernelItLi8ELb0EE",
+                              False, True),
+    "K3 burst at column offsets (uint16 x 8)": (
+        "fault_inject_burst_tile_kernelItLi8ELb1EE", False, True),
     "K4 (uint16 x 8)": ("fault_inject_runs_kernelItLi8EE", False, False),
     "K4 (float32 x 8)": ("fault_inject_runs_kernelIfLi8EE", False, False)}
 
@@ -1935,9 +1966,10 @@ def _k4_round_trip_gates(dev, fi_kernel, side: int = 2 ** 14,
           f"version, {changed} words changed by flips")
 
 
-def _plain_k3(plane, seeds, thr, positions, spec, col_div=1):
+def _plain_k3(plane, seeds, thr, positions, spec, col_div=1, at=None):
     """K3's plain version under the fault process ``spec`` (drift pre-scaled
-    by its static tick, as the entry point does)."""
+    by its static tick, as the entry point does), at the column placement
+    ``at`` when given."""
     from repro_torch.core import faultmodels as fm
     from repro_torch.kernels.fault_inject import ref
     model = fm.parse_fault_model(spec)
@@ -1946,7 +1978,7 @@ def _plain_k3(plane, seeds, thr, positions, spec, col_div=1):
         plane, seeds, fm.compiled_threshold(model, thr),
         positions=tuple(positions), m_thr=m_thr, m_len=m_len,
         model_kind=model.kind if model else "iid",
-        model_axis=model.axis if model else "row", col_div=col_div)
+        model_axis=model.axis if model else "row", col_div=col_div, at=at)
 
 
 def _word_err(a, b) -> float:
@@ -2079,8 +2111,11 @@ def phase_fig6(dev, model, fi_kernel) -> dict:
     stores, _ = cim.deploy_pytree_impl(params, cim.CIMConfig(
         n_group=8, index=2, protect="one4n"))
 
-    def plain(bits, seeds_, threshold, positions, model=None, col_div=1):
-        return _plain_k3(bits, seeds_, threshold, positions, model, col_div)
+    def plain(bits, seeds_, threshold, positions, model=None, col_div=1,
+              at=None, plane=None):
+        return _plain_k3(bits, seeds_, threshold, positions, model, col_div,
+                         at=sweep_lib.fi_ops.placement(at, bits.shape[1],
+                                                       plane))
     for b, n_redo in ((0, FIG6_TRIALS), (len(FIG6_BERS) - 1, 1)):
         row = res["one4n"]["rows"][b]
         thr = sweep_lib.fi_ops.ber_to_threshold(FIG6_BERS[b])
@@ -5237,6 +5272,360 @@ def phase_zero3(dev, fi_kernel, card: str) -> dict:
                              "step": step}}
 
 
+# phase 18: K3 at column-shard offsets, the 2-D sweep, the engine and the
+# fleet on meshes emulated on the one card
+SHARDS18 = 4                                   # 12576-column shards
+SPECS18 = ("iid", "drift:drift_rate=0.02,tick=3") + MODEL_SPECS
+LOAD18 = dict(n_requests=4, prompt_lens=(8, 32), gen_lens=(3, 6), seed=0)
+
+
+def _on_ranks(meshes, fn) -> list:
+    """``fn(mesh)`` on every rank of an emulated mesh, a thread a rank under
+    inference mode and its own ambient settings -> results in rank order
+    (the first failure re-raised, the others' waits broken)."""
+    import threading
+    import torch
+    from repro_torch.distributed import sharding as shlib
+    out = [None] * len(meshes)
+
+    def go(r):
+        try:
+            with torch.inference_mode(), shlib.rank_thread():
+                out[r] = fn(meshes[r])
+        except BaseException as e:       # re-raised below
+            out[r] = e
+            for m in meshes:
+                m.group.abort()
+    threads = [threading.Thread(target=go, args=(r,))
+               for r in range(len(meshes))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    errors = [o for o in out if isinstance(o, BaseException)]
+    if errors:
+        first = [e for e in errors
+                 if not isinstance(e, threading.BrokenBarrierError)]
+        raise (first or errors)[0]
+    return out
+
+
+def _k3_shards(dev, checks: dict, fi_kernel, card: str) -> dict:
+    """(a) K3 at column-shard offsets on the full-width unembed's planes
+    (phase 4's: one4n man and flattened codewords, none exp and sign), 4
+    column shards, T = 4, BER 1e-3, each process of SPECS18: every shard's
+    copies bitwise its plain version at the same offsets and the block of
+    the unsharded copies; each shard timed beside the unsharded plane."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.fault_inject import ops
+    one4n = checks["cim_read_matmul_one4n"]["store"]
+    cw = one4n.codewords
+    col_div = {"one4n codewords": cw.shape[2] * cw.shape[3]}
+    seeds = np.asarray([1, 2, 3, 4], np.uint32)
+    thr = ops.ber_to_threshold(1e-3)
+    n_checked = 0
+    for name, (plane, pos) in _fi_planes(checks).items():
+        cd = col_div.get(name, 1)
+        c = plane.shape[1]
+        w = c // SHARDS18
+        _check(w * SHARDS18 == c, f"phase 18: {name} of {c} columns")
+        for spec in SPECS18:
+            whole = ops.fault_inject_bits_batched(
+                plane, seeds, thr, positions=pos, model=spec, col_div=cd)
+            for i in range(SHARDS18):
+                blk = plane[:, i * w:(i + 1) * w].contiguous()
+                before = fi_kernel.launch_counts[fi_kernel.K3]
+                got = ops.fault_inject_bits_batched(
+                    blk, seeds, thr, positions=pos, model=spec, col_div=cd,
+                    at=(i * w, c))
+                _check(fi_kernel.launch_counts[fi_kernel.K3] == before + 1,
+                       f"phase 18: {name} {spec} shard {i}: not one launch")
+                _check(_same_plane(got, whole[:, :, i * w:(i + 1) * w]),
+                       f"phase 18: {name} {spec} shard {i} != the block of "
+                       f"the unsharded copies")
+                plain = _plain_k3(blk, seeds, thr, pos, spec, cd,
+                                  at=(i * w, c))
+                _check(_same_plane(got, plain), f"phase 18: {name} {spec} "
+                       f"shard {i} != its plain version")
+                n_checked += 1
+            del whole
+    torch.cuda.empty_cache()
+    # times on the mantissa plane, i.i.d. and under each process
+    man = one4n.man
+    w = man.shape[1] // SHARDS18
+    blocks = [man[:, i * w:(i + 1) * w].contiguous() for i in range(SHARDS18)]
+    pos = range(10)
+    fig = {"by_process": {}}
+    for spec in SPECS18:
+        full_ms = _time_ms(lambda: ops.fault_inject_bits_batched(
+            man, seeds, thr, positions=pos, model=spec))
+        shard_ms = [_time_ms(lambda b=b, i=i: ops.fault_inject_bits_batched(
+            b, seeds, thr, positions=pos, model=spec, at=(i * w, J)))
+            for i, b in enumerate(blocks)]
+        draws = [_draws_at(b, i * w, seeds, thr, spec) for i, b in
+                 enumerate(blocks)]
+        bound = [d * ALU_OPS_PER_DRAW / INT32_OPS * 1e3 for d in draws]
+        fig["by_process"][spec] = {"unsharded_ms": full_ms,
+                                   "shard_ms": shard_ms, "draws": draws,
+                                   "bound_ms": bound}
+        print(f"phase 18: K3 at offsets, {spec}: shards "
+              + ", ".join(f"{m:.4f}" for m in shard_ms)
+              + f" ms (bounds " + ", ".join(f"{b:.4f}" for b in bound)
+              + f" ms) beside {full_ms:.4f} ms unsharded, [{K}, {w}] of "
+              f"[{K}, {J}] uint16, T=4, on {card}")
+    iid = fig["by_process"]["iid"]
+    plain_ms = _time_ms(lambda: _plain_k3(blocks[1], seeds, thr, pos, "iid",
+                                          at=(w, J)), reps=3, inner=1)
+    i = int(np.argmax(iid["shard_ms"]))
+    fig.update(ms=float(np.mean(iid["shard_ms"])), plain_ms=plain_ms,
+               bound_ms=float(np.mean(iid["bound_ms"])),
+               slowest_shard_ms=iid["shard_ms"][i], checked=n_checked)
+    print(f"phase 18: K3 at column offsets: {n_checked} shard draws bitwise "
+          f"their plain version and their block of the unsharded copies "
+          f"(4 planes x {len(SPECS18)} processes x {SHARDS18} shards); plain "
+          f"shard {plain_ms:.2f} ms")
+    return fig
+
+
+def _draws_at(block, col_off: int, seeds, thr, spec) -> int:
+    """The draws K3 performs on a mantissa-plane shard: every element's 10
+    positions a trial, or (burst) only its live units' elements."""
+    import torch
+    from repro_torch.core import faultmodels as fm
+    model = fm.parse_fault_model(spec)
+    n_pos, t = 10, len(seeds)
+    if model is None or model.kind != "burst":
+        return block.numel() * t * n_pos
+    thr_c = fm.compiled_threshold(model, thr)
+    m_thr, m_len = fm.model_scalars(model)
+    r, c = block.shape
+    from repro_torch.core.cim import global_elem
+    elem = global_elem((r, c), (r, J), 1, col_off, block.device)
+    live = 0
+    for s in seeds:
+        got = fm.scale_elem_thresholds(elem, thr_c, int(s), kind="burst",
+                                       axis=model.axis, m_thr=m_thr,
+                                       m_len=m_len, width=J)
+        live += int((got != 0).sum())
+        del got
+    del elem
+    torch.cuda.empty_cache()
+    return live * n_pos
+
+
+def _sweep_mesh18(dev, model, fi_kernel) -> dict:
+    """(b) Fig. 6's one4n arm at BER 1e-3 (phase 5's seeds, 4 trials) on a
+    1x4 (trial, model) mesh emulated on the card: its cells equal the
+    unmeshed arm's; K3 launches one a store plane a rank."""
+    import torch
+    from repro_torch.core import sweep as sweep_lib
+    from repro_torch.distributed import sharding as shlib
+    params, agreement, cim_cfg, seeds = _fig6_setup(dev, model)
+    a, b = FIG6_PROTECTS.index("one4n"), FIG6_BERS.index(1e-3)
+    seeds = seeds[a:a + 1, b:b + 1]
+    plan = sweep_lib.SweepPlan(bers=(1e-3,), n_trials=FIG6_TRIALS,
+                               protects=("one4n",))
+
+    def cells(rows):
+        return [(r.accuracies, r.trial_corrected, r.trial_uncorrectable)
+                for r in rows]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = sweep_lib.SweepEngine(plan, device=dev).run_protection(
+            seeds, params, agreement, cim_cfg)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    meshes = shlib.thread_ranks(("trial", "model"), (1, SHARDS18))
+    fi_kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = _on_ranks(meshes, lambda m: sweep_lib.SweepEngine(
+        plan, device=dev, mesh=m).run_protection(seeds, params, agreement,
+                                                 cim_cfg))
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    launches = fi_kernel.launch_counts[fi_kernel.K3]
+    want_launches = SHARDS18 * 2 * FIG6_PLANES["one4n"]
+    _check(launches == want_launches, f"phase 18: sweep mesh: {launches} K3 "
+           f"launches, expected {want_launches} (ranks x stores x planes)")
+    for r, rows in enumerate(got):
+        _check(cells(rows) == cells(want), f"phase 18: sweep mesh rank {r}: "
+               f"cells {cells(rows)} != the unmeshed arm's {cells(want)}")
+    _check(want[0].corrected > 0, "phase 18: the one4n arm corrected nothing")
+    print(f"phase 18: Fig. 6 one4n arm at 1e-3 on a 1x{SHARDS18} (trial, "
+          f"model) mesh emulated: every rank's cells == the unmeshed arm's "
+          f"(agreement {want[0].mean:.4f}, corrected {want[0].corrected:.1f},"
+          f" uncorrectable {want[0].uncorrectable:.1f}); {launches} K3 "
+          f"launches at shard offsets; wall {mesh_s:.2f} s (unmeshed "
+          f"{one_s:.2f} s)")
+    return {"launches": launches, "wall_s": mesh_s, "unmeshed_s": one_s}
+
+
+def _engine_dep18(model):
+    """Engine arm (a)'s unplaced deployment and its serving kwargs."""
+    from repro_torch.launch import serve as serve_lib
+    _, path, protect, inject, _ = ENGINE_ARMS[0]
+    static, dynamic = serve_lib.default_seeds(0, model.cim_leaves())
+    dep = serve_lib.make_deployment(
+        model.cim_leaves(), ber=ENGINE_BER, protect=protect, n_group=8,
+        index=2, seeds=static, inject_mode=inject, field="full")
+    kw = serve_lib.serving_kw(ber=ENGINE_BER, dynamic_seeds=dynamic,
+                              inject_mode=inject, field="full")
+    return dep, kw
+
+
+def _engine_mesh18(model, kernel_lib, dep, kw) -> dict:
+    """(c) Engine arm (a) with ECC accounting over phase 10's 4-request
+    load: on one device, on a 1x1 NCCL mesh and with "model" emulated at 4:
+    tokens, logits and ECC charges equal the unmeshed run's; each read one
+    K1 launch a shard."""
+    import torch
+    from repro_torch.distributed import sharding as shlib
+    from repro_torch.launch import engine as engine_lib
+    from repro_torch.launch import mesh as mesh_lib
+    load = engine_lib.LoadGen(vocab_size=model.cfg.vocab_size, **LOAD18)
+    reqs, max_len = load.requests(), load.max_len()
+    name = ENGINE_ARMS[0][4]
+
+    def run(params, mesh=None):
+        eng = engine_lib.Engine(model, params, n_slots=ENGINE_SLOTS,
+                                max_len=max_len, chunk=ENGINE_CHUNK,
+                                collect_logits=True, mesh=mesh)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            res, agg = eng.run(reqs)
+        torch.cuda.synchronize()
+        return res, agg, time.perf_counter() - t0
+    kernel_lib.reset_launch_counts()
+    want, agg, one_s = run(dep.serving_params(**kw))
+    reads = kernel_lib.launch_counts[name]
+    out = {"unmeshed": {"s": one_s, "decode_tok_s": agg["decode_tok_s"],
+                        "launches": reads}}
+    mesh = mesh_lib.make_serve_mesh("1x1", "cuda")
+    try:
+        kernel_lib.reset_launch_counts()
+        got, agg, secs = run(dep.shard(mesh).serving_params(**kw), mesh)
+        n = kernel_lib.launch_counts[name]
+    finally:
+        mesh_lib.destroy_world()
+    _check(n == reads, f"phase 18: engine 1x1: {n} K1 launches, {reads} "
+           f"unmeshed")
+    for r in reqs:
+        _check(_same_request(got[r.rid], want[r.rid]), f"phase 18: engine "
+               f"on 1x1: request {r.rid} != the unmeshed run")
+    out["1x1"] = {"s": secs, "decode_tok_s": agg["decode_tok_s"],
+                  "launches": n}
+    meshes = shlib.thread_ranks(("data", "model"), (1, SHARDS18))
+    kernel_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    ranks = _on_ranks(meshes, lambda m: run(dep.shard(m).serving_params(**kw),
+                                            m))
+    secs = time.perf_counter() - t0
+    n = kernel_lib.launch_counts[name]
+    _check(n == SHARDS18 * reads, f"phase 18: engine 1x{SHARDS18}: {n} K1 "
+           f"launches, expected {SHARDS18} x {reads} (one a shard a read)")
+    for k, (got, agg, _) in enumerate(ranks):
+        for r in reqs:
+            _check(_same_request(got[r.rid], want[r.rid]), f"phase 18: "
+                   f"engine rank {k} of 1x{SHARDS18}: request {r.rid} != "
+                   f"the unmeshed run")
+    out[f"1x{SHARDS18}"] = {"s": secs, "decode_tok_s":
+                            ranks[0][1]["decode_tok_s"], "launches": n}
+    print(f"phase 18: engine arm (a) with ECC accounting, {len(reqs)} "
+          f"requests: 1x1 NCCL mesh and 1x{SHARDS18} emulated == the "
+          f"unmeshed run bitwise (tokens, logits, ECC {agg['ecc']}); K1 "
+          f"launches {reads} unmeshed, {n} on 1x{SHARDS18}; wall "
+          f"{out['unmeshed']['s']:.2f} / {out['1x1']['s']:.2f} / "
+          f"{secs:.2f} s, decode tok/s {out['unmeshed']['decode_tok_s']:.1f}"
+          f" / {out['1x1']['decode_tok_s']:.1f} / "
+          f"{out[f'1x{SHARDS18}']['decode_tok_s']:.1f}")
+    return out
+
+
+def _fleet_mesh18(model, dep, kw) -> dict:
+    """(d) A fleet of 2 replicas on emulated 1x1 blocks over a shared
+    32-token prefix: every routed result equals a one-replica probe's
+    (tokens, logits, ECC), with at least one prefix hit."""
+    import shutil
+    import torch
+    from repro_torch.launch import engine as engine_lib
+    from repro_torch.launch import fleet as fleet_lib
+    load = engine_lib.LoadGen(vocab_size=model.cfg.vocab_size, prefix_len=32,
+                              **LOAD18)
+    reqs, max_len = load.requests(), load.max_len()
+    ekw = dict(n_slots=ENGINE_SLOTS, max_len=max_len, chunk=ENGINE_CHUNK,
+               collect_logits=True)
+    spool = ROOT / "build" / "phase18_spool"
+    shutil.rmtree(spool, ignore_errors=True)
+    ranks = fleet_lib.thread_fleet_meshes("1x1", 2)
+    t0 = time.perf_counter()
+    out = _on_ranks([fm.fleet for fm in ranks], lambda w: fleet_lib.Fleet
+                    .from_serving_params(
+                        model, dep.shard(ranks[w.rank][ranks[w.rank].replica])
+                        .serving_params(**kw), n_replicas=2,
+                        meshes=ranks[w.rank], spool_dir=str(spool), **ekw)
+                    .run(reqs))
+    secs = time.perf_counter() - t0
+    with torch.inference_mode():
+        probe, _ = fleet_lib.Fleet.from_serving_params(
+            model, dep.serving_params(**kw), n_replicas=1,
+            spool_dir=str(spool / "probe"), **ekw).run(reqs)
+    shutil.rmtree(spool, ignore_errors=True)
+    for k, (got, agg) in enumerate(out):
+        for r in reqs:
+            _check(_same_request(got[r.rid], probe[r.rid]), f"phase 18: "
+                   f"fleet rank {k}: request {r.rid} != the one-replica "
+                   f"probe")
+        _check(agg["prefix_hits"] >= 1, f"phase 18: fleet rank {k}: no "
+               f"prefix hit")
+    agg = out[0][1]
+    print(f"phase 18: fleet of 2 x 1x1 emulated blocks: every routed result "
+          f"== the one-replica probe bitwise; routed "
+          f"{agg['requests_by_replica']}, prefix hits {agg['prefix_hits']}; "
+          f"wall {secs:.2f} s, {agg['tok_s']:.1f} tok/s wall, "
+          f"{agg['tok_s_virtual']:.1f} virtual")
+    return {"s": secs, "tok_s": agg["tok_s"],
+            "tok_s_virtual": agg["tok_s_virtual"],
+            "by_replica": agg["requests_by_replica"],
+            "prefix_hits": agg["prefix_hits"]}
+
+
+def phase_mesh_engine(dev, checks: dict, kernel_lib, fi_kernel,
+                      card: str) -> dict:
+    """Phase 18: K3 at column-shard offsets (a), Fig. 6's one4n arm on a
+    (trial, model) mesh (b), the engine (c) and the fleet (d) on meshes,
+    the ranks emulated on the one card. Returns the kernels line's K3 row
+    for the shard-offset path (its launches those of (b))."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    t0 = time.perf_counter()
+    fig = _k3_shards(dev, checks, fi_kernel, card)
+    t1 = time.perf_counter()
+    model = LM(get_config("olmo-1b"),
+               generator=torch.Generator(device=dev).manual_seed(0),
+               device=dev)
+    sweep = _sweep_mesh18(dev, model, fi_kernel)
+    t2 = time.perf_counter()
+    dep, kw = _engine_dep18(model)
+    engine = _engine_mesh18(model, kernel_lib, dep, kw)
+    t3 = time.perf_counter()
+    fleet = _fleet_mesh18(model, dep, kw)
+    del model, dep
+    torch.cuda.empty_cache()
+    t4 = time.perf_counter()
+    print(f"phase 18: {t4 - t0:.1f} s (a {t1 - t0:.1f} s, b {t2 - t1:.1f} s,"
+          f" c {t3 - t2:.1f} s, d {t4 - t3:.1f} s)")
+    return {"name": "fault_inject_batched@col_shard", "route": "cuda",
+            "source": FI_SOURCE, "replaces": REPLACES["fault_inject_batched"],
+            "launches": sweep["launches"], "max_abs_err": 0.0,
+            "ms": fig["ms"], "plain_ms": fig["plain_ms"],
+            "bound_ms": fig["bound_ms"], "bound_by": "operations",
+            "library_ms": None, "shards": fig, "sweep": sweep,
+            "engine": engine, "fleet": fleet}
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "cim_read" / "csrc").is_dir():
@@ -5268,6 +5657,14 @@ def main() -> int:
         zero3 = phase_zero3(dev, fi_kernel, card)
         print(card)
         print(json.dumps(zero3))
+        return 0
+    if sys.argv[1:] == ["--phase", "18"]:
+        phase_build({"K1+K2": kernel_lib.LIBRARY, "K3+K4": fi_kernel.LIBRARY})
+        checks = {name: {"store": _unembed_store(protect, dev)}
+                  for name, protect in PROTECT_OF.items()}
+        row = phase_mesh_engine(dev, checks, kernel_lib, fi_kernel, card)
+        print(card)
+        print(json.dumps(row))
         return 0
     if sys.argv[1:] == ["--phase", "15"]:
         phase_build({"K1+K2": kernel_lib.LIBRARY, "K3+K4": fi_kernel.LIBRARY})
@@ -5314,6 +5711,7 @@ def main() -> int:
     mesh_train = phase_mesh_train(dev, fi_kernel, card,
                                   codesign.pop("reference"))
     zero3 = phase_zero3(dev, fi_kernel, card)
+    shard_row = phase_mesh_engine(dev, checks, kernel_lib, fi_kernel, card)
     rows = phase_times(dev, checks, launches, engine_launches, card)
     for row in rows:
         row["granite"] = granite[row["name"]]
@@ -5327,6 +5725,7 @@ def main() -> int:
             row["zero3"] = zero3[row["name"]]
     fi_rows[0]["trial_slice"] = mesh["trial_slice"]
     rows += fi_rows
+    rows.append(shard_row)
     rows.append(phase_bfp_times(dev, bfp, card))
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build start")
     print(json.dumps({"int8_cache": mesh["int8"]}))

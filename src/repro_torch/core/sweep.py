@@ -34,8 +34,16 @@ How it differs from the reference's engine:
   the unsharded one. A trial count the mesh does not divide runs whole on
   every rank, as the reference replicates it.
   ``trial_shard=(n, index)`` runs one rank's slice without a mesh and
-  :func:`merge_trial_shards` joins the slices. The 2-D (trial, model)
-  sweep mesh waits for ROADMAP Queue 1 item 14b-2.
+  :func:`merge_trial_shards` joins the slices;
+* the 2-D ``("trial", "model")`` sweep mesh (``make_sweep_mesh``, the
+  reference's ``_shard_stores``): on a mesh with ``"model"`` every store of
+  a Fig. 6 or policy arm is column-sharded over it (``cim.shard_store(...,
+  dim='j')``; a store ``can_shard_store`` refuses stays whole), each rank
+  draws its block through K3 at the block's global counters (so each
+  block's faults are the unsharded draw's), decodes it, and the decoded
+  columns are gathered over ``"model"`` before ``eval_fn``, the ECC counts
+  summed over it. Trials split over ``"trial"`` as above. Fig. 2 arms draw
+  plain tensors and are not sharded, as in the reference.
 
 Parameter trees are ``{path: tensor}`` mappings in the reference's flatten
 order (:mod:`repro_torch.core.tree`); leaf ``i`` salts its streams with
@@ -162,10 +170,11 @@ def _arm_model(spec) -> Optional[fm_lib.FaultProcess]:
     return None if model is not None and model.kind == "iid" else model
 
 
-def _inject(bits, seeds, threshold, positions, model=None, col_div=1):
+def _inject(bits, seeds, threshold, positions, model=None, col_div=1,
+            at=None, plane=None):
     return fi_ops.fault_inject_bits_batched(
         bits, seeds, threshold, positions=tuple(positions), model=model,
-        col_div=col_div)
+        col_div=col_div, at=at, plane=plane)
 
 
 def inject_pytree_batched(params: Mapping, seeds, threshold: int, field: str,
@@ -217,12 +226,13 @@ def _store_inject_batched(store: cim_lib.CIMStore, seeds: Mapping,
     fmt = store.cfg.fmt
     dev = store.device
 
-    def draw(plane, key, thr, positions, **kw):
+    def draw(plane, key, name, thr, positions, **kw):
         if not thr:
             return plane.expand((t,) + tuple(plane.shape))
-        return _inject(plane, seeds[key], thr, positions, model, **kw)
+        return _inject(plane, seeds[key], thr, positions, model,
+                       at=store.shard, plane=name, **kw)
 
-    man = draw(store.man, "man", thr_man, range(fmt.man_bits))
+    man = draw(store.man, "man", "man", thr_man, range(fmt.man_bits))
     sign = exp = cw = None
     if store.codewords is not None:
         cw_arr = store.codewords
@@ -230,12 +240,12 @@ def _store_inject_batched(store: cim_lib.CIMStore, seeds: Mapping,
         if cw_arr.ndim == 2:
             # per-weight SECDED: one uint16 word per weight, n stored bits
             positions = [p for p in range(16) if (int(masks) >> p) & 1]
-            cw = draw(cw_arr, "cw", thr_meta, positions)
+            cw = draw(cw_arr, "cw", "cw", thr_meta, positions)
         else:
             cw2d = cw_arr.reshape(cw_arr.shape[0], -1)     # [B, G*S*W]
             # macro-column units of the flattened plane are S*W words wide
             # (the geometry faultmodels.plane_geometry derives from 4-D)
-            cw = draw(cw2d, "cw", thr_meta, range(32),
+            cw = draw(cw2d, "cw", "cw", thr_meta, range(32),
                       col_div=cw_arr.shape[2] * cw_arr.shape[3])
             if thr_meta:
                 valid = _valid_words(
@@ -243,14 +253,15 @@ def _store_inject_batched(store: cim_lib.CIMStore, seeds: Mapping,
                 cw = (cw & valid) | (cw2d[None] & ~valid)
             cw = cw.reshape((t,) + tuple(cw_arr.shape))
     else:
-        exp = draw(store.exp, "meta", thr_meta, range(fmt.exp_bits))
-        sign = draw(store.sign, "sign", thr_meta, range(32))
+        exp = draw(store.exp, "meta", "exp", thr_meta, range(fmt.exp_bits))
+        sign = draw(store.sign, "sign", "sign", thr_meta, range(32))
         if thr_meta:
             valid = _valid_words(bitpack.word_masks(
                 store.man.shape[0], store.sign.shape[0]), dev)[:, None]
             sign = (sign & valid) | (store.sign[None] & ~valid)
     return cim_lib.CIMStore(man=man, sign=sign, exp=exp, codewords=cw,
-                            shape=store.shape, cfg=store.cfg)
+                            shape=store.shape, cfg=store.cfg,
+                            shard=store.shard)
 
 
 # the Fig. 6 engine's per-plane salts of a store's trial seeds
@@ -280,7 +291,8 @@ def _trial_store(store: cim_lib.CIMStore, i: int) -> cim_lib.CIMStore:
         return None if p is None else p[i]
     return cim_lib.CIMStore(man=pick(store.man), sign=pick(store.sign),
                             exp=pick(store.exp), codewords=pick(store.codewords),
-                            shape=store.shape, cfg=store.cfg)
+                            shape=store.shape, cfg=store.cfg,
+                            shard=store.shard)
 
 
 def trial_params(batched: Mapping, i: int) -> dict:
@@ -349,7 +361,7 @@ def merge_trial_shards(parts) -> List[SweepResult]:
 
 class SweepEngine:
     """Executor for characterization grids on one device, or on one rank of
-    a ``("trial",)`` mesh (``mesh``; module doc).
+    a ``("trial",)`` or ``("trial", "model")`` mesh (``mesh``; module doc).
 
     ``run_fields`` / ``run_protection`` map (seeds, params, ``eval_fn``) to
     :class:`SweepResult` rows in the reference's order. ``eval_fn`` takes
@@ -375,6 +387,23 @@ class SweepEngine:
                            shlib.axis_index("trial", mesh))
         n, i = trial_shard or (1, 0)
         self.trials = trial_slice(plan.n_trials, n, i)
+
+    @property
+    def _model_ranks(self) -> int:
+        from repro_torch.distributed import sharding as shlib
+        return shlib.axis_size(shlib.MODEL_AXIS, self.mesh) \
+            if self.mesh is not None else 1
+
+    def _shard_stores(self, stores: Mapping) -> dict:
+        """On a mesh with ``"model"``: this rank's column block of every
+        store (``cim.shard_store``, whole where it does not split)."""
+        n = self._model_ranks
+        if n == 1:
+            return dict(stores)
+        from repro_torch.distributed import sharding as shlib
+        i = shlib.axis_index(shlib.MODEL_AXIS, self.mesh)
+        return {p: cim_lib.shard_store(v, n, i, "j")
+                if cim_lib._is_store(v) else v for p, v in stores.items()}
 
     def _gather(self, cells: List[SweepResult]) -> List[SweepResult]:
         """This rank's cells, or (on a mesh that split the trials) every
@@ -412,8 +441,17 @@ class SweepEngine:
 
     def _decoded(self, batched: Mapping, i: int, stats: list) -> dict:
         """Trial ``i`` of batched stores, ECC-decoded (its counts go to
-        ``stats``); pass-through leaves stay views."""
-        restored, st = cim_lib.read_pytree_impl(trial_params(batched, i))
+        ``stats``); pass-through leaves stay views. A column block is
+        decoded here, then the matrix gathered over ``"model"`` and its
+        counts summed there (``deployment.read_placed``)."""
+        from repro_torch.core import deployment as dep_lib
+        restored, st = {}, {"corrected": 0, "uncorrectable": 0}
+        for path, leaf in trial_params(batched, i).items():
+            if cim_lib._is_store(leaf):
+                restored[path], got = dep_lib.read_placed(leaf, self.mesh)
+                st = {k: st[k] + got[k] for k in st}
+            else:
+                restored[path] = leaf
         stats.append(st)
         return restored
 
@@ -459,6 +497,7 @@ class SweepEngine:
                 cfg = dataclasses.replace(cim_cfg or cim_lib.CIMConfig(),
                                           protect=protect)
                 stores, _ = cim_lib.deploy_pytree_impl(flat, cfg)
+                stores = self._shard_stores(stores)
                 for b, ber in enumerate(plan.bers):
                     thr = fi_ops.ber_to_threshold(ber)
                     cell_seeds = seeds[arm, b, self.trials]
@@ -521,6 +560,8 @@ class SweepEngine:
         for arm, (name, policy) in enumerate(policies):
             dep = dep_lib.CIMDeployment.deploy(flat, policy)
             arm_bits = dep.bit_cost()["stored_bits"]
+            dep = dataclasses.replace(
+                dep, stores=self._shard_stores(dep.stores), mesh=self.mesh)
             for b, ber in enumerate(plan.bers):
                 cell_seeds = seeds[arm][b][self.trials]
                 batched = policy_inject_batched(dep, cell_seeds, ber)

@@ -12,8 +12,9 @@ Layout, one directory per step::
 A step is written into ``step_XXXXXXXX.tmp`` and renamed into place, then
 ``LATEST`` moves. ``tensors.pt`` holds nothing but tensors, so
 ``torch.load(weights_only=True)`` reads it; everything else (dicts, lists,
-Python scalars, ``None``, a :class:`~repro_torch.core.cim.CIMStore`'s shape
-and ``CIMConfig``, a :class:`~repro_torch.core.faultmodels.FaultProcess`)
+Python scalars, ``None``, a :class:`~repro_torch.core.cim.CIMStore`'s shape,
+``CIMConfig`` and mesh ``ShardInfo``, a
+:class:`~repro_torch.core.faultmodels.FaultProcess`)
 goes into the manifest as plain fields, so a restore rebuilds the tree
 without unpickling objects. Tensors are stored in their logical layout and
 restored onto an explicit device.
@@ -34,7 +35,7 @@ import torch
 
 from repro_torch.core import faultmodels as fm_lib
 from repro_torch.core.bitops import get_format
-from repro_torch.core.cim import CIMConfig, CIMStore
+from repro_torch.core.cim import CIMConfig, CIMStore, ShardInfo
 
 _SEP = "//"
 _PLANES = ("man", "sign", "exp", "codewords", "cache")
@@ -70,6 +71,9 @@ def _encode(node, key: str, tensors: dict):
             "cfg": {"n_group": cfg.n_group, "index": cfg.index,
                     "protect": cfg.protect, "fmt": cfg.fmt.name,
                     "row_weights": cfg.row_weights},
+            "shard": None if node.shard is None else {
+                f.name: getattr(node.shard, f.name)
+                for f in dataclasses.fields(node.shard)},
             "planes": {n: _encode(getattr(node, n), _child(key, n),
                                   tensors) for n in _PLANES}}}
     if isinstance(node, fm_lib.FaultProcess):
@@ -105,7 +109,14 @@ def _decode(node, tensors: dict, device):
                         row_weights=c["row_weights"])
         planes = {n: _decode(p, tensors, device)
                   for n, p in s["planes"].items()}
-        return CIMStore(shape=tuple(s["shape"]), cfg=cfg, **planes)
+        sh = s.get("shard")
+        if sh is not None:
+            sh = ShardInfo(**{**sh, "global_shape": tuple(sh["global_shape"]),
+                              "global_pad": tuple(sh["global_pad"]),
+                              "plane_shapes": tuple(
+                                  (k, tuple(v)) for k, v in
+                                  sh["plane_shapes"])})
+        return CIMStore(shape=tuple(s["shape"]), cfg=cfg, shard=sh, **planes)
     if "fault_process" in node:
         return fm_lib.FaultProcess(**node["fault_process"])
     if "dict" in node:

@@ -49,27 +49,62 @@ import torch.distributed as dist
 _CURRENT_MESH = None
 _ROWS_MESH = None          # the mesh whose batch axes split the activations
 MODEL_AXIS = "model"       # the dim that splits and combines the SRAM image
+# the ambient settings of a thread that runs one rank of an emulated mesh
+# (rank_thread); every other thread shares the module's
+_LOCAL = threading.local()
+
+
+def _ambient() -> Optional[dict]:
+    return getattr(_LOCAL, "ambient", None)
 
 
 def set_mesh(mesh) -> None:
     global _CURRENT_MESH
-    _CURRENT_MESH = mesh
+    own = _ambient()
+    if own is not None:
+        own["mesh"] = mesh
+    else:
+        _CURRENT_MESH = mesh
 
 
 def get_mesh():
-    return _CURRENT_MESH
+    own = _ambient()
+    return own["mesh"] if own is not None else _CURRENT_MESH
+
+
+@contextlib.contextmanager
+def rank_thread():
+    """Within the block this thread keeps its own ambient mesh and
+    split-rows setting (starting from the shared ones), so threads that run
+    the ranks of an emulated mesh (:func:`thread_ranks`) each set their own
+    (:func:`use_mesh`, :func:`split_rows`)."""
+    prev = _ambient()
+    _LOCAL.ambient = {"mesh": get_mesh(), "rows": rows_mesh()}
+    try:
+        yield
+    finally:
+        _LOCAL.ambient = prev
 
 
 @contextlib.contextmanager
 def use_mesh(mesh):
     """Make ``mesh`` the ambient mesh for the block; the previous one comes
     back on any exit."""
-    prev = _CURRENT_MESH
+    prev = get_mesh()
     set_mesh(mesh)
     try:
         yield mesh
     finally:
         set_mesh(prev)
+
+
+def _set_rows(mesh) -> None:
+    global _ROWS_MESH
+    own = _ambient()
+    if own is not None:
+        own["rows"] = mesh
+    else:
+        _ROWS_MESH = mesh
 
 
 @contextlib.contextmanager
@@ -78,28 +113,28 @@ def split_rows(mesh):
     split over ``mesh``'s batch axes (:func:`batch_rows`); ``None`` means
     every rank holds the whole batch. The previous setting comes back on
     any exit."""
-    global _ROWS_MESH
-    prev = _ROWS_MESH
-    _ROWS_MESH = mesh
+    prev = rows_mesh()
+    _set_rows(mesh)
     try:
         yield mesh
     finally:
-        _ROWS_MESH = prev
+        _set_rows(prev)
 
 
 def rows_mesh():
     """The mesh of the enclosing :func:`split_rows`, or None."""
-    return _ROWS_MESH
+    own = _ambient()
+    return own["rows"] if own is not None else _ROWS_MESH
 
 
 def axis_names(mesh=None) -> Tuple[str, ...]:
-    mesh = mesh if mesh is not None else _CURRENT_MESH
+    mesh = mesh if mesh is not None else get_mesh()
     return tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
 
 
 def axis_size(name: str, mesh=None) -> int:
     """Ranks along ``name`` (1 without a mesh or without that dim)."""
-    mesh = mesh if mesh is not None else _CURRENT_MESH
+    mesh = mesh if mesh is not None else get_mesh()
     names = axis_names(mesh)
     if name not in names:
         return 1
@@ -108,7 +143,7 @@ def axis_size(name: str, mesh=None) -> int:
 
 def axis_index(name: str, mesh=None) -> int:
     """This rank's coordinate along ``name`` (0 without it)."""
-    mesh = mesh if mesh is not None else _CURRENT_MESH
+    mesh = mesh if mesh is not None else get_mesh()
     if name not in axis_names(mesh):
         return 0
     return int(mesh.get_local_rank(mesh_dim=name))
@@ -146,12 +181,12 @@ def batch_rows(batch: int, mesh=None) -> slice:
 
 
 def _group(name: str, mesh):
-    mesh = mesh if mesh is not None else _CURRENT_MESH
+    mesh = mesh if mesh is not None else get_mesh()
     return mesh.get_group(mesh_dim=name)
 
 
 def _mesh(mesh):
-    return mesh if mesh is not None else _CURRENT_MESH
+    return mesh if mesh is not None else get_mesh()
 
 
 def _threaded(mesh) -> bool:
@@ -256,18 +291,50 @@ def sum_counts(counts: dict, name: str, mesh=None) -> dict:
     return {k: int(v) for k, v in zip(keys, t.tolist())}
 
 
+def first_value(x: float, mesh=None) -> float:
+    """Rank 0's ``x`` on every rank of ``mesh`` (the ambient one by
+    default; ``x`` itself without a mesh or on one rank): what a rank reads
+    from its own clock, decided once for all of them."""
+    mesh = _mesh(mesh)
+    names = axis_names(mesh)
+    if all(axis_size(a, mesh) == 1 for a in names):
+        return x
+    dev = "cuda" if _device_type(mesh) == "cuda" else "cpu"
+    t = torch.tensor([float(x)], dtype=torch.float64, device=dev)
+    for a in names:
+        t = all_gather_cat(t, a, mesh)[:1]
+    return float(t.item())
+
+
+def all_gather_world(obj, mesh) -> list:
+    """Every rank's picklable ``obj`` over the whole of ``mesh``, which
+    spans the world (or every thread of an emulated one), in rank order."""
+    if mesh.size() == 1:
+        return [obj]
+    if _threaded(mesh):
+        return mesh.exchange(obj, list)
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"a mesh of {mesh.size()} ranks in a world of "
+                         f"{dist.get_world_size()}")
+    out = [None] * mesh.size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
 def all_gather_objects(obj, name: str, mesh=None) -> list:
     """Every rank's picklable ``obj`` along ``name``, in rank order."""
     n = axis_size(name, mesh)
     if n == 1:
         return [obj]
+    if _threaded(mesh):
+        return _mesh(mesh).exchange(obj, lambda ps: _mesh(mesh).line(ps, name))
     out = [None] * n
     dist.all_gather_object(out, obj, group=_group(name, mesh))
     return out
 
 
 def _device_type(mesh=None) -> str:
-    mesh = mesh if mesh is not None else _CURRENT_MESH
+    mesh = mesh if mesh is not None else get_mesh()
     return mesh.device_type if mesh is not None else "cpu"
 
 
@@ -321,7 +388,8 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, name, mesh, dim):
-        ctx.name, ctx.mesh, ctx.dim = name, mesh, dim
+        # the mesh resolved now: the backward may run on another thread
+        ctx.name, ctx.mesh, ctx.dim = name, _mesh(mesh), dim
         ctx.n, ctx.index = axis_size(name, mesh), axis_index(name, mesh)
         return all_gather_cat(t, name, mesh, dim=dim)
 

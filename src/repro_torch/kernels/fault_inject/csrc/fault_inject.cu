@@ -23,6 +23,12 @@
 // c / (col_div*m_len) (bank, wrapping); a live unit (its hash below m_thr)
 // keeps the threshold, a dead one copies. fault_inject_burst_tile_kernel
 // draws for the live elements alone (design below, at the kernel).
+// A column shard (fault_inject_batched at a placement): the plane [R, C] is
+// columns col_off .. col_off + C - 1 of a [R, global_cols] plane, and
+// element (r, c) draws at the counter index r*global_cols + col_off + c,
+// its process geometry (row, macro-column unit, bank) that of the global
+// plane, so each shard's copies are that block of the unsharded copies. The
+// unsharded launch (col_off 0, global_cols C) keeps the code above.
 // K4 over a run table (fault_inject_runs): the plane [rows, cols] is a leaf
 // or a block of a leaf whose counter plane is `width` words wide and cut
 // into counter chunks of at most 2^27 elements, each drawn from its own
@@ -90,10 +96,12 @@ struct alignas(sizeof(W) * VEC) Pack {
 
 // A fault process's payload (faultmodels.model_scalars) and the plane's
 // layout: `width` words a row (the plane's C), `col_div` words a
-// macro-column unit.
+// macro-column unit; a column shard's place in its global plane, whose rows
+// are `gcols` words wide, at column `col_off` (0 and C unsharded).
 struct Model {
   uint32_t m_thr, m_len, width, col_div;
   int axis;
+  uint32_t col_off, gcols;
 };
 
 // The correlated column group of each element of the chunk at e0, from its
@@ -108,13 +116,33 @@ __device__ __forceinline__ void chunk_keys(uint32_t (&key)[VEC], uint32_t e0, co
   }
 }
 
+// A column shard's chunk at local e0: each element's global counter index
+// and (KIND != MODEL_IID) its correlated column group, from the global
+// column col_off + c (a chunk may wrap onto the next local row).
+template <int VEC, int KIND>
+__device__ __forceinline__ void chunk_at(uint32_t (&g)[VEC], uint32_t (&key)[KIND == MODEL_IID ? 1 : VEC],
+                                         uint32_t e0, const Model& md) {
+  uint32_t row = e0 / md.width, col = e0 - row * md.width;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    g[k] = row * md.gcols + md.col_off + col;
+    if constexpr (KIND != MODEL_IID) key[k] = (md.col_off + col) / md.col_div / md.m_len;
+    if (++col == md.width) {
+      col = 0u;
+      ++row;
+    }
+  }
+}
+
 // KIND picks the threshold code at compile time: MODEL_IID (drift too, its
 // threshold pre-scaled on the host) is the plain kernel, unchanged;
 // MODEL_CORRELATED scales the threshold per element. The column group of
 // each element of a chunk is found once a chunk; its hash (keyed by the
 // trial seed) once a trial, and only where it differs from the previous
-// element's. Burst takes fault_inject_burst_tile_kernel below.
-template <typename W, int VEC, int KIND>
+// element's. AT draws a column shard at its global counters (chunk_at);
+// without it the local index is the counter, as before. Burst takes
+// fault_inject_burst_tile_kernel below.
+template <typename W, int VEC, int KIND, bool AT>
 __global__ void __launch_bounds__(NT)
 fault_inject_batched_kernel(const W* __restrict__ bits, W* __restrict__ out,
                             const uint32_t* __restrict__ seeds, int n_trials,
@@ -128,7 +156,9 @@ fault_inject_batched_kernel(const W* __restrict__ bits, W* __restrict__ out,
     const uint32_t e0 = c * VEC;
     const Pack<W, VEC> in = *reinterpret_cast<const Pack<W, VEC>*>(bits + e0);
     uint32_t key[KIND == MODEL_IID ? 1 : VEC];   // column group
-    if constexpr (KIND != MODEL_IID) chunk_keys<VEC>(key, e0, md);
+    uint32_t g[AT ? VEC : 1];                    // global counter indices
+    if constexpr (AT) chunk_at<VEC, KIND>(g, key, e0, md);
+    else if constexpr (KIND != MODEL_IID) chunk_keys<VEC>(key, e0, md);
     for (int t = 0; t < n_trials; ++t) {
       const uint32_t seed = __ldg(seeds + t);
       const uint32_t seed_mul = seed * GOLD;
@@ -142,7 +172,7 @@ fault_inject_batched_kernel(const W* __restrict__ bits, W* __restrict__ out,
           if (k == 0 || key[k] != key[k - 1]) h = hash_u32(key[k] ^ useed);
           thr = correlated_threshold(h, md.m_thr, threshold);
         }
-        const uint32_t base = (e0 + k) * 32u;
+        const uint32_t base = (AT ? g[k] : e0 + k) * 32u;
         uint32_t mask = 0u;
         if (thr != 0u) {
           for (int p = lo; p <= hi; ++p) {
@@ -195,12 +225,16 @@ __host__ __device__ constexpr int burst_cols() {   // words a tile row
 }
 
 // The plane and its process as the burst kernel takes them: unit lengths
-// clamped to the plane (m_row = min(m_len, rows), cd = min(col_div * m_len,
-// cols): a longer unit holds the whole plane either way), and the tile
-// grid, tiles_c tiles a row of tiles.
+// clamped to the global plane (m_row = min(m_len, rows), cd = min(col_div *
+// m_len, gcols): a longer unit holds the whole plane either way), the tile
+// grid, tiles_c tiles a row of tiles, and the plane's place in its global
+// plane: column col_off of rows gcols words wide (0 and cols unsharded).
+// Counters and column units are the global plane's; tiles, loads and stores
+// the local plane's.
 struct BurstTiles {
   uint32_t rows, cols, m_row, cd, m_thr, tiles_c, n_tiles;
   int axis;
+  uint32_t col_off, gcols;
 };
 
 template <typename W>
@@ -247,8 +281,8 @@ __device__ __forceinline__ void enter_band(Band& bd, const BurstSmem<W>& sm, uin
 // write the nonzero masks. A slot past `total` draws for nothing.
 template <int U, typename W>
 __device__ __forceinline__ void draw_live(uint32_t& i, uint32_t total, Band& bd,
-                                          BurstSmem<W>& sm, bool bank, uint32_t base,
-                                          uint32_t cols, uint32_t lanes, int lo, int hi,
+                                          BurstSmem<W>& sm, bool bank, uint32_t gbase,
+                                          uint32_t gcols, uint32_t lanes, int lo, int hi,
                                           uint32_t threshold, uint32_t seed_mul) {
   constexpr uint32_t TC = burst_cols<W>(), NONE = BurstSmem<W>::TILE;
   uint32_t ctr32[U], at[U], mask[U];
@@ -264,7 +298,7 @@ __device__ __forceinline__ void draw_live(uint32_t& i, uint32_t total, Band& bd,
       const uint32_t col = sm.list[bd.list + j - q * bd.n];
       const uint32_t row = bd.rs + q;
       at[u] = row * TC + col;
-      ctr32[u] = (base + row * cols + col) * 32u;
+      ctr32[u] = (gbase + row * gcols + col) * 32u;
     }
     i += BURST_NT;
   }
@@ -281,7 +315,9 @@ __device__ __forceinline__ void draw_live(uint32_t& i, uint32_t total, Band& bd,
 }
 
 // Eight blocks an SM at 16-byte chunks (the registers capped to fit them).
-template <typename W, int VEC>
+// AT draws a column shard at its global counters and column units; without
+// it the local plane is the global one (the code before shards).
+template <typename W, int VEC, bool AT>
 __global__ void __launch_bounds__(BURST_NT, VEC > 1 ? 8 : 1)
 fault_inject_burst_tile_kernel(const W* __restrict__ bits, W* __restrict__ out,
                                const uint32_t* __restrict__ seeds, int n_trials,
@@ -302,7 +338,9 @@ fault_inject_burst_tile_kernel(const W* __restrict__ bits, W* __restrict__ out,
     const uint32_t tr = tile / bt.tiles_c, tc = tile - tr * bt.tiles_c;
     const uint32_t r0 = tr * TR, c0 = tc * TC;
     const uint32_t trv = min(TR, bt.rows - r0), tcv = min(TC, bt.cols - c0);
-    const uint32_t base = r0 * bt.cols + c0;
+    const uint32_t base = r0 * bt.cols + c0;                // local
+    const uint32_t gbase = AT ? r0 * bt.gcols + bt.col_off + c0 : base;   // counter
+    const uint32_t gcols = AT ? bt.gcols : bt.cols, goff = AT ? bt.col_off : 0u;
     // the thread's chunks tid + k * BURST_NT, whole where they lie in the
     // plane (VEC divides cols): into its own slots, read back by itself at
     // the first store (the last store of the tile before has read them)
@@ -325,10 +363,10 @@ fault_inject_burst_tile_kernel(const W* __restrict__ bits, W* __restrict__ out,
     if (tid <= nb)
       sm.rs[tid] = tid == 0u ? 0u : tid == nb ? trv : (ru_lo + tid) * bt.m_row - r0;
     // column units: each column's, less the tile's first (none on the row axis)
-    const uint32_t cu_lo = row_axis ? 0u : c0 / bt.cd;
+    const uint32_t cu_lo = row_axis ? 0u : (goff + c0) / bt.cd;
     if (!row_axis)
       for (uint32_t c = tid; c < tcv; c += BURST_NT)
-        sm.ucol[c] = (uint8_t)((c0 + c) / bt.cd - cu_lo);
+        sm.ucol[c] = (uint8_t)((goff + c0 + c) / bt.cd - cu_lo);
     __syncthreads();
     for (int t = 0; t < n_trials; ++t) {
       const uint32_t seed = __ldg(seeds + t);
@@ -372,13 +410,13 @@ fault_inject_burst_tile_kernel(const W* __restrict__ bits, W* __restrict__ out,
       Band bd;
       enter_band(bd, sm, 0u, 0u, bank);
       for (; rem >= 8u; rem -= 8u)
-        draw_live<8>(i, total, bd, sm, bank, base, bt.cols, lanes, lo, hi, threshold, seed_mul);
+        draw_live<8>(i, total, bd, sm, bank, gbase, gcols, lanes, lo, hi, threshold, seed_mul);
       if (rem & 4u)
-        draw_live<4>(i, total, bd, sm, bank, base, bt.cols, lanes, lo, hi, threshold, seed_mul);
+        draw_live<4>(i, total, bd, sm, bank, gbase, gcols, lanes, lo, hi, threshold, seed_mul);
       if (rem & 2u)
-        draw_live<2>(i, total, bd, sm, bank, base, bt.cols, lanes, lo, hi, threshold, seed_mul);
+        draw_live<2>(i, total, bd, sm, bank, gbase, gcols, lanes, lo, hi, threshold, seed_mul);
       if (rem & 1u)
-        draw_live<1>(i, total, bd, sm, bank, base, bt.cols, lanes, lo, hi, threshold, seed_mul);
+        draw_live<1>(i, total, bd, sm, bank, gbase, gcols, lanes, lo, hi, threshold, seed_mul);
       __syncthreads();
       // (c) copy t: the words XOR their masks, one store each; masks cleared
       if constexpr (VEC > 1)
@@ -408,7 +446,10 @@ void launch(const void* bits, void* out, const void* seeds, int n_trials,
   const uint32_t n_chunks = n / VEC;
   const int blocks = (int)((n_chunks + NT - 1) / NT < MAX_BLOCKS
                                ? (n_chunks + NT - 1) / NT : MAX_BLOCKS);
-  fault_inject_batched_kernel<W, VEC, KIND><<<blocks, NT, 0, stream>>>(
+  const bool at = md.col_off != 0u || md.gcols != md.width;
+  auto kernel = at ? fault_inject_batched_kernel<W, VEC, KIND, true>
+                   : fault_inject_batched_kernel<W, VEC, KIND, false>;
+  kernel<<<blocks, NT, 0, stream>>>(
       static_cast<const W*>(bits), static_cast<W*>(out),
       static_cast<const uint32_t*>(seeds), n_trials, n, lanes, threshold, md);
 }
@@ -445,7 +486,9 @@ template <typename W, int VEC>
 int launch_burst(const void* bits, void* out, const void* seeds, int n_trials,
                  uint32_t lanes, uint32_t threshold, const BurstTiles& bt,
                  cudaStream_t stream) {
-  auto kernel = fault_inject_burst_tile_kernel<W, VEC>;
+  const bool at = bt.col_off != 0u || bt.gcols != bt.cols;
+  auto kernel = at ? fault_inject_burst_tile_kernel<W, VEC, true>
+                   : fault_inject_burst_tile_kernel<W, VEC, false>;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -472,8 +515,9 @@ int dispatch_burst(const void* bits, void* out, const void* seeds, int n_trials,
   const uint64_t cd = (uint64_t)md.col_div * md.m_len;
   const uint32_t tiles_c = (cols + TC - 1) / TC;
   const BurstTiles bt{rows, cols, md.m_len < rows ? md.m_len : rows,
-                      cd < cols ? (uint32_t)cd : cols, md.m_thr, tiles_c,
-                      (rows + BURST_ROWS - 1) / BURST_ROWS * tiles_c, md.axis};
+                      cd < md.gcols ? (uint32_t)cd : md.gcols, md.m_thr, tiles_c,
+                      (rows + BURST_ROWS - 1) / BURST_ROWS * tiles_c, md.axis,
+                      md.col_off, md.gcols};
   if (aligned16(bits) && aligned16(out) && cols % VEC == 0)
     return launch_burst<W, VEC>(bits, out, seeds, n_trials, lanes, threshold, bt, stream);
   return launch_burst<W, 1>(bits, out, seeds, n_trials, lanes, threshold, bt, stream);
@@ -668,24 +712,33 @@ int dispatch_runs(const void* src, void* dst, uint32_t n, uint32_t cols, uint32_
 // on the device. `m_thr`, `m_len`, `model_kind` (0 i.i.d. or drift, 1
 // burst, 2 correlated), `model_axis` (0 row, 1 col, 2 bank) and `col_div`
 // are the fault-process slots of the reference's batched kernel; the i.i.d.
-// kind takes zero parameters. Returns 0 on success, a cudaError_t after a
-// refused launch, or -1 for arguments the kernel does not take.
+// kind takes zero parameters. The plane is columns `col_off` .. `col_off` +
+// cols - 1 of a [rows, global_cols] plane (0 and cols for a whole plane),
+// whose rows * global_cols elements must fit the counter space. Returns 0 on
+// success, a cudaError_t after a refused launch, or -1 for arguments the
+// kernel does not take.
 extern "C" int fault_inject_batched(const void* bits, void* out,
                                     const void* seeds, int n_trials, int rows,
                                     int cols, int elem_bytes, unsigned int lanes,
                                     unsigned int threshold, unsigned int m_thr,
                                     unsigned int m_len, int model_kind,
-                                    int model_axis, int col_div, void* stream) {
+                                    int model_axis, int col_div, int col_off,
+                                    int global_cols, void* stream) {
   const uint64_t n = (uint64_t)rows * (uint64_t)cols;
   const int width = 8 * elem_bytes;
   const bool iid = model_kind == MODEL_IID;
+  if (col_off < 0 || global_cols < 1 ||
+      (uint64_t)col_off + (uint64_t)cols > (uint64_t)global_cols ||
+      (uint64_t)rows * (uint64_t)global_cols > MAX_COUNTER_ELEMENTS)
+    return -1;
   if (n_trials < 1 || rows < 1 || cols < 1 || n > MAX_COUNTER_ELEMENTS ||
       (width < 32 && (lanes >> width) != 0u) || model_kind < MODEL_IID ||
       model_kind > MODEL_CORRELATED || model_axis < AXIS_ROW ||
       model_axis > AXIS_BANK || col_div < 1 ||
       (iid ? (m_thr != 0u || m_len != 0u) : m_len < 1u))
     return -1;
-  const Model md{m_thr, m_len, (uint32_t)cols, (uint32_t)col_div, model_axis};
+  const Model md{m_thr, m_len, (uint32_t)cols, (uint32_t)col_div, model_axis,
+                 (uint32_t)col_off, (uint32_t)global_cols};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (model_kind == MODEL_BURST) {
     const uint32_t r = (uint32_t)rows, c = (uint32_t)cols;

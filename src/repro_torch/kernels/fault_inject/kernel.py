@@ -3,11 +3,14 @@
 
 * K3 :func:`fault_inject_batched` replaces ``fault_inject_batched_pallas``:
   ``bits [R, C]`` (uint8, uint16 or uint32 held in int32) and trial seeds
-  ``[T]`` -> ``[T, R, C]`` faulted copies, threshold and seeds at run time.
-  A burst process on any axis takes ``fault_inject_burst_tile_kernel``
-  (tiles of ``BURST_ROWS`` x ``burst_cols`` words in shared memory, only
-  the live units' elements drawn); i.i.d., drift and correlated take
-  ``fault_inject_batched_kernel``. One launch a call either way.
+  ``[T]`` -> ``[T, R, C]`` faulted copies, threshold and seeds at run time;
+  at a placement ``at = (col_off, global_cols)`` the plane is that column
+  block of a ``[R, global_cols]`` plane and draws at its global counters
+  (:func:`check_placement`). A burst process on any axis takes
+  ``fault_inject_burst_tile_kernel`` (tiles of ``BURST_ROWS`` x
+  ``burst_cols`` words in shared memory, only the live units' elements
+  drawn); i.i.d., drift and correlated take ``fault_inject_batched_kernel``.
+  One launch a call either way.
 * K4 :func:`fault_inject_runs` replaces ``fault_inject_pallas``: one seed
   over a uint16 plane, or over the fp16 bit patterns of a float32 plane
   (the round trip to fp16 and back fused, in place or not), with the
@@ -97,7 +100,7 @@ def reset_launch_counts() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.fault_inject_batched.argtypes = [vp, vp, vp] + [i] * 4 + [u] * 4 \
-        + [i, i, i, vp]
+        + [i] * 5 + [vp]
     lib.fault_inject_batched.restype = i
     lib.fault_inject_runs.argtypes = [vp, vp] + [i] * 5 + [u] * 3 \
         + [i, vp, i, vp]
@@ -112,7 +115,7 @@ timed_build = LIBRARY.timed_build
 def _launch(name: str, bits: torch.Tensor, seeds, threshold: int,
             positions: Sequence[int], m_thr: int, m_len: int,
             model_kind: str = "iid", model_axis: str = "row",
-            col_div: int = 1) -> torch.Tensor:
+            col_div: int = 1, at=None) -> torch.Tensor:
     if bits.device.type != "cuda":
         raise ValueError(f"{name}: bits lie on {bits.device}; the kernel "
                          f"takes CUDA tensors (ops routes the CPU)")
@@ -124,7 +127,7 @@ def _launch(name: str, bits: torch.Tensor, seeds, threshold: int,
         raise ValueError(f"{name}: fault process {model_kind!r} / "
                          f"{model_axis!r} / col_div {col_div} not taken")
     r, c = bits.shape
-    check_counter_space(r, c)
+    col_off, gcols = check_placement(r, c, at)
     bits = bits.contiguous()
     if isinstance(seeds, torch.Tensor) and seeds.device == bits.device:
         seeds_dev = seeds.reshape(-1).to(torch.int32).contiguous()
@@ -139,7 +142,7 @@ def _launch(name: str, bits: torch.Tensor, seeds, threshold: int,
         bits.element_size(), lanes, int(threshold) & 0xFFFFFFFF,
         int(m_thr) & 0xFFFFFFFF, int(m_len) & 0xFFFFFFFF,
         MODEL_KINDS[model_kind], MODEL_AXES[model_axis], int(col_div),
-        stream_of(bits))
+        col_off, gcols, stream_of(bits))
     check_rc(rc, name)
     launch_counts[name] += 1
     return out
@@ -149,16 +152,31 @@ def fault_inject_batched(bits: torch.Tensor, seeds, threshold: int, *,
                          positions: Sequence[int], m_thr: int = 0,
                          m_len: int = 0, model_kind: str = "iid",
                          model_axis: str = "row",
-                         col_div: int = 1) -> torch.Tensor:
+                         col_div: int = 1, at=None) -> torch.Tensor:
     """K3: bits [R, C] on the card, seeds uint32 [T] -> [T, R, C] faulted
     copies (bit p of element e flips in trial t iff
     ``hash_u32((e*32 + p) ^ seeds[t]*0x9E3779B9) < thr(e, t)``). ``thr`` is
     ``threshold`` for ``model_kind`` iid or drift (drift comes pre-scaled);
     burst and correlated compute it per element in the kernel from the
     ``m_thr``/``m_len`` payload, the plane width C, ``col_div`` and the
-    trial seed (``faultmodels.scale_elem_thresholds``)."""
+    trial seed (``faultmodels.scale_elem_thresholds``). ``at = (col_off,
+    global_cols)`` draws the plane as that column block of a ``[R,
+    global_cols]`` plane: e is then ``r * global_cols + col_off + c`` and
+    the process geometry the global plane's."""
     return _launch(K3, bits, seeds, threshold, positions, m_thr, m_len,
-                   model_kind, model_axis, col_div)
+                   model_kind, model_axis, col_div, at)
+
+
+def check_placement(r: int, c: int, at) -> tuple:
+    """``(col_off, global_cols)`` of an ``[r, c]`` plane placed at ``at``
+    (None: the whole plane, ``(0, c)``): the block must lie in its global
+    plane, and the global plane in the counter space."""
+    col_off, gcols = (0, c) if at is None else (int(v) for v in at)
+    if col_off < 0 or col_off + c > gcols:
+        raise ValueError(f"fault_inject at column {col_off}: a [{r}, {c}] "
+                         f"block leaves its {gcols}-wide plane")
+    check_counter_space(r, gcols)
+    return col_off, gcols
 
 
 def check_at(r: int, c: int, at) -> None:

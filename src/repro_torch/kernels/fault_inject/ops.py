@@ -107,9 +107,34 @@ def fault_inject_bits(bits: torch.Tensor, *, seed: int, ber: float,
                              width=width, fold=False)
 
 
+def placement(at, c: int, plane: str = None):
+    """``(col_off, global_cols)`` of a 2-D plane ``c`` words wide from
+    ``at``: None (the whole plane), a ``(col_off, global_cols)`` pair, or a
+    column shard's ``cim.ShardInfo`` with the ``plane`` it cut (``'man'``,
+    ``'cw'``, ``'exp'``, ``'sign'``; a 4-D plane's global width is its
+    flattened row). A shard that holds the whole image is the whole plane;
+    a K shard raises (a sweep places ``dim='j'`` only)."""
+    if at is None or isinstance(at, tuple):
+        return at
+    if not at.sharded:
+        return None
+    if at.dim != "j":
+        raise NotImplementedError(
+            "fault_inject_bits_batched: a K-sharded plane (dim='k') has no "
+            "column placement; the sweep places dim='j'")
+    gshape = at.plane_shape(plane)
+    gcols = int(np.prod(gshape[1:]))
+    if gcols != c * at.n_shards:
+        raise ValueError(f"fault_inject_bits_batched: a {c}-word block is "
+                         f"not 1/{at.n_shards} of plane {plane!r} "
+                         f"{tuple(gshape)}")
+    return at.index * c, gcols
+
+
 def fault_inject_bits_batched(bits: torch.Tensor, seeds, threshold, *,
                               positions: Sequence[int], model=None,
-                              col_div: int = 1) -> torch.Tensor:
+                              col_div: int = 1, at=None,
+                              plane: str = None) -> torch.Tensor:
     """Trial-batched injection: bits [R, C] -> [T, R, C] (K3 on the card).
 
     ``seeds`` is uint32 [T], ``threshold`` the uint32 of
@@ -118,21 +143,25 @@ def fault_inject_bits_batched(bits: torch.Tensor, seeds, threshold, *,
     kernel, from its ``m_thr``/``m_len`` payload and the trial's seed;
     drift pre-scales ``threshold`` by its static tick here; i.i.d. (and
     ``None``) keep it. ``col_div`` is the plane's macro-column unit in words
-    (``S*W`` for a flattened codeword plane ``[B, G*S*W]``)."""
+    (``S*W`` for a flattened codeword plane ``[B, G*S*W]``). ``at`` places
+    the plane as a column block of a wider plane (:func:`placement`: a
+    ``(col_off, global_cols)`` pair, or a ``ShardInfo`` with its ``plane``
+    name): each element draws at its global counter, under the global
+    plane's process geometry, and the counter space checked is the global
+    plane's."""
     model = fm.parse_fault_model(model)
     threshold = fm.compiled_threshold(model, threshold)
     m_thr, m_len = fm.model_scalars(model)
     kind = model.kind if model is not None else "iid"
     axis = model.axis if model is not None else "row"
     r, c = bits.shape
-    kernel_lib.check_counter_space(r, c)
+    at = placement(at, c, plane)
+    kernel_lib.check_placement(r, c, at)
+    kw = dict(positions=tuple(positions), m_thr=m_thr, m_len=m_len,
+              model_kind=kind, model_axis=axis, col_div=col_div, at=at)
     if bits.device.type == "cuda":
-        return kernel_lib.fault_inject_batched(
-            bits, seeds, threshold, positions=tuple(positions), m_thr=m_thr,
-            m_len=m_len, model_kind=kind, model_axis=axis, col_div=col_div)
-    return ref.fault_inject_batched_ref(
-        bits, seeds, threshold, positions=tuple(positions), m_thr=m_thr,
-        m_len=m_len, model_kind=kind, model_axis=axis, col_div=col_div)
+        return kernel_lib.fault_inject_batched(bits, seeds, threshold, **kw)
+    return ref.fault_inject_batched_ref(bits, seeds, threshold, **kw)
 
 
 def fault_inject_fp16(w: torch.Tensor, *, seed: int, ber: float,

@@ -58,8 +58,25 @@ under wear is meant to rot into non-finite logits, and is served with
 scrubber (:mod:`repro_torch.launch.scrub`) ages and rewrites the image from:
 ``refresh_params(force=True)`` swaps the params with requests in flight and
 ``record_scrub`` logs a scrub. ``replica``, ``drain``, ``start`` and
-``depth`` serve the fleet router (:mod:`repro_torch.launch.fleet`). The
-mesh waits for ROADMAP Queue 1 item 14b-2.
+``depth`` serve the fleet router (:mod:`repro_torch.launch.fleet`).
+
+**On a mesh** (``mesh=``, default the ambient mesh at construction; the
+reference runs its engine under the ambient mesh): the serving params'
+stores are column blocks placed ``dim='j'`` (``CIMDeployment.shard``), and
+every step runs under the mesh, so the fused reads go through
+``cim_linear_store_sharded`` and the embed's row reads gather their
+columns over ``"model"``. The scheduler (queue, slots, positions, the
+prefix trie) is the same on every rank: it decides from what every rank
+sees alike, and the one thing a rank reads from its own clock, which
+requests have arrived at a step, is rank 0's reading
+(:func:`sharding.first_value`). A request's ECC charge is summed over
+``"model"`` (each rank counts its blocks), a prefix hit's replay too. The
+slots split over the batch axes (``"data"``) when they divide ``n_slots``
+(the lock-step serve's rule, ``sharding.batch_rows``): a decode step
+computes this rank's slots and the logits are gathered; a prompt chunk is
+prefilled on every data rank, so every rank holds the same trie and the
+prefilled state of every slot it may decode. Otherwise every data rank runs
+every slot.
 """
 from __future__ import annotations
 
@@ -75,6 +92,7 @@ import torch
 from repro_torch.core import cim as cim_lib
 from repro_torch.core import deployment as dep_lib
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shlib
 from repro_torch.models import lm
 from repro_torch.training import steps as steps_lib
 
@@ -324,13 +342,17 @@ class Engine:
                  max_len: int = 64, chunk: int = 16,
                  collect_logits: bool = False, ecc_accounting: bool = True,
                  check_finite: bool = True, prefix_cache=None,
-                 replica: str = ""):
+                 replica: str = "", mesh=None):
         cfg = model.cfg
         specs = lm.check_engine_kinds(cfg)
         if not (n_slots >= 1 and chunk >= 1 and max_len >= 2):
             raise ValueError(f"Engine: n_slots {n_slots}, chunk {chunk}, "
                              f"max_len {max_len}")
         self.device = resolve_device(model.embed.device)
+        self.mesh = mesh if mesh is not None else shlib.get_mesh()
+        # this rank's slots of a decode step (every slot unless the batch
+        # axes divide n_slots)
+        self._rows = shlib.batch_rows(n_slots, self.mesh)
         self.params = dict(params or {})
         self._check_devices()
         self.cfg = cfg
@@ -394,14 +416,18 @@ class Engine:
     # ------------------------------------------------------------ ECC
 
     def _build_ecc_fns(self):
-        """One per-read ECC accountant per deployed store, in path order.
+        """One per-read ECC accountant per deployed store, in path order:
+        ``(path, fn, local)``, ``fn(req_salt, pos)`` -> (corrected,
+        uncorrectable), ``local`` when they are a column block's, to be
+        summed over ``"model"`` (:meth:`_charge_reads`).
 
         Static image: its corrected/uncorrectable counts are a constant,
-        computed once and charged per read. Dynamic runtime: each read
-        re-derives the (request, position) flip streams the model's read
-        drew and counts the ECC events of that faulted image. The counts
-        come from the codeword plane alone, so only it is flipped; with
-        no codewords (``protect='none'``) they are zero."""
+        computed once (a block's summed over the mesh then) and charged per
+        read. Dynamic runtime: each read re-derives the (request, position)
+        flip streams the model's read drew, at the block's global
+        coordinates, and counts the ECC events of that faulted image. The
+        counts come from the codeword plane alone, so only it is flipped;
+        with no codewords (``protect='none'``) they are zero."""
         fns = []
         rt = self._runtime
         for path in sorted(self.params):
@@ -410,34 +436,47 @@ class Engine:
                 continue
             self.store_ecc.setdefault(path, _ecc_zero())
             if rt is None or store.codewords is None:
-                st = cim_lib.store_stats(store)
+                st = dep_lib.store_stats_placed(store, self.mesh) \
+                    if store.shard is not None else cim_lib.store_stats(store)
                 const = (st["corrected"], st["uncorrectable"])
-                fns.append((path, lambda req_salt, pos, c=const: c))
+                fns.append((path, lambda req_salt, pos, c=const: c, False))
                 continue
 
             def dyn(req_salt, pos, store=store, salt=dep_lib.leaf_salt(path)):
                 seeds = dep_lib.request_read_seeds(rt["seeds"], salt,
                                                    req_salt, pos)
                 _, thr_meta, model = dep_lib.read_thresholds(rt, pos)
+                elem, shape = cim_lib._plane_elem(store, "cw",
+                                                  store.codewords)
                 cw = cim_lib.counter_flip_words(
                     store.codewords, seeds["cw"], thr_meta,
-                    cim_lib.codeword_valid_masks(store.cfg), model=model)
+                    cim_lib.codeword_valid_masks(store.cfg), model=model,
+                    elem=elem, shape=shape)
                 st = cim_lib.store_stats(
                     dataclasses.replace(store, codewords=cw))
                 return st["corrected"], st["uncorrectable"]
-            fns.append((path, dyn))
+            sharded = store.shard is not None and store.shard.sharded
+            fns.append((path, dyn, sharded))
         return fns
 
     def _charge_reads(self, slot: _Slot, salt: int, pos: int) -> None:
         """Charge one CIM read of every deployed store at read index
         ``pos``: to the request's counters, its ``ecc_window`` series (one
-        row per read) and the per-store totals."""
+        row per read) and the per-store totals. Column blocks' counts are
+        summed over ``"model"`` in one combine."""
         if not self._ecc_fns:
             return
         slot.ecc["reads"] += 1
+        counts = [fn(int(salt), int(pos)) for _, fn, _ in self._ecc_fns]
+        local = [i for i, (_, _, loc) in enumerate(self._ecc_fns) if loc]
+        if local:
+            t = torch.tensor([counts[i] for i in local], dtype=torch.int64,
+                             device=self.device)
+            t = shlib.all_reduce_sum(t, shlib.MODEL_AXIS, self.mesh).cpu()
+            for i, (c, u) in zip(local, t.tolist()):
+                counts[i] = (c, u)
         corr = unc = 0
-        for path, fn in self._ecc_fns:
-            c, u = fn(int(salt), int(pos))
+        for (path, _, _), (c, u) in zip(self._ecc_fns, counts):
             corr += c
             unc += u
             store = self.store_ecc[path]
@@ -625,7 +664,11 @@ class Engine:
         if not hasattr(self, "_t0"):
             self._t0 = time.perf_counter()
         if now is None:
-            now = self._clock()
+            now = shlib.first_value(self._clock(), self.mesh)
+        with shlib.use_mesh(self.mesh):
+            return self._step(now)
+
+    def _step(self, now: float) -> dict:
         admitted, evicted = [], []
         while self.queue and self.free_slots():
             req, submit_t = self.queue[0]
@@ -646,9 +689,7 @@ class Engine:
                     "decoded": []}
 
         t0 = time.perf_counter()
-        tokens = torch.as_tensor(self._tokens, device=self.device)
-        logits, self.caches = self._decode(self.params, self.caches, tokens,
-                                           active, self._salts)
+        logits = self._decode_rows(active)
         logits = logits.cpu().numpy()      # the step's one wait on the card
         dt = time.perf_counter() - t0
         self.steps += 1
@@ -679,6 +720,25 @@ class Engine:
                 evicted.append(slot.rid)
         return {"idle": False, "admitted": admitted, "decoded": decoded,
                 "evicted": evicted}
+
+    def _decode_rows(self, active: np.ndarray) -> torch.Tensor:
+        """One decode step: every slot, or on a mesh whose batch axes split
+        the slots this rank's, in place in the slot states (views of its
+        rows), with the logits [n_slots, V] gathered over those axes."""
+        r = self._rows
+        tokens = torch.as_tensor(self._tokens[r], device=self.device)
+        if r == slice(None):
+            logits, self.caches = self._decode(self.params, self.caches,
+                                               tokens, active, self._salts)
+            return logits
+        view = {"layers": [{n: t[r] for n, t in st.items()}
+                           for st in self.caches["layers"]],
+                "pos": self.caches["pos"][r],
+                "pos_host": self.caches["pos_host"][r]}
+        with shlib.split_rows(self.mesh):
+            logits, _ = self._decode(self.params, view, tokens, active[r],
+                                     self._salts[r])
+        return shlib.gather_rows(logits.contiguous(), self.mesh)
 
     def run(self, requests, *, open_loop: bool = False, on_step=None
             ) -> Tuple[Dict[int, RequestResult], dict]:

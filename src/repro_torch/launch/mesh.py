@@ -11,8 +11,11 @@ quietly covers fewer ranks or falls back to the CPU.
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1x2 ...
 
-``make_sweep_mesh`` (the 2-D (trial, model) sweep) and
-``make_production_mesh`` wait for ROADMAP Queue 1 item 14b-2.
+Builders: ``make_host_mesh`` and ``make_serve_mesh`` (``("data",
+"model")``), ``make_trial_mesh`` (the 1-D Fig. 2/6 trial axis),
+``make_sweep_mesh`` (the 2-D ``("trial", "model")`` sweep: trials x macro
+column groups) and ``make_production_mesh`` (the reference's 16x16 or
+2x16x16 layout, which needs that many ranks).
 """
 from __future__ import annotations
 
@@ -101,3 +104,26 @@ def make_serve_mesh(spec: str, device_type: str = "cuda"):
     except ValueError:
         raise ValueError(f"--mesh {spec!r}: expected DxM, e.g. 2x4") from None
     return _mesh((d_ax, m_ax), ("data", "model"), device_type)
+
+
+def make_sweep_mesh(model_axis: int = 1, n_devices: int = 0,
+                    device_type: str = "cuda"):
+    """A 2-D ``("trial", "model")`` mesh of ``n_devices`` ranks (default:
+    the world): Monte-Carlo trials over ``"trial"``, each CIM store's packed
+    planes column-sharded over ``"model"`` (``core.sweep.SweepEngine``)."""
+    world = init_world(device_type)
+    n = n_devices or world
+    if model_axis < 1 or n % model_axis:
+        raise ValueError(f"model axis {model_axis} does not divide {n} ranks")
+    return _mesh((n // model_axis, model_axis), ("trial", "model"),
+                 device_type)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The reference's production layout: ``(16, 16)`` ``("data",
+    "model")``, or ``(2, 16, 16)`` with ``"pod"`` first; the world must hold
+    256 (512) ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, names, device_type)

@@ -88,8 +88,18 @@ prints. Under ``torchrun``, or 1x1 without it:
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve --mesh 1x2 \
       --rounds 2 --cim --ber 1e-4 --inject dynamic
 
-``--engine --mesh`` and ``--fleet --mesh`` wait for ROADMAP Queue 1 item
-14b-2 and raise.
+``--engine --mesh DxM`` runs the engine on that mesh (every store
+column-sharded over "model", the slots split over "data" when it divides
+``--slots``; :mod:`repro_torch.launch.engine`); ``--fleet N --mesh DxM``
+runs N replicas, each on its own block of D x M ranks
+(``fleet.make_fleet_meshes``; the world is N x D x M ranks). Each rank
+holds its blocks of the image; only rank 0 prints. ``--scrub`` and
+``--expert-cim`` on a mesh raise (ROADMAP Queue 1 item 14b-3).
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --engine \
+      --mesh 2x2 --cim --ber 1e-3 --inject dynamic --slots 4 --probe 0
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --fleet 2 \
+      --mesh 1x2 --cim --ber 1e-3 --inject dynamic --probe 5
 """
 from __future__ import annotations
 
@@ -400,7 +410,8 @@ def serve(model: LM, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
                f"{prefill_s * 1e3:.1f} ms; decode: {tok_per_s:.1f} tok/s")
         if mesh is not None:
             msg += (f" aggregate / {res['tok_per_s_device']:.1f} tok/s/device "
-                    f"(mesh {n_data}x{shlib.axis_size('model', mesh)} data x "
+                    f"(mesh {shlib.batch_ranks(mesh)}x"
+                    f"{shlib.axis_size('model', mesh)} data x "
                     f"model, {n_dev} devices; ECC over the image: corrected="
                     f"{ecc['corrected']} uncorrectable="
                     f"{ecc['uncorrectable']})")
@@ -448,7 +459,8 @@ def serve_engine(model: LM, params, *, slots: int = 4, chunk: int = 16,
                  max_len: int = 0, requests: int = 16, rate: float = 0.0,
                  prompt_range=(8, 32), gen_range=(4, 16), seed: int = 0,
                  shared_prefix: int = 0, ecc_accounting: bool = True,
-                 probe: int = -1, scrubber=None, verbose: bool = True):
+                 probe: int = -1, scrubber=None, verbose: bool = True,
+                 mesh=None):
     """Serve a synthetic load through the continuous-batching engine ->
     (results by rid, aggregate, probe record or None). ``rate`` 0 means all
     requests arrive at once; ``shared_prefix`` > 0 prepends one shared
@@ -456,7 +468,8 @@ def serve_engine(model: LM, params, *, slots: int = 4, chunk: int = 16,
     re-serves that request through a fresh engine of the same shape and
     raises unless its tokens and ECC charges match the co-batched run.
     ``scrubber`` (a :class:`~repro_torch.launch.scrub.ScrubController`)
-    runs after every engine step."""
+    runs after every engine step. On a ``mesh`` the engine (and the probe's)
+    runs on it, over ``params`` placed there."""
     if scrubber is not None and probe >= 0:
         raise ValueError("--probe replays against the launch image; "
                          "--scrub rewrites it")
@@ -468,7 +481,7 @@ def serve_engine(model: LM, params, *, slots: int = 4, chunk: int = 16,
     max_len = max_len or load.max_len()
     kw = dict(n_slots=slots, max_len=max_len, chunk=chunk,
               ecc_accounting=ecc_accounting,
-              prefix_cache=True if shared_prefix > 0 else None)
+              prefix_cache=True if shared_prefix > 0 else None, mesh=mesh)
     eng = engine_lib.Engine(model, params, **kw)
     reqs = load.requests()
     with torch.inference_mode():
@@ -512,19 +525,22 @@ def serve_fleet(model: LM, params, *, fleet: int = 2, slots: int = 4,
                 rate: float = 0.0, prompt_range=(8, 32), gen_range=(4, 16),
                 seed: int = 0, shared_prefix: int = 0,
                 prefix_cache: bool = True, ecc_accounting: bool = True,
-                probe: int = -1, spool_dir=None, verbose: bool = True):
+                probe: int = -1, spool_dir=None, verbose: bool = True,
+                meshes=None):
     """Serve a synthetic load through ``fleet`` engine replicas behind the
     SLO router -> (results by rid, aggregate, probe record or None).
     ``probe`` >= 0 re-serves that request through a fresh one-replica fleet
     restored from the same spool and raises unless its tokens and ECC
-    charges match the routed run."""
+    charges match the routed run. ``meshes`` (``fleet.make_fleet_meshes``)
+    puts each replica on its block; the probe then runs on every block,
+    each on its own replica's mesh."""
     load = _load(model, requests, rate, prompt_range, gen_range, seed,
                  shared_prefix)
     max_len = max_len or load.max_len()
     kw = dict(spool_dir=spool_dir, prefix_cache=prefix_cache, n_slots=slots,
               max_len=max_len, chunk=chunk, ecc_accounting=ecc_accounting)
     fl = fleet_lib.Fleet.from_serving_params(model, params, n_replicas=fleet,
-                                             **kw)
+                                             meshes=meshes, **kw)
     reqs = load.requests()
     with torch.inference_mode():
         results, agg = fl.run(reqs, open_loop=rate > 0)
@@ -539,7 +555,8 @@ def serve_fleet(model: LM, params, *, fleet: int = 2, slots: int = 4,
               f"{agg['n_replicas']} replicas x {slots} slots (chunk "
               f"{chunk}, max_len {max_len}); routed {by_rep}; spool "
               f"{sp['bytes'] / 1e6:.2f} MB, saved in {sp['save_s']:.2f} s, "
-              f"restored {fleet}x in {sp['restore_s']:.2f} s")
+              f"restored {1 if meshes is not None else fleet}x here in "
+              f"{sp['restore_s']:.2f} s")
         print(f"fleet: {agg['tok_s']:.1f} tok/s wall, "
               f"{agg['tok_s_virtual']:.1f} tok/s virtual (busy wall "
               f"{agg['busy_wall_s']:.2f} s of {agg['wall_s']:.2f} s); TTFT "
@@ -552,6 +569,8 @@ def serve_fleet(model: LM, params, *, fleet: int = 2, slots: int = 4,
         if not preq:
             raise ValueError(f"--probe {probe}: no such rid in the load")
         kw["spool_dir"] = fl.spool_dir
+        if meshes is not None:
+            kw["mesh"] = meshes[meshes.replica]
         pf = fleet_lib.Fleet.from_serving_params(model, params, n_replicas=1,
                                                  **kw)
         with torch.inference_mode():
@@ -660,16 +679,19 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.rounds < 1:
         raise ValueError("--rounds must be >= 1")
-    if args.mesh and (args.engine or args.fleet > 0):
+    if args.mesh and (args.engine or args.fleet > 0) and \
+            (args.scrub or args.expert_cim):
         raise NotImplementedError(
-            "--mesh with --engine or --fleet: the engine and the fleet on a "
-            "mesh wait for ROADMAP Queue 1 item 14b-2")
-    mesh = None
-    if args.mesh:
-        # the mesh first: under torchrun it binds this process to its card
-        mesh = mesh_lib.make_serve_mesh(
-            args.mesh, "cuda" if torch.device(args.device).type == "cuda"
-            else "cpu")
+            "--mesh with --scrub or --expert-cim: the scrubber and the "
+            "expert deployment on a mesh wait for ROADMAP Queue 1 item 14b-3")
+    mesh = meshes = None
+    dev_type = "cuda" if torch.device(args.device).type == "cuda" else "cpu"
+    # the mesh first: under torchrun it binds this process to its card
+    if args.mesh and args.fleet > 0:
+        meshes = fleet_lib.make_fleet_meshes(args.mesh, args.fleet, dev_type)
+        mesh = meshes[meshes.replica]
+    elif args.mesh:
+        mesh = mesh_lib.make_serve_mesh(args.mesh, dev_type)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -687,11 +709,11 @@ def main(argv=None):
             seed=args.seed, fault_model=args.fault_model)
     else:
         args.extra = None
-    if args.fleet > 0:
-        return _main_fleet(args, model)
-    if args.engine:
-        return _main_engine(args, model)
     try:
+        if args.fleet > 0:
+            return _main_fleet(args, model, mesh, meshes)
+        if args.engine:
+            return _main_engine(args, model, mesh)
         return serve(model, batch=args.batch, prompt_len=args.prompt_len,
                      gen=args.gen, seed=args.seed, cim=args.cim, ber=args.ber,
                      protect=args.protect, n_group=args.n_group,
@@ -752,9 +774,10 @@ _JSON_KEYS = ("arch", "reduced", "slots", "chunk", "max_len", "requests",
               "fault_model", "shared_prefix", "device", "expert_cim")
 
 
-def _main_engine(args, model: LM):
-    """``--engine``: deploy as the lock-step launch does, then serve the
-    load through the engine (and write ``--engine-json``)."""
+def _main_engine(args, model: LM, mesh=None):
+    """``--engine``: deploy as the lock-step launch does (placed on
+    ``mesh``), then serve the load through the engine (and write
+    ``--engine-json``, rank 0)."""
     scrubber = None
     if args.scrub:
         params, scrubber = _scrubber(args, model)
@@ -763,7 +786,8 @@ def _main_engine(args, model: LM):
             model, seed=args.seed, cim=args.cim, ber=args.ber,
             protect=args.protect, n_group=args.n_group, index=args.index,
             serve_path=args.serve_path, inject=args.inject, field=args.field,
-            fault_model=args.fault_model, extra=args.extra)
+            fault_model=args.fault_model, extra=args.extra, mesh=mesh,
+            verbose=_is_rank0())
     results, agg, probe = serve_engine(
         model, params, slots=args.slots, chunk=args.chunk,
         max_len=args.max_len, requests=args.requests, rate=args.rate,
@@ -771,21 +795,23 @@ def _main_engine(args, model: LM):
         gen_range=_parse_range(args.gen_range), seed=args.seed,
         shared_prefix=args.shared_prefix,
         ecc_accounting=not args.no_ecc_accounting, probe=args.probe,
-        scrubber=scrubber)
-    if args.engine_json:
+        scrubber=scrubber, mesh=mesh, verbose=_is_rank0())
+    if args.engine_json and _is_rank0():
         _write_json(args, _JSON_KEYS + ("scrub", "age_ber"), agg, probe,
                     results)
     return results, agg
 
 
-def _main_fleet(args, model: LM):
-    """``--fleet N``: deploy as the lock-step launch does, then serve the
-    load through N replicas (and write ``--engine-json``)."""
+def _main_fleet(args, model: LM, mesh=None, meshes=None):
+    """``--fleet N``: deploy as the lock-step launch does (placed on this
+    rank's replica mesh), then serve the load through N replicas (and write
+    ``--engine-json``, rank 0)."""
     params, _, _ = build_params(
         model, seed=args.seed, cim=args.cim, ber=args.ber,
         protect=args.protect, n_group=args.n_group, index=args.index,
         serve_path=args.serve_path, inject=args.inject, field=args.field,
-        fault_model=args.fault_model, extra=args.extra)
+        fault_model=args.fault_model, extra=args.extra, mesh=mesh,
+        verbose=_is_rank0())
     results, agg, probe = serve_fleet(
         model, params, fleet=args.fleet, slots=args.slots, chunk=args.chunk,
         max_len=args.max_len, requests=args.requests, rate=args.rate,
@@ -793,8 +819,9 @@ def _main_fleet(args, model: LM):
         gen_range=_parse_range(args.gen_range), seed=args.seed,
         shared_prefix=args.shared_prefix,
         prefix_cache=not args.no_prefix_cache,
-        ecc_accounting=not args.no_ecc_accounting, probe=args.probe)
-    if args.engine_json:
+        ecc_accounting=not args.no_ecc_accounting, probe=args.probe,
+        meshes=meshes, verbose=_is_rank0())
+    if args.engine_json and _is_rank0():
         _write_json(args, _JSON_KEYS + ("fleet", "no_prefix_cache"), agg,
                     probe, results)
     return results, agg

@@ -44,22 +44,30 @@ def group_rule(spec: tuple, shape, mesh, n_group: int) -> tuple:
     return spec[:g] + (None,) + spec[g + 1:]
 
 
-def leaf_spec(mesh, path: str, t, n_group: NGroup = 8) -> tuple:
-    """The final spec of one leaf: rule, sanitize, then the group rule."""
-    spec = shlib.sanitize_spec(mesh, shlib.param_spec(path, t.ndim, mesh),
-                               t.shape)
+def leaf_spec(mesh, path: str, t, n_group: NGroup = 8,
+              serve_replicated: bool = False) -> tuple:
+    """The final spec of one leaf: rule (``"data"`` dropped for the
+    inference layout), sanitize, then the group rule."""
+    spec = shlib.param_spec(path, t.ndim, mesh)
+    if serve_replicated:
+        spec = tuple(None if ax == "data" else ax for ax in spec)
+    spec = shlib.sanitize_spec(mesh, spec, t.shape)
     if t.ndim >= 2 and t.is_floating_point():
         spec = group_rule(spec, tuple(t.shape), mesh,
                           _n_group_of(n_group, path))
     return spec
 
 
-def param_shardings_sane(mesh, tree: Mapping, n_group: NGroup = 8
+def param_shardings_sane(mesh, tree: Mapping, n_group: NGroup = 8,
+                         serve_replicated: bool = False
                          ) -> Dict[str, shlib.Layout]:
-    """``{path: Layout}`` of a parameter tree (the training layout; the
-    reference's ``serve_replicated`` inference layout waits for the serving
-    mesh of ROADMAP Queue 1 item 14b-2)."""
-    return {p: shlib.layout_of(leaf_spec(mesh, p, t, n_group), t.shape, mesh)
+    """``{path: Layout}`` of a parameter tree: the training layout, or with
+    ``serve_replicated`` the reference's inference layout, every leaf
+    replicated over ``"data"`` (an entry that is ``"data"`` alone dropped
+    from its spec, as the reference drops it) and split over ``"model"``
+    only."""
+    return {p: shlib.layout_of(leaf_spec(mesh, p, t, n_group,
+                                         serve_replicated), t.shape, mesh)
             for p, t in tree.items()}
 
 

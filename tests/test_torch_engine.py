@@ -609,11 +609,11 @@ def test_guards(port, monkeypatch):
     assert t_moe.dispatch(moe) == "sort"        # a2a without a mesh
     from repro_torch.models import moe_a2a
     assert not moe_a2a.route(moe, 2, 8)         # no mesh: the dense dispatch
-    # the MoE's all-to-all over a mesh has landed; the engine on a mesh
-    # still waits
-    with pytest.raises(NotImplementedError, match=r"item 14b-2"):
-        t_serve.main(["--engine", "--reduced", "--device", "cpu", "--mesh",
-                      "1x1"])
+    # the MoE's all-to-all and the engine on a mesh have landed; the
+    # scrubber on a mesh still waits
+    with pytest.raises(NotImplementedError, match=r"item 14b-3"):
+        t_serve.main(["--engine", "--scrub", "--reduced", "--device", "cpu",
+                      "--mesh", "1x1"])
     with pytest.raises(ValueError, match="allowed"):
         t_lm.slot_state_spec("conv")
     with pytest.raises(ValueError, match="allowed"):

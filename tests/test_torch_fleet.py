@@ -6,8 +6,9 @@ olmo-1b: content-keyed salts, the coordinator's edges, the prefix trie,
 prefix reuse bitwise, the refresh contract, the fleet's JSON fields, routed
 == solo bitwise, one restored image per replica, balanced routing, drain
 and re-admit bitwise, the all-drained error, and the load generator. The
-8-device subprocess test and ``make_fleet_meshes`` wait for the multi-GPU
-slice (ROADMAP Queue 1 item 14); here ``make_fleet_meshes`` must raise.
+reference's 8-device subprocess test is held through the single-device
+results in ``tests/test_torch_engine_mesh.py`` (a fleet over per-replica
+meshes); here ``make_fleet_meshes`` refuses a world of the wrong size.
 
 Against the reference: a routed 2-replica fleet over dynamic one4n at BER
 1e-3 gives every request the JAX fleet's tokens and ECC charges, and logits
@@ -458,9 +459,17 @@ def test_fleet_all_drained_raises(olmo, sparams, tmp_path):
 
 
 def test_fleet_meshes_wait():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        fleet_lib.make_fleet_meshes("1x8", 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """Per-replica meshes need a world of n x D x M ranks (the reference
+    asserts enough devices), and ``meshes`` must be what
+    ``make_fleet_meshes`` returns (``tests/test_torch_engine_mesh.py``
+    serves a fleet over meshes)."""
+    from repro_torch.launch import mesh as mesh_lib
+    try:
+        with pytest.raises(ValueError, match="needs 16 ranks"):
+            fleet_lib.make_fleet_meshes("1x8", 2, "cpu")
+    finally:
+        mesh_lib.destroy_world()
+    with pytest.raises(ValueError, match="make_fleet_meshes"):
         fleet_lib.Fleet.from_serving_params(None, {}, n_replicas=1,
                                             meshes=[None])
 

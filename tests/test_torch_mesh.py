@@ -17,14 +17,20 @@ stores, ``dim`` j and k, n in {2, 4},
 * the stores the sharded route does not take report ``sharded=False``
   (``tests/test_serve_paths.py::test_sharded_linear_falls_back_without_
   kernel_support``), and a mesh that is not the world's size, a CUDA mesh
-  without a card, ``--engine --mesh`` and ``--fleet --mesh`` raise.
+  without a card, and ``--scrub`` or ``--expert-cim`` on a mesh raise.
 
 Several processes (4 gloo ranks, launched with torchrun's environment):
 ``serve --mesh 2x2 --rounds 2 --cim --serve-path fused --inject dynamic`` on
 reduced olmo-1b, one4n and none, gives the reference's single-device tokens
 and ECC totals (the serve report's and ``CIMDeployment.stats()`` of the
 placed image); so does a one4n ``--inject static`` arm, whose image holds
-corrected codewords, so its totals show the sum over the ``"model"`` axis. The trial mesh is ``tests/test_torch_mesh_trials.py``.
+corrected codewords, so its totals show the sum over the ``"model"`` axis.
+The same spawn runs the engine on the 2x2 mesh (``serve --engine --mesh
+2x2``: stores over "model", 4 slots split over "data", a shared prefix and
+a solo probe), a fleet of 2 replicas on 1x2 blocks (``--fleet 2 --mesh
+1x2``) and the 2-D (trial, model) sweep on 2x2; each gives the port's
+single-device tokens and ECC charges, or cells. The trial mesh is
+``tests/test_torch_mesh_trials.py``.
 """
 import dataclasses
 import functools
@@ -295,8 +301,10 @@ def test_mesh_refusals(one_rank_mesh):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs a card"):
             t_mesh.make_serve_mesh("1x1", "cuda")
-    for extra in (["--engine"], ["--fleet", "2"]):
-        with pytest.raises(NotImplementedError, match="item 14b"):
+    # the engine and the fleet run on meshes; the scrubber and the expert
+    # deployment on a mesh do not yet
+    for extra in (["--engine", "--scrub"], ["--fleet", "2", "--expert-cim"]):
+        with pytest.raises(NotImplementedError, match="item 14b-3"):
             t_serve.main(["--reduced", "--device", "cpu", "--mesh", "1x1"]
                          + extra)
 
@@ -330,6 +338,41 @@ _WORKER = textwrap.dedent('''
                 n_group=8, index=2, seeds=static, inject_mode=inject,
                 field="full").shard(mesh)
             out[arm]["stats"] = dep.stats()
+        # the engine on the 2x2 mesh: stores over "model", slots over "data"
+        eng_kw = payload["engine"]
+        static, dynamic = payload["seeds"]["one4n"]
+        params = t_serve.build_params(
+            model, cim=True, ber=payload["kw"]["ber"], inject="dynamic",
+            static_seeds=static, dynamic_seeds=dynamic, mesh=mesh,
+            verbose=False)[0]
+        res, agg, probe = t_serve.serve_engine(model, params, mesh=mesh,
+                                               verbose=False, **eng_kw)
+        out["engine"] = {r: (v.tokens, v.ecc, v.ecc_window)
+                         for r, v in res.items()}
+        out["engine_probe"] = probe
+        # a fleet of 2 replicas on 1x2 blocks of the same world
+        from repro_torch.launch import fleet as t_fleet
+        meshes = t_fleet.make_fleet_meshes("1x2", 2, "cpu")
+        params = t_serve.build_params(
+            model, cim=True, ber=payload["kw"]["ber"], inject="dynamic",
+            static_seeds=static, dynamic_seeds=dynamic,
+            mesh=meshes[meshes.replica], verbose=False)[0]
+        res, agg, probe = t_serve.serve_fleet(
+            model, params, fleet=2, meshes=meshes, verbose=False, **eng_kw)
+        out["fleet"] = {r: (v.tokens, v.ecc, v.ecc_window)
+                        for r, v in res.items()}
+        out["fleet_by_replica"] = agg["requests_by_replica"]
+        # the 2-D (trial, model) sweep
+        from repro_torch.core import sweep as t_sweep
+        from repro_torch.models import lm as t_lm
+        from repro_torch.models.losses import lm_loss
+        toks, labels = payload["sweep"]["data"]
+        ev = lambda p: lm_loss(t_lm.forward(model, p, toks),
+                               labels)[1]["accuracy"]
+        eng = t_sweep.SweepEngine(payload["sweep"]["plan"], device="cpu",
+                                  mesh=mesh_lib.make_sweep_mesh(2, 0, "cpu"))
+        out["sweep"] = eng.run_protection(
+            payload["sweep"]["seeds"], payload["sweep"]["flat"], ev)
     else:
         from repro_torch.core import sweep as t_sweep
         from repro_torch.models import cnn as t_cnn
@@ -456,6 +499,10 @@ def test_spawn_takes_no_port(tmp_path, monkeypatch):
 
 SERVE_KW = dict(batch=4, prompt_len=8, gen=4, seed=0, cim=True, ber=1e-3,
                 serve_path="fused", rounds=2)
+# the engine and fleet arms' load (4 slots split 2 a data rank) and the
+# sweep arm's plan
+ENGINE_KW = dict(slots=4, chunk=8, requests=6, prompt_range=(3, 12),
+                 gen_range=(2, 4), seed=2, shared_prefix=8, probe=1)
 # arm -> (protect, inject); the static arm's image holds corrected codewords
 SERVE_ARMS = {"one4n": ("one4n", "dynamic"), "none": ("none", "dynamic"),
               "one4n-static": ("one4n", "static")}
@@ -523,10 +570,26 @@ def test_serve_2x2_mesh_rounds_match_reference(tmp_path):
                                     get_config("olmo-1b").reduced())
     seeds = {p: _reference_seeds(params, dkey, "fused", p)
              for p in ("one4n", "none")}
+    model, sweep = _sweep_payload(state)
     result = _spawn({"mode": "serve", "state": state, "seeds": seeds,
-                     "arms": SERVE_ARMS, "kw": SERVE_KW}, tmp_path)
+                     "arms": SERVE_ARMS, "kw": SERVE_KW,
+                     "engine": ENGINE_KW, "sweep": sweep}, tmp_path)
     want = _jax_serve_rounds(jcfg, params, dkey, SERVE_ARMS)
+    single = _single_device_arms(model, seeds["one4n"], sweep)
     got = result()
+    # the engine on 2x2 and the fleet of 2 x 1x2: the single-device engine's
+    # tokens and ECC charges (every read's window) for every request; the
+    # probe replays solo on the mesh
+    for arm in ("engine", "fleet"):
+        assert got[arm] == single["engine"], arm
+    assert got["engine_probe"]["ok"]
+    assert sum(got["fleet_by_replica"].values()) == ENGINE_KW["requests"]
+    # the sweep on a 2x2 (trial, model) mesh: the single-device cells
+    assert [(c.protect, c.accuracies, c.trial_corrected,
+             c.trial_uncorrectable) for c in got["sweep"]] == \
+        [(c.protect, c.accuracies, c.trial_corrected, c.trial_uncorrectable)
+         for c in single["sweep"]]
+    assert single["sweep"][-1].corrected > 0
     # a report that forgot the sum over "model", or summed over another
     # axis, would count half of these
     assert want["one4n-static"][1]["corrected"] > 0
@@ -536,3 +599,44 @@ def test_serve_2x2_mesh_rounds_match_reference(tmp_path):
         assert np.array_equal(got[arm]["tokens"], want_tokens), arm
         assert got[arm]["ecc"] == want_ecc, arm
         assert got[arm]["stats"] == want_ecc, arm
+
+
+def _sweep_payload(state):
+    """The port's reduced olmo-1b and the sweep arm's inputs: the plan (one4n
+    and none, 2 trials), trial seeds, the flat params and the eval batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import sweep as t_sweep
+    from repro_torch.models import lm as t_lm
+    model = t_lm.LM(get_config("olmo-1b").reduced(), device="cpu")
+    model.load_state_dict(state)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, model.cfg.vocab_size, (2, 8))).long()
+    with torch.no_grad():
+        labels = t_lm.forward(model, convert.flat_from_lm(model),
+                              toks).argmax(-1)
+    plan = t_sweep.SweepPlan(bers=(1e-2,), n_trials=2,
+                             protects=("none", "one4n"))
+    seeds = t_sweep.default_seeds(3, 2, 1, 2)
+    return model, {"plan": plan, "seeds": seeds, "data": (toks, labels),
+                   "flat": convert.flat_from_lm(model)}
+
+
+def _single_device_arms(model, seeds, sweep):
+    """The engine (and fleet) arms' and the sweep arm's single-device
+    results in the port."""
+    from repro_torch.core import sweep as t_sweep
+    from repro_torch.models import lm as t_lm
+    from repro_torch.models.losses import lm_loss
+    static, dynamic = seeds
+    params = t_serve.build_params(
+        model, cim=True, ber=SERVE_KW["ber"], inject="dynamic",
+        static_seeds=static, dynamic_seeds=dynamic, verbose=False)[0]
+    kw = {k: v for k, v in ENGINE_KW.items() if k != "probe"}
+    res = t_serve.serve_engine(model, params, verbose=False, **kw)[0]
+    toks, labels = sweep["data"]
+    ev = lambda p: lm_loss(t_lm.forward(model, p, toks),  # noqa: E731
+                           labels)[1]["accuracy"]
+    cells = t_sweep.SweepEngine(sweep["plan"], device="cpu").run_protection(
+        sweep["seeds"], sweep["flat"], ev)
+    return {"engine": {r: (v.tokens, v.ecc, v.ecc_window)
+                       for r, v in res.items()}, "sweep": cells}

@@ -140,6 +140,18 @@ def test_specs_match_reference(arch, one_device_mesh):
             rules = _flat_specs(j_sharding.param_shardings(standin,
                                                            jstate.params))
         got = specs.state_shardings(rank, state)
+        # the inference layout: weights replicated over "data"
+        with mock.patch.object(j_specs, "NamedSharding", spec_of), \
+                mock.patch.object(j_sharding, "NamedSharding", spec_of):
+            serve = _flat_specs(j_specs.param_shardings_sane(
+                standin, jstate.params, serve_replicated=True))
+        for p, lay in specs.param_shardings_sane(
+                rank, state.params, serve_replicated=True).items():
+            assert all(ax != "data" for ax in lay.spec), (p, dims)
+            if lay.spec != serve[p]:
+                assert _dropped(serve[p], lay.spec, state.params[p].shape,
+                                dims), (p, dims, lay.spec, serve[p])
+                fired += 1
         # param_shardings: the reference's (rule specs) sanitized
         for p, lay in shlib.param_shardings(rank, state.params).items():
             assert lay.spec == _tuple(j_sharding.sanitize_spec(

@@ -340,7 +340,7 @@ def test_launcher_trains_on_cpu(capsys):
 
 
 def test_launcher_and_loop_raise_for_what_waits():
-    """What still waits raises: the engine on a mesh (item 14b-2); a mesh
+    """What still waits raises: the scrubber on a mesh (item 14b-3); a mesh
     that is not a ("data", "model") mesh is refused. Dynamic injection,
     which waited for the Fig. 7 schedule, trains through it (on one
     intra-op thread: the schedule's many small ops stall a thread pool
@@ -357,9 +357,9 @@ def test_launcher_and_loop_raise_for_what_waits():
     cfg = get_config("olmo-1b").reduced()
     data = MarkovLM(cfg.vocab_size, 8, 2)
     from repro_torch.launch import serve as t_serve
-    with pytest.raises(NotImplementedError, match="item 14b-2"):
+    with pytest.raises(NotImplementedError, match="item 14b-3"):
         t_serve.main(["--reduced", "--device", "cpu", "--mesh", "1x1",
-                      "--engine"])
+                      "--engine", "--scrub"])
     with pytest.raises(ValueError, match="'data', 'model'"):
         t_loop.run_training(cfg, RunConfig(steps=1, checkpoint_dir=""),
                             iter(data), device="cpu", mesh=object())

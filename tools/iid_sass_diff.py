@@ -9,8 +9,9 @@ OLD and NEW are two builds of one kernel library (``cim_read.cu`` or
 ``build/repro_torch/`` in two checkouts. Each old instantiation is paired
 with the new one whose template arguments are the same, or the old ones
 plus a trailing kind 0 (``MODEL_IID``: a kernel that gained a fault-process
-parameter), or the old ones less a trailing ``false`` (K3's kernel, which
-lost its shard-offset flag); the script reads both with ``cuobjdump
+parameter), or the old ones plus or less a trailing ``false`` (K3's kernel,
+which lost a shard-offset flag in one change and gained another, its
+column-shard flag, in a later one); the script reads both with ``cuobjdump
 -sass``, drops addresses and encodings, and prints for each pair whether
 the instruction streams are equal, or how many lines differ. Exits non-zero
 when no pair was found.
@@ -52,8 +53,8 @@ def main(argv) -> int:
     old, new = _sass(argv[1]), _sass(argv[2])
     pairs = 0
     for (family, args), code in sorted(old.items()):
-        kin = [args, args + "Li0E"] + ([args[:-4]] if args.endswith("Lb0E")
-                                      else [])
+        kin = [args, args + "Li0E", args + "Lb0E"] + (
+            [args[:-4]] if args.endswith("Lb0E") else [])
         twin = next((new[(family, a)] for a in kin if (family, a) in new),
                     None)
         if twin is None:

@@ -129,7 +129,8 @@ def main() -> int:
                 check_rc(lib.fault_inject_batched(
                     plane.data_ptr(), out.data_ptr(), seeds.data_ptr(), T, K, J,
                     2, 0x3FF, thr, m_thr, m_len, 1,
-                    kernel.MODEL_AXES[model.axis], 1, stream_of(plane)), name)
+                    kernel.MODEL_AXES[model.axis], 1, 0, J, stream_of(plane)),
+                    name)
             row.append(f"{name} {time_ms(call):.4f}")
         print(f"k3_stripped: {spec}: " + ", ".join(row) + " ms")
     print(card())
